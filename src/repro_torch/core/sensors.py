@@ -1,0 +1,126 @@
+"""Sensor-fabric simulator (port of ``repro/core/sensors.py``: the three
+stages and ``simulate_sensor``).
+
+The randomness is numpy ``default_rng`` seeded exactly as the reference
+seeds it, so both packages produce bit-identical traces from one seed.
+Host-side numpy: this is the data source, not the device path.
+"""
+from __future__ import annotations
+
+import dataclasses
+import zlib
+
+import numpy as np
+
+from repro_torch.core.measurement_model import SensorSpec, ToolSpec
+from repro_torch.core.power_model import PiecewisePower
+
+
+@dataclasses.dataclass
+class SensorTrace:
+    """One sampled stream: what the instrumentation layer recorded."""
+    name: str
+    spec: SensorSpec
+    t_read: np.ndarray        # tool-side timestamps (s)
+    t_measured: np.ndarray    # sensor-reported timestamps (s)
+    value: np.ndarray         # J (cumulative) or W
+
+    def __len__(self):
+        return len(self.t_read)
+
+    def changed_mask(self):
+        """True where the published value actually refreshed."""
+        ch = np.ones(len(self.value), bool)
+        ch[1:] = self.t_measured[1:] != self.t_measured[:-1]
+        return ch
+
+
+def _jittered_grid(t0, t1, interval, jitter, rng):
+    n = int((t1 - t0) / interval) + 2
+    steps = interval + rng.normal(0.0, jitter, n)
+    steps = np.maximum(steps, interval * 0.25)
+    t = t0 + np.cumsum(steps)
+    return t[t < t1]
+
+
+def produce(spec: SensorSpec, truth: PiecewisePower, rng) -> tuple:
+    """Stage 1: (t_measured, value) at the sensor's own cadence.
+
+    ``spec.delay_s`` is a fixed sensing latency (the sample stamped ``tm``
+    reflects the state at ``tm - delay_s``); ``spec.drift_ppm`` stretches
+    the reported clock linearly from the run start.
+    """
+    t0, t1 = truth.t0, truth.t1
+    tm = _jittered_grid(t0, t1, spec.production_interval_s,
+                        spec.production_jitter_s, rng)
+    te = np.maximum(tm - spec.delay_s, t0) if spec.delay_s else tm
+    if spec.drift_ppm:
+        tm = tm + (tm - t0) * (spec.drift_ppm * 1e-6)
+    if spec.kind == "energy_cum":
+        e = truth.energy_between(t0, te) * spec.scale \
+            + spec.offset_w * (te - t0)
+        ticks = np.floor(e / spec.quantum)
+        if spec.wrap_bits:
+            ticks = np.mod(ticks, 2.0 ** spec.wrap_bits)
+        val = ticks * spec.quantum
+    else:
+        if spec.filter_kind == "ma" and spec.filter_window_s > 0:
+            w = spec.filter_window_s
+            val = truth.energy_between(np.maximum(te - w, t0), te) \
+                / np.maximum(te - np.maximum(te - w, t0), 1e-9)
+        elif spec.filter_kind == "iir" and spec.filter_window_s > 0:
+            tau = spec.filter_window_s
+            seg = truth.average_power(
+                np.concatenate([[t0], te[:-1]]), te)
+            val = np.empty_like(seg)
+            y = truth.power_at(t0)
+            prev_t = t0
+            for i, (t, p) in enumerate(zip(te, seg)):
+                a = np.exp(-max(t - prev_t, 0.0) / tau)
+                y = a * y + (1 - a) * p
+                val[i] = y
+                prev_t = t
+        else:
+            val = truth.power_at(te)
+        val = val * spec.scale + spec.offset_w
+        if spec.noise_w:
+            val = val + rng.normal(0.0, spec.noise_w, len(val))
+        if spec.quantum:
+            val = np.round(val / spec.quantum) * spec.quantum
+    t_reported = tm + rng.normal(0.0, spec.timestamp_jitter_s, len(tm))
+    return t_reported, val
+
+
+def publish(spec: SensorSpec, tm, val, t0, t1, rng) -> tuple:
+    """Stage 2: driver refresh — the latest produced sample at each
+    publication instant; returns (t_pub, t_measured_pub, value_pub)."""
+    tp = _jittered_grid(t0, t1, spec.driver_refresh_s,
+                        spec.driver_jitter_s, rng)
+    idx = np.searchsorted(tm, tp, side="right") - 1
+    keep = idx >= 0
+    return tp[keep], tm[idx[keep]], val[idx[keep]]
+
+
+def sample(spec: SensorSpec, tool: ToolSpec, tp, tmp, vp, t0, t1,
+           rng) -> SensorTrace:
+    """Stage 3: tool reads — latest publication at each read instant."""
+    eff = tool.sample_interval_s \
+        + tool.overhead_s_per_read * tool.n_sensors_polled
+    tr = _jittered_grid(t0, t1, eff, tool.sample_jitter_s, rng)
+    if tool.drop_prob > 0:
+        tr = tr[rng.random(len(tr)) > tool.drop_prob]
+    idx = np.searchsorted(tp, tr, side="right") - 1
+    keep = idx >= 0
+    tr = tr[keep]
+    idx = idx[keep]
+    return SensorTrace(spec.name, spec, tr, tmp[idx], vp[idx])
+
+
+def simulate_sensor(spec: SensorSpec, tool: ToolSpec,
+                    truth: PiecewisePower, seed=0) -> SensorTrace:
+    # stable per-sensor stream (python hash() is process-salted)
+    rng = np.random.default_rng(
+        (zlib.crc32(spec.name.encode()) ^ seed) & 0x7FFFFFFF)
+    tm, val = produce(spec, truth, rng)
+    tp, tmp, vp = publish(spec, tm, val, truth.t0, truth.t1, rng)
+    return sample(spec, tool, tp, tmp, vp, truth.t0, truth.t1, rng)

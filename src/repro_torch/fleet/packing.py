@@ -1,0 +1,88 @@
+"""Ragged-trace packing (port of ``repro/fleet/packing.py``: the parts
+``pack_stream_rows`` uses).
+
+Host-side numpy: a straight memcpy of the traces into padded
+(fleet, samples) arrays, identical to the reference's bytes, so both
+packages hand their pipelines the same float32 rows.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from repro_torch.core.reconstruction import unwrap_counter
+
+# the fleet row tile: rows are padded to a multiple of this, and the
+# delay tracker pins its xcorr row tile to it (a row's score must not
+# depend on how many rows are scored together)
+ROW_ALIGN = 8
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+@dataclasses.dataclass
+class PackedFleet:
+    """Padded fleet of sensor streams + per-row metadata.
+
+    energy/times: (F, S) with F a multiple of ROW_ALIGN; rows beyond
+    ``n_traces`` are all-padding, and each row's tail replicates its last
+    sample.  Counters are unwrapped in float64 and rebased (energy by the
+    row's first sample, time by one fleet-wide ``t0``) before the cast,
+    so ``wrap_period`` is 0 for every packed row.
+    """
+    energy: np.ndarray        # (F, S) cumulative J, rebased per row
+    times: np.ndarray         # (F, S) t_measured (or t_read), minus t0
+    n_samples: np.ndarray     # (F,) raw length per row
+    wrap_period: np.ndarray   # (F,) float
+    names: list               # len n_traces
+    n_traces: int
+    t0: float = 0.0           # fleet-wide time origin
+    e0: np.ndarray = None     # (F,) per-row energy baselines (float64)
+
+    @property
+    def shape(self):
+        return self.energy.shape
+
+
+def pack_traces(traces, *, use_t_measured: bool = True,
+                dtype=np.float32, min_samples: int = 2,
+                t0: float = None) -> PackedFleet:
+    """Pack ragged SensorTraces into a padded (fleet, samples) block.
+
+    ``t0`` pins the shared time origin (default: the earliest sample of
+    THESE traces).
+    """
+    traces = list(traces)
+    assert traces, "pack_traces needs at least one trace"
+    n = len(traces)
+    f = _round_up(n, ROW_ALIGN)
+    s = max(max(len(tr) for tr in traces), min_samples)
+    energy = np.zeros((f, s), dtype)
+    times = np.zeros((f, s), dtype)
+    n_samples = np.zeros((f,), np.int32)
+    wrap = np.zeros((f,), dtype)
+    e0 = np.zeros((f,), np.float64)
+    names = []
+    if t0 is None:
+        t0 = min(float((tr.t_measured if use_t_measured
+                        else tr.t_read)[0]) for tr in traces)
+    for i, tr in enumerate(traces):
+        k = len(tr)
+        t = (tr.t_measured if use_t_measured else tr.t_read)
+        v = tr.value
+        if tr.spec.wrap_period_j:
+            v = unwrap_counter(v, period=tr.spec.wrap_period_j)
+        e0[i] = v[0]
+        energy[i, :k] = v - e0[i]
+        times[i, :k] = t - t0
+        if k < s:
+            # tail: replicate the last sample (zero-width intervals)
+            energy[i, k:] = energy[i, k - 1]
+            times[i, k:] = times[i, k - 1]
+        n_samples[i] = k
+        names.append(tr.name)
+    return PackedFleet(energy, times, n_samples, wrap, names, n,
+                       t0=t0, e0=e0)

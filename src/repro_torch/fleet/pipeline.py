@@ -1,0 +1,1342 @@
+"""The windowed streaming stage pipeline on the device (port of
+``repro/fleet/pipeline.py``, the windowed engine).
+
+    Ingest -> Reconstruct -> AlignTrack -> Regrid/Fuse -> PhaseAttribute
+
+Every stage consumes one fixed-width (fleet, chunk) window plus its carry
+dataclass, exactly as in the reference; here the windows and carries are
+torch tensors that stay on one device between stages:
+
+  Ingest       reorder/duplicate repair with its dq counters, branch-free
+               (the reference's "nothing to repair" shortcut becomes a
+               device-side select, so no host round trip decides it).
+  Reconstruct  per-row wrap-corrected dE/dt: ``power_reconstruct_rows``.
+  AlignTrack   online delay tracking: a uniform-grid ring filled through
+               ``grid_resample``, scored by ``xcorr_align`` every ``hop``
+               slots, float64 EMA on the device.
+  Regrid/Fuse  delay-corrected ``grid_resample`` behind the emit frontier
+               + the inverse-variance sufficient statistics, over a
+               padded (devices, k_max, slots) layout (no per-device loop).
+  PhaseAttr    per-(device, coverage pattern, phase, stream) float64
+               integrals in a dense (D, 2**k_max, P, k_max) accumulator,
+               finalized with the end-of-run weights.
+
+Host round trips per window: the two emit/fill frontiers (one scalar
+each) and the two tail-reach checks (one bool each).  Float64 sums fold
+over fixed axes: no atomics, so results are deterministic.
+
+Not ported yet (the entry point raises ``NotImplementedError``): the
+scan engine, multi-host collectives, checkpoints, health and metering
+stages, data-quality raise policies and calibration corrections.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.align.delay import (RefbankCache, estimate_delays,
+                                     stream_reference)
+from repro_torch.device import resolve_device
+from repro_torch.fleet.config import resolve_config
+from repro_torch.fleet.packing import ROW_ALIGN, _round_up, pack_traces
+from repro_torch.kernels.grid_resample.ops import grid_resample
+from repro_torch.kernels.power_reconstruct.kernel import (
+    power_reconstruct_rows_kernel)
+
+PHASE_ALIGN = 32
+# the fused accumulator is dense over coverage patterns: 2**k_max slots
+MAX_GROUP = 8
+
+_F64 = torch.float64
+
+
+def pad_phases(phases, dtype=np.float32):
+    """(P, 2) [a, b) windows -> array padded to the PHASE_ALIGN tile with
+    zero-width windows (which integrate to exactly zero energy)."""
+    ph = np.asarray(phases, dtype).reshape(-1, 2)
+    p = len(ph)
+    if p == 0:
+        raise ValueError("streaming attribution needs at least one phase "
+                         "window (got an empty phase list)")
+    pad = (-p) % PHASE_ALIGN
+    if pad:
+        ph = np.concatenate([ph, np.zeros((pad, 2), dtype)])
+    return ph
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return {np.dtype(np.float32): torch.float32,
+            np.dtype(np.float64): torch.float64}[np.dtype(dtype)]
+
+
+def sanitize_chunk(times, energy, valid=None, carry_t=None, carry_e=None,
+                   return_counts: bool = False):
+    """Make each row's hold edges non-decreasing (device, branch-free).
+
+    Keeps a sample iff its timestamp strictly exceeds the running max of
+    everything valid before it, the previous chunk's carry included;
+    dropped samples (reordered reads, masked slots) are replaced by the
+    last kept (t, E), so they become zero-width.  When nothing in the
+    whole chunk needs repair (all valid, no decrease, nothing behind the
+    carry) the input is returned unchanged, exactly as the reference's
+    shortcut does — selected on the device instead of branched on.
+
+    ``return_counts=True`` also returns ``{"late", "masked"}`` (F,) int64
+    tallies: valid samples repaired because their time had already been
+    passed (equal-time duplicates are not counted), and invalid slots.
+    """
+    t, e = times, energy
+    f, c = t.shape
+    dev = t.device
+    ninf = torch.tensor(-torch.inf, dtype=t.dtype, device=dev)
+    vm = (torch.ones((f, c), dtype=torch.bool, device=dev) if valid is None
+          else valid.to(torch.bool))
+    lead = (torch.full((f, 1), -torch.inf, dtype=t.dtype, device=dev)
+            if carry_t is None else carry_t.to(t.dtype))
+    tv = torch.where(vm, t, ninf)
+    run_max = torch.cummax(torch.cat([lead, tv], dim=1), dim=1).values
+    prev_max = run_max[:, :-1]
+    keep = tv > prev_max
+    idx = torch.arange(c, device=dev).expand(f, c)
+    last = torch.cummax(torch.where(keep, idx, -1), dim=1).values
+    src = last.clamp_min(0)
+    t_eff = torch.gather(t, 1, src)
+    e_eff = torch.gather(e, 1, src)
+    no_prev = last < 0                   # before the chunk's first kept
+    if carry_t is not None:
+        t_eff = torch.where(no_prev, carry_t.to(t.dtype), t_eff)
+        e_eff = torch.where(no_prev, carry_e.to(e.dtype), e_eff)
+    else:
+        # first chunk: collapse the leading dropped run onto the first
+        # kept sample (zero width, zero energy)
+        first = keep.to(torch.uint8).argmax(dim=1, keepdim=True)
+        t_eff = torch.where(no_prev, torch.gather(t, 1, first), t_eff)
+        e_eff = torch.where(no_prev, torch.gather(e, 1, first), e_eff)
+    clean = vm.all() & ~(t[:, 1:] < t[:, :-1]).any()
+    if carry_t is not None:
+        clean = clean & ~(t[:, :1] < carry_t.to(t.dtype)).any()
+    t_eff = torch.where(clean, t, t_eff)
+    e_eff = torch.where(clean, e, e_eff)
+    if not return_counts:
+        return t_eff, e_eff
+    late = (vm & ~keep & (tv < prev_max)).sum(dim=1, dtype=torch.int64)
+    counts = {"late": torch.where(clean, 0, late),
+              "masked": (~vm).sum(dim=1, dtype=torch.int64)}
+    return t_eff, e_eff, counts
+
+
+def _maskfill_chunk(times, values, valid, carry_t, carry_v):
+    """Valid-mask carry-forward: every slot takes the last VALID (t, v)
+    at-or-before it; the (always valid) carry column seeds rows whose
+    chunk starts invalid.  Equal-timestamp valid samples are kept."""
+    f, c = times.shape
+    dev = times.device
+    ok = torch.cat([torch.ones((f, 1), dtype=torch.bool, device=dev),
+                    valid.to(torch.bool)], dim=1)
+    aug_t = torch.cat([carry_t.to(times.dtype), times], dim=1)
+    aug_v = torch.cat([carry_v.to(values.dtype), values], dim=1)
+    idx = torch.arange(c + 1, device=dev).expand(f, c + 1)
+    last = torch.cummax(torch.where(ok, idx, 0), dim=1).values
+    return (torch.gather(aug_t, 1, last)[:, 1:],
+            torch.gather(aug_v, 1, last)[:, 1:])
+
+
+# ---------------------------------------------------------------------------
+# Window types passed between stages
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ClosedWindow:
+    """One (F, C+1) window of hold-interval EDGES on the device.
+
+    Column 0 is the carry edge (previous window's last sample; a
+    zero-width duplicate of the first sample on the first window), so
+    sample j>=1 closes (times[:, j-1], times[:, j]].  ``t_first[i]`` is
+    row i's first defined query time (+inf until known).
+    """
+    times: torch.Tensor        # (F, C+1)
+    values: torch.Tensor       # (F, C+1) cumulative J (counter) or W
+    t_first: torch.Tensor      # (F,) float64
+
+
+@dataclasses.dataclass
+class GriddedWindow:
+    """Emitted slots [lo, lo+G) of the shared uniform output grid."""
+    lo: int                    # first slot index
+    grid: torch.Tensor         # (G,) float64 slot times (pipeline time)
+    values: torch.Tensor       # (n_streams, G) regridded power
+    mask: torch.Tensor         # (n_streams, G) defined-span coverage
+
+
+# ---------------------------------------------------------------------------
+# Stage 1: Ingest
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class IngestCarry:
+    """Last sanitized hold edge per row."""
+    t: torch.Tensor            # (F, 1)
+    v: torch.Tensor            # (F, 1)
+
+
+class IngestStage:
+    """Raw (times, values[, valid]) chunks -> sanitized closed windows.
+
+    mode="sanitize"  reorder/duplicate repair incl. masked slots;
+    mode="maskfill"  valid-mask carry-forward only, equal times kept.
+
+    kind_row (sanitize mode): True marks cumulative-counter rows, whose
+    defined span opens at the first strict timestamp advance; power rows
+    open at their first sample.  None treats every row as a counter.
+    The dq counters (``dq_late``/``dq_masked``, cumulative, and
+    ``dq_last``, this window's) are kept whatever the policy: repair and
+    count.  Raise policies are not ported.
+    """
+
+    def __init__(self, n_streams: int, *, mode: str = "sanitize",
+                 kind_row=None, device=None):
+        assert mode in ("sanitize", "maskfill")
+        self.mode = mode
+        self.n_streams = n_streams
+        self.device = resolve_device(device)
+        self.kind_row = (None if kind_row is None else torch.as_tensor(
+            np.asarray(kind_row, bool).reshape(-1), device=self.device))
+        self.reset()
+
+    def reset(self):
+        self.carry: IngestCarry = None
+        self._t_first = None
+        self._unseeded = None      # (F,) bool: rows with no valid sample yet
+        self.dq_late = None        # (F,) int64 cumulative repair counts
+        self.dq_masked = None
+        self.dq_last: dict = {}
+        return self
+
+    def _dq_account(self, counts: dict):
+        if self.dq_late is None:
+            self.dq_late = torch.zeros_like(counts["late"])
+            self.dq_masked = torch.zeros_like(counts["masked"])
+        self.dq_late += counts["late"]
+        self.dq_masked += counts["masked"]
+        self.dq_last = counts
+
+    def _seed_first(self, t, v, valid):
+        f = t.shape[0]
+        if valid is None:
+            fi = torch.zeros((f, 1), dtype=torch.int64, device=t.device)
+            self._unseeded = torch.zeros((f,), dtype=torch.bool,
+                                         device=t.device)
+        else:
+            vb = valid.to(torch.bool)
+            fi = vb.to(torch.uint8).argmax(dim=1, keepdim=True)
+            self._unseeded = ~vb.any(dim=1)
+        seed_t = torch.gather(t, 1, fi)
+        seed_v = torch.gather(v, 1, fi)
+        self.carry = IngestCarry(t=seed_t, v=seed_v)
+        seed64 = torch.where(self._unseeded, torch.inf,
+                             seed_t[:, 0].to(_F64))
+        if self.mode == "maskfill":
+            self._t_first = seed64
+        elif self.kind_row is None:
+            self._t_first = torch.full((f,), torch.inf, dtype=_F64,
+                                       device=t.device)
+        else:
+            self._t_first = torch.where(self.kind_row, torch.inf, seed64)
+
+    def _reseed(self, t, v, valid):
+        """Deferred seeding: a row dark through every earlier chunk seeds
+        zero-width at its first valid sample now (a no-op select for
+        rows already seeded)."""
+        f = t.shape[0]
+        if valid is None:
+            has = torch.ones((f,), dtype=torch.bool, device=t.device)
+            fi = torch.zeros((f, 1), dtype=torch.int64, device=t.device)
+        else:
+            vb = valid.to(torch.bool)
+            has = vb.any(dim=1)
+            fi = vb.to(torch.uint8).argmax(dim=1, keepdim=True)
+        reseed = self._unseeded & has
+        st = torch.gather(t, 1, fi)
+        sv = torch.gather(v, 1, fi)
+        r = reseed[:, None]
+        self.carry = IngestCarry(t=torch.where(r, st, self.carry.t),
+                                 v=torch.where(r, sv, self.carry.v))
+        st64 = st[:, 0].to(_F64)
+        if self.mode == "maskfill":
+            self._t_first = torch.where(reseed, st64, self._t_first)
+        elif self.kind_row is not None:
+            self._t_first = torch.where(
+                reseed & ~self.kind_row,
+                torch.minimum(self._t_first, st64), self._t_first)
+        self._unseeded = self._unseeded & ~reseed
+
+    def update(self, times, values, valid=None) -> ClosedWindow:
+        t, v = times, values
+        f = t.shape[0]
+        if self.carry is None:
+            self._seed_first(t, v, valid)
+        else:
+            self._reseed(t, v, valid)
+        zeros = torch.zeros((f,), dtype=torch.int64, device=t.device)
+        if self.mode == "sanitize":
+            t_eff, v_eff, dq = sanitize_chunk(t, v, valid, self.carry.t,
+                                              self.carry.v,
+                                              return_counts=True)
+            self._dq_account(dq)
+        elif valid is None:
+            t_eff, v_eff = t, v
+            self._dq_account({"late": zeros, "masked": zeros.clone()})
+        else:
+            t_eff, v_eff = _maskfill_chunk(t, v, valid, self.carry.t,
+                                           self.carry.v)
+            self._dq_account({"late": zeros, "masked": (~valid.to(
+                torch.bool)).sum(dim=1, dtype=torch.int64)})
+        t_aug = torch.cat([self.carry.t, t_eff], dim=1)
+        v_aug = torch.cat([self.carry.v, v_eff], dim=1)
+        if self.mode == "sanitize":
+            # first strict advance past the seed = first closing edge.
+            # Applied every window: once a row's t_first is finite every
+            # later edge is >= it, so the minimum leaves it unchanged.
+            adv = t_aug > t_aug[:, :1]
+            j = adv.to(torch.uint8).argmax(dim=1, keepdim=True)
+            tf = torch.where(adv.any(dim=1),
+                             torch.gather(t_aug, 1, j)[:, 0].to(_F64),
+                             torch.inf)
+            self._t_first = torch.minimum(self._t_first, tf)
+        self.carry = IngestCarry(t=t_aug[:, -1:].contiguous(),
+                                 v=v_aug[:, -1:].contiguous())
+        return ClosedWindow(times=t_aug, values=v_aug,
+                            t_first=self._t_first)
+
+
+# ---------------------------------------------------------------------------
+# Stage 2: Reconstruct
+# ---------------------------------------------------------------------------
+
+class ReconstructStage:
+    """Counter rows -> instantaneous power via wrap-corrected dE/dt, on
+    the ``power_reconstruct_rows`` kernel; power rows pass through.
+    Stateless given closed windows."""
+
+    def __init__(self, kind_row, wrap_row=None, *, device=None):
+        self.device = resolve_device(device)
+        kr = np.asarray(kind_row, bool).reshape(-1)
+        f = len(kr)
+        self.any_counter = bool(kr.any())
+        self.kind_row = torch.as_tensor(kr, device=self.device)
+        self.wrap_row = torch.as_tensor(
+            np.zeros((f, 1)) if wrap_row is None
+            else np.asarray(wrap_row, np.float64).reshape(f, 1),
+            dtype=_F64, device=self.device)
+
+    def reset(self):
+        return self
+
+    def update(self, chunk: ClosedWindow) -> ClosedWindow:
+        t, v = chunk.times, chunk.values
+        if not self.any_counter:
+            return chunk
+        power = power_reconstruct_rows_kernel(
+            v, t, self.wrap_row.to(t.dtype))
+        out_v = torch.where(self.kind_row[:, None], power.to(v.dtype), v)
+        return ClosedWindow(times=t, values=out_v, t_first=chunk.t_first)
+
+
+# ---------------------------------------------------------------------------
+# Shared carry piece: raw-sample tails for window-crossing grid queries
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TailCarry:
+    """Last ``T`` raw samples per row + the newest time that slid out
+    (queries must stay > ``dropped_t`` to be answerable)."""
+    t: torch.Tensor            # (F, T)
+    v: torch.Tensor            # (F, T)
+    dropped_t: torch.Tensor    # (F,) float64
+
+
+class _RowTail:
+    def __init__(self, width: int):
+        self.width = width
+        self.carry: TailCarry = None
+
+    def reset(self):
+        self.carry = None
+        return self
+
+    def augmented(self, chunk: ClosedWindow):
+        """[-inf sentinel | tail | window] rows for ``grid_resample``.
+
+        The sentinel neutralizes the op's own lower-span mask (the true
+        span is re-applied from ``chunk.t_first`` by ``_query_grid``); a
+        lower bound never selects it for a finite query.
+        """
+        t, v = chunk.times, chunk.values
+        f = t.shape[0]
+        sent_t = torch.full((f, 1), -torch.inf, dtype=t.dtype,
+                            device=t.device)
+        sent_v = torch.zeros((f, 1), dtype=v.dtype, device=v.device)
+        if self.carry is None:
+            # zero-width replicas of the first edge: search-invisible
+            self.carry = TailCarry(
+                t=t[:, :1].repeat(1, self.width),
+                v=v[:, :1].repeat(1, self.width),
+                dropped_t=torch.full((f,), -torch.inf, dtype=_F64,
+                                     device=t.device))
+        return (torch.cat([sent_t, self.carry.t, t], dim=1),
+                torch.cat([sent_v, self.carry.v, v], dim=1))
+
+    def advance(self, chunk: ClosedWindow):
+        """Slide the window into the tail (call after querying);
+        ``dropped_t`` records only dropped samples STRICTLY older than
+        the retained head."""
+        t = torch.cat([self.carry.t, chunk.times], dim=1)
+        v = torch.cat([self.carry.v, chunk.values], dim=1)
+        gone = t[:, :-self.width].to(_F64)
+        head = t[:, -self.width].to(_F64)[:, None]
+        if gone.shape[1]:
+            strict = torch.where(gone < head, gone, -torch.inf).amax(dim=1)
+        else:
+            strict = torch.full((t.shape[0],), -torch.inf, dtype=_F64,
+                                device=t.device)
+        dropped = torch.maximum(self.carry.dropped_t, strict)
+        self.carry = TailCarry(t=t[:, -self.width:].contiguous(),
+                               v=v[:, -self.width:].contiguous(),
+                               dropped_t=dropped)
+
+    def check_reach(self, q_min, what: str):
+        """Raise when a query needs samples older than the tail holds
+        (one bool comes back to the host)."""
+        bad = q_min <= self.carry.dropped_t
+        if bool(bad.any()):
+            i = int(torch.argmax(bad.to(torch.uint8)))
+            q = float(q_min if not isinstance(q_min, torch.Tensor)
+                      or q_min.dim() == 0 else q_min[i])
+            raise ValueError(
+                f"{what}: row {i} query at t={q:.6f} reaches behind the "
+                f"{self.width}-sample tail (oldest answerable "
+                f"t>{float(self.carry.dropped_t[i]):.6f}); widen `tail` "
+                f"or reduce the delay range")
+
+
+def _slot_grid(origin: float, step: float, lo: int, hi: int, device):
+    """(hi-lo+1,) float64 slot times ``origin + step * idx`` — the same
+    two IEEE operations as the reference's numpy expression."""
+    idx = torch.arange(lo, hi + 1, dtype=_F64, device=device)
+    return origin + step * idx
+
+
+def _query_grid(rows_t, rows_v, grid64, delays64, t_first):
+    """Hold-resample all rows at ``grid + delay[row]`` -> (vals, mask).
+
+    Queries are formed in the row dtype, exactly as the reference does,
+    so both compare the SAME float32 values at hold discontinuities.
+    """
+    f, s = rows_t.shape
+    dtype, dev = rows_t.dtype, rows_t.device
+    n_row = torch.full((f,), s, dtype=torch.int32, device=dev)
+    first_row = torch.zeros((f,), dtype=torch.int32, device=dev)
+    g = grid64.to(dtype)
+    d = delays64.to(dtype)
+    out, mask = grid_resample(rows_t, rows_v, n_row, first_row, g, d,
+                              mode="hold")
+    ge = g[None, :] + d[:, None]
+    mask = mask & (ge >= t_first.to(dtype)[:, None])
+    return torch.where(mask, out, torch.zeros((), dtype=dtype,
+                                              device=dev)), mask
+
+
+# ---------------------------------------------------------------------------
+# Stage 3: AlignTrack — online per-sensor delay tracking
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class AlignCarry:
+    """Sliding uniform-grid ring + the tracked per-row delay EMA."""
+    ring_v: torch.Tensor       # (F, W) regridded power on the track grid
+    ring_m: torch.Tensor       # (F, W) coverage
+    next_slot: int             # global index of the next unfilled slot
+    last_est_slot: int
+    delay: torch.Tensor        # (F,) float64 EMA-tracked lag (seconds)
+    seen: torch.Tensor         # (F,) bool — row has >=1 accepted estimate
+
+
+@dataclasses.dataclass
+class DelayTrackPoint:
+    """One per-window re-estimate (kept for tests/diagnostics)."""
+    t_lo: float                # window start (pipeline time)
+    t_hi: float
+    t_center: float
+    raw: torch.Tensor          # (n_streams,) this window's lag estimate
+    ema: torch.Tensor          # (n_streams,) tracked delay after folding
+    peak: torch.Tensor         # (n_streams,) correlation at the peak
+
+
+class AlignTrackStage:
+    """Re-estimate per-stream delays on sliding windows, online
+    (single host).
+
+    An (F, window) ring on a uniform ``grid_step`` grid is filled from
+    each closed window through the hold regrid; every ``hop`` new slots
+    the FULL ring is scored against the reference by ``xcorr_align`` and
+    the per-window lag folds into an exponential moving average.
+
+    reference: callable(times_f64 ndarray) -> (W,) watts, evaluated on the
+    host (e.g. ``lambda t: truth.power_at(t + t0)``).  When None, each
+    group's FIRST stream is its own reference (``groups`` required);
+    that mode scores one group per launch.  Estimates with peak
+    correlation below ``min_corr`` leave the EMA untouched.
+    grid_step must come from the MEASURED cadence (see the reference).
+    """
+
+    def __init__(self, n_streams: int, *, grid_step: float,
+                 reference=None, groups=None, window: int = 2048,
+                 hop: int = 512, max_lag: int = 64, ema: float = 0.5,
+                 min_corr: float = 0.2, min_fill: int = None,
+                 tail: int = 256, delay0=None):
+        assert reference is not None or groups is not None, \
+            "AlignTrack needs a reference schedule or group structure"
+        self.n_streams = n_streams
+        self.step = float(grid_step)
+        self.reference = reference
+        self.groups = groups
+        self.window = int(window)
+        self.hop = int(hop)
+        self.max_lag = int(max_lag)
+        self.ema = float(ema)
+        self.min_corr = float(min_corr)
+        self.min_fill = (self.window // 2 if min_fill is None
+                         else int(min_fill))
+        self._tail = _RowTail(tail)
+        self._delay0 = (np.zeros((0,)) if delay0 is None
+                        else np.asarray(delay0, np.float64))
+        self._banks = RefbankCache()
+        self.reset()
+
+    def reset(self):
+        self.origin = None
+        self.carry: AlignCarry = None
+        self.history: list = []
+        self._tail.reset()
+        return self
+
+    @property
+    def delay_s(self) -> torch.Tensor:
+        """(F,) currently tracked per-row delay (float64 seconds)."""
+        if self.carry is None:
+            raise RuntimeError("AlignTrack has seen no data yet")
+        return self.carry.delay
+
+    def _init(self, chunk: ClosedWindow):
+        f = chunk.times.shape[0]
+        n = self.n_streams
+        dev = chunk.times.device
+        self.origin = float(chunk.times[:n, 0].to(_F64).min())
+        delay = torch.zeros((f,), dtype=_F64, device=dev)
+        if len(self._delay0):
+            delay[:len(self._delay0)] = torch.as_tensor(
+                self._delay0, dtype=_F64, device=dev)
+        self.carry = AlignCarry(
+            ring_v=torch.zeros((f, self.window), dtype=chunk.values.dtype,
+                               device=dev),
+            ring_m=torch.zeros((f, self.window), dtype=torch.bool,
+                               device=dev),
+            next_slot=0, last_est_slot=0, delay=delay,
+            seen=torch.zeros((f,), dtype=torch.bool, device=dev))
+
+    def update(self, chunk: ClosedWindow) -> ClosedWindow:
+        if self.carry is None:
+            self._init(chunk)
+        c = self.carry
+        n = self.n_streams
+        rows_t, rows_v = self._tail.augmented(chunk)
+        frontier = float(chunk.times[:n, -1].to(_F64).min())
+        hi = int(np.floor((frontier - self.origin) / self.step - 0.01))
+        if hi >= c.next_slot:
+            grid64 = _slot_grid(self.origin, self.step, c.next_slot, hi,
+                                rows_t.device)
+            self._tail.check_reach(
+                self.origin + self.step * c.next_slot, "AlignTrack")
+            vals, mask = _query_grid(
+                rows_t, rows_v, grid64,
+                torch.zeros((rows_t.shape[0],), dtype=_F64,
+                            device=rows_t.device), chunk.t_first)
+            k = grid64.shape[0]
+            if k >= self.window:
+                c.ring_v = vals[:, -self.window:].contiguous()
+                c.ring_m = mask[:, -self.window:].contiguous()
+            else:
+                c.ring_v = torch.cat([c.ring_v[:, k:], vals], dim=1)
+                c.ring_m = torch.cat([c.ring_m[:, k:], mask], dim=1)
+            c.next_slot = hi + 1
+        self._tail.advance(chunk)
+        if (c.next_slot - c.last_est_slot >= self.hop
+                and c.next_slot >= self.min_fill):
+            self._estimate()
+            c.last_est_slot = c.next_slot
+        return chunk
+
+    def _estimate(self):
+        c = self.carry
+        n = self.n_streams
+        w_idx = np.arange(c.next_slot - self.window, c.next_slot)
+        times64 = self.origin + self.step * w_idx
+        f = c.ring_v.shape[0]
+        dev = c.ring_v.device
+
+        def run(vals, mask, ref):
+            return estimate_delays(vals, mask.to(vals.dtype), ref,
+                                   step=self.step, max_lag=self.max_lag,
+                                   bank_cache=self._banks)
+
+        if self.reference is not None:
+            ref = np.asarray(self.reference(times64), np.float64)
+            est = run(c.ring_v, c.ring_m, ref)
+            raw, peak = est.delay_s, est.peak_corr
+        else:
+            raw = torch.zeros((f,), dtype=_F64, device=dev)
+            peak = torch.zeros((f,), dtype=_F64, device=dev)
+            lo = 0
+            for g in self.groups:
+                hi = lo + g
+                ref = stream_reference(c.ring_v[lo], c.ring_m[lo])
+                est = run(c.ring_v[lo:hi], c.ring_m[lo:hi], ref)
+                raw[lo:hi], peak[lo:hi] = est.delay_s, est.peak_corr
+                lo = hi
+        good = peak >= self.min_corr
+        good[n:] = False                      # padding rows never track
+        a = torch.where(c.seen, self.ema, 1.0)  # first estimate: direct
+        c.delay = torch.where(good, (1 - a) * c.delay + a * raw, c.delay)
+        c.seen = c.seen | good
+        self.history.append(DelayTrackPoint(
+            t_lo=float(times64[0]), t_hi=float(times64[-1]),
+            t_center=float(0.5 * (times64[0] + times64[-1])),
+            raw=raw[:n].clone(), ema=c.delay[:n].clone(),
+            peak=peak[:n].clone()))
+
+
+# ---------------------------------------------------------------------------
+# Padded device-group layout shared by Regrid/Fuse and PhaseAttribute
+# ---------------------------------------------------------------------------
+
+class _GroupLayout:
+    """Rows grouped by device as a padded (D, k_max) index.
+
+    ``rows[d, k]`` is the row of device d's k-th stream (0 for padding),
+    ``valid[d, k]`` marks real streams and ``flat[i]`` is stream i's
+    position in the flattened (D * k_max) layout, so per-stream results
+    come back by one gather.
+    """
+
+    def __init__(self, group_sizes, device):
+        sizes = [int(k) for k in group_sizes]
+        assert sizes and min(sizes) >= 1, group_sizes
+        self.n_devices = len(sizes)
+        self.k_max = max(sizes)
+        rows = np.zeros((self.n_devices, self.k_max), np.int64)
+        valid = np.zeros((self.n_devices, self.k_max), bool)
+        flat = []
+        lo = 0
+        for d, k in enumerate(sizes):
+            rows[d, :k] = np.arange(lo, lo + k)
+            valid[d, :k] = True
+            flat += [d * self.k_max + j for j in range(k)]
+            lo += k
+        self.rows = torch.as_tensor(rows, device=device)
+        self.valid = torch.as_tensor(valid, device=device)
+        self.flat = torch.as_tensor(np.asarray(flat, np.int64),
+                                    device=device)
+
+    def gather(self, per_row: torch.Tensor) -> torch.Tensor:
+        """(n, ...) per-stream -> (D, k_max, ...) with zeros/False pads."""
+        out = per_row[self.rows]
+        pad = self.valid.reshape(self.valid.shape
+                                 + (1,) * (per_row.dim() - 1))
+        return out & pad if out.dtype == torch.bool else out * pad
+
+    def scatter(self, padded: torch.Tensor) -> torch.Tensor:
+        """(D, k_max) -> (n,) per-stream."""
+        return padded.reshape(-1)[self.flat]
+
+
+# ---------------------------------------------------------------------------
+# Stage 4: Regrid/Fuse — streaming resample + fusion statistics
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FuseCarry:
+    """Emit frontier + the additive inverse-variance sufficient stats
+    (per-stream valid counts and squared residuals against the per-slot
+    unweighted cross-sensor mean)."""
+    next_slot: int
+    n_k: torch.Tensor          # (n_streams,) float64
+    ssr: torch.Tensor          # (n_streams,) float64
+
+
+class RegridFuseStage:
+    """Power windows -> delay-corrected shared-grid slots + fusion stats
+    (single host).
+
+    The output grid is fixed (``origin + step * slot``); each update
+    emits every slot whose per-row query ``slot_time + delay[row]`` is
+    already closed by ALL rows (the emit frontier).  Delays come live
+    from an ``AlignTrackStage`` or stay fixed.  ``flush`` emits the rest
+    once the run ends.
+    """
+
+    def __init__(self, group_sizes, *, grid_origin: float,
+                 grid_step: float, delays=None, align=None,
+                 tail: int = 256, var_floor: float = 0.25, device=None):
+        self.device = resolve_device(device)
+        self.group_sizes = list(group_sizes)
+        self.n_streams = int(sum(self.group_sizes))
+        self.layout = _GroupLayout(self.group_sizes, self.device)
+        self.origin = float(grid_origin)
+        self.step = float(grid_step)
+        self.align = align
+        self._fixed = torch.as_tensor(
+            np.zeros((self.n_streams,)) if delays is None
+            else np.asarray(delays, np.float64).reshape(-1),
+            dtype=_F64, device=self.device)
+        self.var_floor = float(var_floor)
+        self._tail = _RowTail(tail)
+        self.reset()
+
+    def reset(self):
+        n = self.n_streams
+        self._tail.reset()
+        self.carry = FuseCarry(
+            next_slot=0,
+            n_k=torch.zeros((n,), dtype=_F64, device=self.device),
+            ssr=torch.zeros((n,), dtype=_F64, device=self.device))
+        self._t_first = None
+        return self
+
+    def _delays(self, f: int) -> torch.Tensor:
+        d = torch.zeros((f,), dtype=_F64, device=self.device)
+        if self.align is not None:
+            d[:] = self.align.delay_s[:f]
+        else:
+            d[:self.n_streams] = self._fixed
+        return d
+
+    def _emit(self, rows_t, rows_v, t_first, delays, lo: int, hi: int):
+        grid64 = _slot_grid(self.origin, self.step, lo, hi, rows_t.device)
+        self._tail.check_reach(grid64[0] + delays, "Regrid/Fuse")
+        vals, mask = _query_grid(rows_t, rows_v, grid64, delays, t_first)
+        n = self.n_streams
+        vals, mask = vals[:n], mask[:n]
+        # fusion statistics: per-slot cross-sensor mean within each
+        # device group, all groups at once over the padded layout
+        lay = self.layout
+        m = lay.gather(mask)                            # (D, K, G)
+        v = lay.gather(vals.to(_F64))
+        mf = m.to(_F64)
+        cnt = mf.sum(dim=1)                             # (D, G)
+        m0 = (v * mf).sum(dim=1) / torch.clamp_min(cnt, 1.0)
+        resid = (v - m0[:, None, :]) * mf
+        self.carry.n_k += lay.scatter(mf.sum(dim=2))
+        self.carry.ssr += lay.scatter((resid * resid).sum(dim=2))
+        self.carry.next_slot = hi + 1
+        return GriddedWindow(lo=lo, grid=grid64, values=vals, mask=mask)
+
+    def update(self, chunk: ClosedWindow):
+        n = self.n_streams
+        self._t_first = chunk.t_first
+        rows_t, rows_v = self._tail.augmented(chunk)
+        delays = self._delays(rows_t.shape[0])
+        frontier = float((chunk.times[:n, -1].to(_F64)
+                          - delays[:n]).min())
+        # 1% of a step keeps float32-rounded queries strictly inside
+        # every row's closed span (flush re-emits with the final bound)
+        hi = int(np.floor((frontier - self.origin) / self.step - 0.01))
+        out = None
+        if hi >= self.carry.next_slot:
+            out = self._emit(rows_t, rows_v, chunk.t_first, delays,
+                             self.carry.next_slot, hi)
+        self._tail.advance(chunk)
+        return out
+
+    def flush(self, t_end: float = None):
+        """Emit the remaining slots with the rows' FINAL spans.
+
+        t_end: last grid time to cover (pipeline seconds); default covers
+        every row's last closed sample.
+        """
+        if self._tail.carry is None:
+            return None
+        tc = self._tail.carry
+        f = tc.t.shape[0]
+        n = self.n_streams
+        delays = self._delays(f)
+        if t_end is None:
+            t_end = float((tc.t[:n, -1].to(_F64) - delays[:n]).max())
+        hi = int(np.floor((t_end - self.origin) / self.step + 1e-9))
+        if hi < self.carry.next_slot:
+            return None
+        sent_t = torch.full((f, 1), -torch.inf, dtype=tc.t.dtype,
+                            device=tc.t.device)
+        sent_v = torch.zeros((f, 1), dtype=tc.v.dtype, device=tc.v.device)
+        rows_t = torch.cat([sent_t, tc.t], dim=1)
+        rows_v = torch.cat([sent_v, tc.v], dim=1)
+        return self._emit(rows_t, rows_v, self._t_first, delays,
+                          self.carry.next_slot, hi)
+
+    def weights(self) -> torch.Tensor:
+        """(n_streams,) end-of-run inverse-variance weights."""
+        return _ivw_weights(self.carry.n_k, self.carry.ssr,
+                            self.var_floor)
+
+
+def _ivw_weights(n_k, ssr, var_floor: float) -> torch.Tensor:
+    """The batch ``fuse_gridded`` per-stream weight rule from the
+    additive sufficient statistics."""
+    var = ssr / torch.clamp_min(n_k, 1.0)
+    return torch.where(n_k > 1, 1.0 / (var + var_floor), 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Stage 5: PhaseAttribute
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FusedAttrCarry:
+    """Per-device carry for fused streaming attribution.
+
+    ``integrals[d, pattern]`` is a (P, k_max) float64 block: for every
+    grid interval whose closing slot had exactly ``pattern`` coverage
+    (bit k = stream k of the device), the per-stream sum of value x
+    phase-overlap.  The fused per-phase energy is
+    sum_pattern (I @ w) / sum_{k in pattern} w_k once the end-of-run
+    weights are known.  The reference keeps one dict per device; here it
+    is one dense tensor over every possible pattern.
+    """
+    t_prev: torch.Tensor       # (D,) float64 last valid slot time (nan)
+    integrals: torch.Tensor    # (D, 2**k_max, P, k_max) float64
+
+
+class FusedPhaseAttributeStage:
+    """Gridded windows -> per-(device, phase) fused energies.
+
+    The fused series is sample-and-hold on the output grid, invalid slots
+    are bridged by carrying the previous valid edge forward, and the
+    first valid slot seeds zero-width — the batch convention.  All device
+    groups fold at once over the padded (D, k_max, G) layout, one batched
+    float64 product per coverage pattern (no atomics).
+    """
+
+    def __init__(self, phases, group_sizes, fuse: RegridFuseStage, *,
+                 device=None):
+        self.device = resolve_device(device)
+        ph = np.asarray(phases, np.float64).reshape(-1, 2)
+        self.phases = torch.as_tensor(ph, dtype=_F64, device=self.device)
+        self.n_phases = len(ph)
+        self.group_sizes = list(group_sizes)
+        self.fuse = fuse
+        self.layout = _GroupLayout(self.group_sizes, self.device)
+        if self.layout.k_max > MAX_GROUP:
+            raise ValueError(f"fused attribution keeps a dense coverage-"
+                             f"pattern accumulator: at most {MAX_GROUP} "
+                             f"sensors per device, got "
+                             f"{self.layout.k_max}")
+        self.n_patterns = 1 << self.layout.k_max
+        self.reset()
+
+    def _fresh(self):
+        lay = self.layout
+        return FusedAttrCarry(
+            t_prev=torch.full((lay.n_devices,), torch.nan, dtype=_F64,
+                              device=self.device),
+            integrals=torch.zeros((lay.n_devices, self.n_patterns,
+                                   self.n_phases, lay.k_max),
+                                  dtype=_F64, device=self.device))
+
+    def reset(self):
+        self.carry = self._fresh()
+        return self
+
+    def update(self, gw: GriddedWindow):
+        lay = self.layout
+        c = self.carry
+        grid = gw.grid                                   # (G,) float64
+        g = grid.shape[0]
+        m = lay.gather(gw.mask)                          # (D, K, G)
+        vv = lay.gather(gw.values.to(_F64)) * m          # (D, K, G)
+        anyv = m.any(dim=1)                              # (D, G)
+        has = anyv.any(dim=1)                            # (D,)
+        gi = torch.arange(g, device=grid.device)
+        last_valid = torch.cummax(torch.where(anyv, gi, -1), dim=1).values
+        prev = torch.cat([torch.full_like(last_valid[:, :1], -1),
+                          last_valid[:, :-1]], dim=1)
+        first_valid = anyv.to(torch.uint8).argmax(dim=1)
+        tp = torch.where(torch.isfinite(c.t_prev), c.t_prev,
+                         grid[first_valid])              # zero-width seed
+        t_lo = torch.where(prev >= 0, grid[prev.clamp_min(0)], tp[:, None])
+        a = self.phases[:, 0][None, :, None]
+        b = self.phases[:, 1][None, :, None]
+        ov = torch.clamp_min(torch.minimum(grid[None, None, :], b)
+                             - torch.maximum(t_lo[:, None, :], a), 0.0)
+        bits = (1 << torch.arange(lay.k_max, device=grid.device))
+        pat = (m.to(torch.int64) * bits[None, :, None]).sum(dim=1)
+        vt = vv.transpose(1, 2)                          # (D, G, K)
+        for p in range(1, self.n_patterns):
+            sel = (pat == p).to(_F64)[:, None, :]        # (D, 1, G)
+            c.integrals[:, p] += torch.bmm(ov * sel, vt)
+        c.t_prev = torch.where(has, grid[last_valid[:, -1].clamp_min(0)],
+                               c.t_prev)
+        return None
+
+    def totals(self) -> torch.Tensor:
+        """(n_devices, n_phases) float64 fused joules, finalized with the
+        end-of-run inverse-variance weights."""
+        lay = self.layout
+        w = lay.gather(self.fuse.weights())              # (D, K)
+        pats = torch.arange(self.n_patterns, device=w.device)
+        member = ((pats[:, None] >> torch.arange(
+            lay.k_max, device=w.device)[None, :]) & 1).to(_F64)  # (C, K)
+        w_tot = (w[:, None, :] * member[None]).sum(dim=2)        # (D, C)
+        contrib = (self.carry.integrals @ w[:, None, :, None])[..., 0]
+        ok = w_tot > 0
+        part = torch.where(ok[..., None],
+                           contrib / torch.where(ok, w_tot, 1.0)[..., None],
+                           0.0)
+        return part.sum(dim=1)
+
+    def weights(self) -> list:
+        """Per-device normalized stream weights (diagnostics)."""
+        w_flat = self.fuse.weights()
+        out = []
+        lo = 0
+        for k in self.group_sizes:
+            w = w_flat[lo:lo + k]
+            out.append(w / torch.clamp_min(w.sum(), 1e-30))
+            lo += k
+        return out
+
+
+# ---------------------------------------------------------------------------
+# The pipeline driver
+# ---------------------------------------------------------------------------
+
+class StreamPipeline:
+    """Chain stages; push each (fleet, chunk) window through all of them.
+
+    ``update`` feeds the first stage raw tensors and forwards each stage's
+    output window to the next (None ends the window's journey).
+    ``finalize`` flushes every stage in order through the rest of the
+    chain.  ``stage_wall_s`` keeps per-stage host wall time: on a CUDA
+    device that is enqueue time plus the stage's host syncs, not kernel
+    time.
+    """
+
+    def __init__(self, *stages):
+        self.stages = list(stages)
+        self.stage_wall_s = {type(st).__name__: 0.0 for st in stages}
+        self.windows = 0
+
+    def _timed(self, st, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self.stage_wall_s[type(st).__name__] += time.perf_counter() - t0
+        return out
+
+    def update(self, times, values, valid=None):
+        self.windows += 1
+        st0 = self.stages[0]
+        out = self._timed(st0, st0.update, times, values, valid)
+        for st in self.stages[1:]:
+            if out is None:
+                break
+            out = self._timed(st, st.update, out)
+        return self
+
+    def finalize(self, t_end: float = None):
+        for i, st in enumerate(self.stages):
+            flush = getattr(st, "flush", None)
+            if flush is None:
+                continue
+            out = self._timed(st, flush, t_end)
+            for st2 in self.stages[i + 1:]:
+                if out is None:
+                    break
+                out = self._timed(st2, st2.update, out)
+        return self
+
+    def reset(self):
+        for st in self.stages:
+            st.reset()
+        self.stage_wall_s = {type(st).__name__: 0.0
+                             for st in self.stages}
+        self.windows = 0
+        return self
+
+
+# ---------------------------------------------------------------------------
+# High level: the streaming fused pipeline and its trace-level entry
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StreamRows:
+    """Raw packed rows for streaming replay (mixed sensor kinds), on the
+    host.  Counter rows keep their (float64-unwrapped, rebased)
+    cumulative joules; dE/dt happens in the Reconstruct stage.  Float32
+    times match the reference's packing bit for bit."""
+    times: np.ndarray          # (F, S) seconds since t0
+    values: np.ndarray         # (F, S) cumulative J or W
+    kind_row: np.ndarray       # (F,) True = cumulative counter
+    n_samples: np.ndarray      # (F,)
+    names: list
+    n_streams: int
+    t0: float
+
+    @property
+    def shape(self):
+        return self.times.shape
+
+
+def pack_stream_rows(traces, *, use_t_measured: bool = True, t0=None,
+                     dtype=np.float32, cum_t0=None) -> StreamRows:
+    """SensorTraces (mixed cumulative + power) -> raw streaming rows.
+
+    Calibration ``corrections`` are not ported: the entry point raises
+    for them.
+    """
+    traces = list(traces)
+    assert traces, "pack_stream_rows needs at least one trace"
+    if t0 is None:
+        t0 = min(float((tr.t_measured if use_t_measured
+                        else tr.t_read)[0]) for tr in traces)
+    cum = [i for i, tr in enumerate(traces) if tr.spec.is_cumulative]
+    pwr = [i for i, tr in enumerate(traces) if not tr.spec.is_cumulative]
+    f = _round_up(len(traces), ROW_ALIGN)
+    s_cum = s_pwr = 2
+    packed = None
+    if cum:
+        packed = pack_traces([traces[i] for i in cum],
+                             use_t_measured=use_t_measured, dtype=dtype,
+                             t0=cum_t0)
+        s_cum = packed.shape[1]
+    if pwr:
+        s_pwr = max(max(len(traces[i]) for i in pwr), 2)
+    s = max(s_cum, s_pwr)
+    times = np.zeros((f, s), dtype)
+    values = np.zeros((f, s), dtype)
+    kind = np.zeros((f,), bool)
+    n = np.full((f,), 2, np.int32)
+    if cum:
+        sel = np.asarray(cum)
+        n_cum = len(cum)
+        # two-step rebase (pack origin, then the shared origin) exactly
+        # as the reference does — identical float32 times
+        shift = dtype(packed.t0 - t0)
+        times[sel, :s_cum] = packed.times[:n_cum] + shift
+        values[sel, :s_cum] = packed.energy[:n_cum]
+        if s > s_cum:                        # replicate-last tails
+            times[sel, s_cum:] = times[sel, s_cum - 1][:, None]
+            values[sel, s_cum:] = values[sel, s_cum - 1][:, None]
+        kind[sel] = True
+        n[sel] = packed.n_samples[:n_cum]
+    for i in pwr:
+        tr = traces[i]
+        t = (tr.t_measured if use_t_measured else tr.t_read)
+        kk = len(tr)
+        times[i, :kk] = np.maximum.accumulate(t - t0)
+        values[i, :kk] = tr.value
+        times[i, kk:] = times[i, kk - 1]
+        values[i, kk:] = values[i, kk - 1]
+        n[i] = kk
+    return StreamRows(times, values, kind, n,
+                      [tr.name for tr in traces], len(traces), t0)
+
+
+def default_tail(rows: StreamRows, chunk: int, *, delays=None,
+                 max_lag: int = 64, grid_step: float = 1e-3,
+                 cadence: float = None) -> int:
+    """Tail columns needed so delayed queries never outrun the carry:
+    the delay spread (the track range when delays are live) plus one
+    window of slack."""
+    min_step = cadence if cadence is not None else _min_cadence(rows)
+    if delays is not None:
+        d = np.asarray(delays, np.float64)
+        spread = float(d.max() - min(d.min(), 0.0))
+    else:
+        spread = max_lag * grid_step
+    tail_s = spread + chunk * min_step
+    return max(256, int(np.ceil(tail_s / min_step)) + 64)
+
+
+def _min_cadence(rows: StreamRows) -> float:
+    """Fastest per-row median sample spacing (seconds; 1e-3 fallback)."""
+    steps = []
+    for i in range(rows.n_streams):
+        dt = np.diff(rows.times[i, :rows.n_samples[i]].astype(np.float64))
+        dt = dt[dt > 0]
+        if len(dt):
+            steps.append(float(np.median(dt)))
+    return min(steps) if steps else 1e-3
+
+
+def _replay_window_plan(rows: StreamRows, chunk: int = 1024, *,
+                        span=None, cadence: float = None):
+    """Time-aligned replay boundaries -> (n_win, idx); ``idx[i, w]`` is
+    row i's first sample index in window w (idx[:, -1] == S)."""
+    f, s = rows.shape
+    n = rows.n_streams
+    dt_win = max(chunk, 2) * (cadence if cadence is not None
+                              else _min_cadence(rows))
+    if span is not None:
+        t_lo, t_hi = float(span[0]), float(span[1])
+    else:
+        t_lo = float(rows.times[:n, 0].astype(np.float64).min())
+        t_hi = float(rows.times[:n, -1].astype(np.float64).max())
+    n_win = max(int(np.ceil((t_hi - t_lo) / dt_win)), 1)
+    edges = (t_lo + dt_win * np.arange(1, n_win)).astype(rows.times.dtype)
+    idx = np.zeros((f, n_win + 1), np.int64)
+    for i in range(n):                       # padding rows stay empty
+        idx[i, 1:-1] = np.searchsorted(rows.times[i], edges,
+                                       side="right")
+        idx[i, -1] = s
+    return n_win, idx
+
+
+def stream_row_windows(rows: StreamRows, chunk: int = 1024, *,
+                       span=None, cadence: float = None):
+    """Replay packed rows as TIME-aligned (fleet, C) numpy windows: each
+    window covers one time span for every row, sized so the fastest row
+    advances ~``chunk`` samples; short rows replicate their last sample
+    (zero-width intervals)."""
+    n_win, idx = _replay_window_plan(rows, chunk, span=span,
+                                     cadence=cadence)
+    for w in range(n_win):
+        lo, hi = idx[:, w], idx[:, w + 1]
+        width = int((hi - lo).max())
+        width = max(_round_up(width, 64), 64)
+        cols = lo[:, None] + np.arange(width)[None, :]
+        cols = np.minimum(cols, np.maximum(hi - 1, np.maximum(lo - 1,
+                                                              0))[:, None])
+        yield (np.take_along_axis(rows.times, cols, axis=1),
+               np.take_along_axis(rows.values, cols, axis=1))
+
+
+class StreamingFusedPipeline:
+    """Ingest -> Reconstruct -> AlignTrack -> Regrid/Fuse -> PhaseAttr on
+    one device (single host).
+
+    group_sizes: sensors per device, in row order (trailing padding rows
+    up to a ROW_ALIGN multiple are ignored).  phases: [(a, b)] in pipeline
+    time.  reference: callable(times)->watts in pipeline time for delay
+    tracking; ``track=False`` freezes ``delays``.  ``device=None`` means
+    CUDA.
+    """
+
+    def __init__(self, group_sizes, phases, *, grid_origin: float,
+                 grid_step: float, kind_row=None, wrap_period=None,
+                 delays=None, reference=None, track: bool = None,
+                 window: int = 2048, hop: int = 512, max_lag: int = 64,
+                 ema: float = 0.5, min_corr: float = 0.2, tail: int = 256,
+                 var_floor: float = 0.25, dtype=np.float32, device=None):
+        self.device = dev = resolve_device(device)
+        self.group_sizes = list(group_sizes)
+        n = int(sum(self.group_sizes))
+        self.n_streams = n
+        f = _round_up(n, ROW_ALIGN)
+        self.n_rows = f
+        kr = np.zeros((f,), bool)
+        if kind_row is not None:
+            kr[:len(np.asarray(kind_row))] = np.asarray(kind_row, bool)
+        wp = np.zeros((f,), np.float64)
+        if wrap_period is not None:       # pad to the row tile, like kr
+            wp_in = np.asarray(wrap_period, np.float64).reshape(-1)
+            wp[:len(wp_in)] = wp_in
+        if track is None:
+            track = delays is None
+        self.ingest = IngestStage(n, mode="sanitize", kind_row=kr,
+                                  device=dev)
+        self.reconstruct = ReconstructStage(kr, wp, device=dev)
+        self.align = None
+        if track:
+            self.align = AlignTrackStage(
+                n, grid_step=grid_step, reference=reference,
+                groups=None if reference is not None else self.group_sizes,
+                window=window, hop=hop, max_lag=max_lag, ema=ema,
+                min_corr=min_corr, tail=tail, delay0=delays)
+        self.fuse = RegridFuseStage(
+            self.group_sizes, grid_origin=grid_origin,
+            grid_step=grid_step, delays=delays, align=self.align,
+            tail=tail, var_floor=var_floor, device=dev)
+        self.attr = FusedPhaseAttributeStage(phases, self.group_sizes,
+                                             self.fuse, device=dev)
+        stages = [self.ingest, self.reconstruct]
+        if self.align is not None:
+            stages.append(self.align)
+        stages += [self.fuse, self.attr]
+        self.pipeline = StreamPipeline(*stages)
+        self._dtype = _torch_dtype(dtype)
+
+    def update(self, times, values, valid=None):
+        """Feed one (rows, C) window (numpy or tensors); rows short of the
+        row tile are padded by replicating the last row."""
+        t = torch.as_tensor(times, dtype=self._dtype, device=self.device)
+        v = torch.as_tensor(values, dtype=self._dtype, device=self.device)
+        if valid is not None:
+            valid = torch.as_tensor(valid, dtype=torch.bool,
+                                    device=self.device)
+        if t.shape[0] < self.n_rows:
+            pad = self.n_rows - t.shape[0]
+            t = torch.cat([t, t[-1:].expand(pad, -1)])
+            v = torch.cat([v, v[-1:].expand(pad, -1)])
+            if valid is not None:
+                valid = torch.cat([valid, valid.new_ones(
+                    (pad, t.shape[1]))])
+        self.pipeline.update(t.contiguous(), v.contiguous(), valid)
+        return self
+
+    def finalize(self, t_end: float = None):
+        self.pipeline.finalize(t_end)
+        return self
+
+    def totals(self) -> torch.Tensor:
+        """(n_devices, n_phases) float64 fused joules so far."""
+        return self.attr.totals()
+
+    def weights(self) -> list:
+        return self.attr.weights()
+
+    def delays(self) -> torch.Tensor:
+        """(n_streams,) per-stream delay in use (tracked or fixed)."""
+        if self.align is not None and self.align.carry is not None:
+            return self.align.delay_s[:self.n_streams].clone()
+        return self.fuse._fixed.clone()
+
+    @property
+    def delay_history(self) -> list:
+        return [] if self.align is None else self.align.history
+
+    def reset(self):
+        self.pipeline.reset()
+        return self
+
+
+def _unsupported(cfg, corrections, registry, meter):
+    """Name the options this port does not run yet (queue A of the
+    roadmap), instead of ignoring them."""
+    todo = []
+    if cfg.stream.engine != "windowed":
+        todo.append(f"engine={cfg.stream.engine!r}")
+    if cfg.checkpoint.dir is not None or cfg.checkpoint.every \
+            or cfg.checkpoint.resume:
+        todo.append("checkpoint")
+    if cfg.health:
+        todo.append("health")
+    if cfg.dq is not None:
+        todo.append("dq")
+    if cfg.stream.host:
+        todo.append("host=True")
+    if cfg.stream.interpret:
+        todo.append("interpret=True")
+    if cfg.stream.use_kernel is False:
+        todo.append("use_kernel=False")
+    if corrections is not None:
+        todo.append("corrections")
+    if registry is not None:
+        todo.append("registry")
+    if meter:
+        todo.append("meter")
+    if todo:
+        raise NotImplementedError(
+            "repro_torch's attribute_energy_fused_streaming does not "
+            "support " + ", ".join(todo) + " yet")
+
+
+def attribute_energy_fused_streaming(trace_groups, phases, *,
+                                     config=None, reference=None,
+                                     corrections=None, registry=None,
+                                     meter=None,
+                                     return_pipe: bool = False,
+                                     on_window=None, device=None,
+                                     **legacy) -> list:
+    """The windowed fused-attribution pipeline on the device.
+
+    trace_groups: [[SensorTrace, ...], ...] — all sensors observing one
+    device per group.  The traces are packed once on the host and
+    REPLAYED through ``StreamingFusedPipeline`` in chunk-column windows.
+    phases: [(name, a, b)] absolute seconds.  Returns one
+    ``[PhaseEnergy]`` per group (and the pipeline with
+    ``return_pipe=True``).
+
+    config: a ``fleet.config.PipelineConfig`` (or one section); the flat
+    legacy kwargs resolve through ``resolve_config`` with a
+    ``DeprecationWarning``, as in the reference.  ``StreamConfig.grid``
+    (absolute) pins the output grid.  reference: a ``PiecewisePower``
+    (anything with ``power_at``, absolute seconds) or a callable in
+    pipeline time.  ``on_window(pipe, w)`` fires after window ``w``.
+    device: None means CUDA (raises without a card); pass "cpu" for the
+    plain PyTorch versions of the kernels.
+    """
+    from repro_torch.core.attribution import PhaseEnergy
+    cfg = resolve_config(config, legacy,
+                         "attribute_energy_fused_streaming")
+    _unsupported(cfg, corrections, registry, meter)
+    dev = resolve_device(device)
+    chunk = cfg.stream.chunk
+    grid, grid_step = cfg.stream.grid, cfg.stream.grid_step
+    dtype, var_floor = cfg.stream.dtype, cfg.stream.var_floor
+    track, delays = cfg.track.track, cfg.track.delays
+    tail = cfg.track.tail
+    groups = [list(g) for g in trace_groups]
+    flat = [tr for g in groups for tr in g]
+    rows = pack_stream_rows(flat, use_t_measured=cfg.stream.use_t_measured,
+                            dtype=dtype)
+    # one pass over the rows (the reference scans them once per use)
+    cadence = _min_cadence(rows)
+    if grid is not None:
+        grid = np.asarray(grid, np.float64)
+        grid_step = float(np.median(np.diff(grid)))
+        origin = float(grid[0]) - rows.t0
+        t_end = float(grid[-1]) - rows.t0
+    else:
+        if grid_step is None:
+            grid_step = 0.5 * cadence
+        origin = float(rows.times[:rows.n_streams, 0]
+                       .astype(np.float64).min())
+        t_end = None
+    if tail is None:
+        tail = default_tail(rows, chunk, delays=delays,
+                            max_lag=cfg.track.max_lag, grid_step=grid_step,
+                            cadence=cadence)
+    ref = None
+    if reference is not None:
+        if hasattr(reference, "power_at"):
+            t0 = rows.t0
+            ref = lambda t, _r=reference: _r.power_at(t + t0)  # noqa: E731
+        else:
+            ref = reference
+    if not phases:
+        return [[] for _ in groups]
+    windows = [(a - rows.t0, b - rows.t0) for _, a, b in phases]
+    pipe = StreamingFusedPipeline(
+        [len(g) for g in groups], windows, grid_origin=origin,
+        grid_step=grid_step, kind_row=rows.kind_row, delays=delays,
+        reference=ref, track=track, window=cfg.track.window,
+        hop=cfg.track.hop, max_lag=cfg.track.max_lag, ema=cfg.track.ema,
+        tail=tail, var_floor=var_floor, dtype=dtype, device=dev)
+    for w, (t_blk, v_blk) in enumerate(
+            stream_row_windows(rows, chunk, cadence=cadence), start=1):
+        pipe.update(t_blk, v_blk)
+        if on_window is not None:
+            on_window(pipe, w)
+    pipe.finalize(t_end)
+    totals = pipe.totals().cpu().numpy()
+    out = []
+    for di in range(len(groups)):
+        row = []
+        for (name, a, b), e in zip(phases, totals[di]):
+            dur = max(b - a, 1e-12)
+            row.append(PhaseEnergy(name, a, b, float(e), float(e / dur)))
+        out.append(row)
+    return (out, pipe) if return_pipe else out

@@ -1,0 +1,184 @@
+"""Carry state across from the reference package into the port.
+
+The reference's objects reach this module as plain numpy arrays, dicts
+and numbers — the port never imports the reference; a caller that holds
+both (the parity tests) extracts the fields and passes them here.
+Covered: sensor traces and specs, the truth schedule, and every stage
+carry of the windowed pipeline, so a run can start in the reference and
+finish in the port.  Arrays are installed verbatim: a dtype that differs
+from the carry's raises instead of being cast.
+
+State schema for ``load_pipeline_state`` (``pipeline_state`` returns the
+same from a port pipeline)::
+
+    {"ingest": {"t", "v": (F, 1); "t_first": (F,) f64;
+                "unseeded": (F,) bool; "dq_late", "dq_masked": (F,) i64},
+     "align":  None | {"origin": float, "ring_v": (F, W), "ring_m": (F, W)
+                bool, "next_slot", "last_est_slot": int, "delay": (F,)
+                f64, "seen": (F,) bool, "tail": TAIL},
+     "fuse":   {"next_slot": int, "n_k", "ssr": (n,) f64,
+                "t_first": (F,) f64, "tail": TAIL},
+     "attr":   {"t_prev": (D,) f64,
+                "integrals": [{pattern: (P, K_d) f64}, ...] per device}}
+    TAIL = None | {"t", "v": (F, T); "dropped_t": (F,) f64}
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.measurement_model import SensorSpec
+from repro_torch.core.power_model import PiecewisePower
+from repro_torch.core.sensors import SensorTrace
+from repro_torch.fleet.pipeline import (AlignCarry, FusedAttrCarry,
+                                        FuseCarry, IngestCarry, TailCarry)
+
+_NP_OF = {torch.float32: np.float32, torch.float64: np.float64,
+          torch.bool: np.bool_, torch.int64: np.int64}
+
+
+def _tensor(arr, dtype: torch.dtype, device, what: str) -> torch.Tensor:
+    a = np.asarray(arr)
+    if a.dtype != np.dtype(_NP_OF[dtype]):
+        raise TypeError(f"{what}: dtype {a.dtype}, the carry holds "
+                        f"{np.dtype(_NP_OF[dtype])}")
+    return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+
+def spec_from_fields(fields: dict) -> SensorSpec:
+    """``dataclasses.asdict`` of a reference ``SensorSpec``."""
+    return SensorSpec(**fields)
+
+
+def trace_from_fields(name: str, spec: dict, t_read, t_measured,
+                      value) -> SensorTrace:
+    """A reference ``SensorTrace``'s fields -> the port's trace."""
+    return SensorTrace(name, spec_from_fields(spec), np.asarray(t_read),
+                       np.asarray(t_measured), np.asarray(value))
+
+
+def power_from_arrays(times, watts) -> PiecewisePower:
+    """A reference ``PiecewisePower``'s (times, watts)."""
+    return PiecewisePower(np.asarray(times), np.asarray(watts))
+
+
+def tail_carry(d, dtype: torch.dtype, device) -> TailCarry:
+    if d is None:
+        return None
+    return TailCarry(t=_tensor(d["t"], dtype, device, "tail.t"),
+                     v=_tensor(d["v"], dtype, device, "tail.v"),
+                     dropped_t=_tensor(d["dropped_t"], torch.float64,
+                                       device, "tail.dropped_t"))
+
+
+def align_carry(d, dtype: torch.dtype, device) -> AlignCarry:
+    return AlignCarry(
+        ring_v=_tensor(d["ring_v"], dtype, device, "align.ring_v"),
+        ring_m=_tensor(d["ring_m"], torch.bool, device, "align.ring_m"),
+        next_slot=int(d["next_slot"]),
+        last_est_slot=int(d["last_est_slot"]),
+        delay=_tensor(d["delay"], torch.float64, device, "align.delay"),
+        seen=_tensor(d["seen"], torch.bool, device, "align.seen"))
+
+
+def fuse_carry(d, device) -> FuseCarry:
+    return FuseCarry(next_slot=int(d["next_slot"]),
+                     n_k=_tensor(d["n_k"], torch.float64, device,
+                                 "fuse.n_k"),
+                     ssr=_tensor(d["ssr"], torch.float64, device,
+                                 "fuse.ssr"))
+
+
+def fused_attr_carry(d, group_sizes, n_phases: int,
+                     device) -> FusedAttrCarry:
+    """The reference's per-device {pattern: (P, K_d)} dicts -> the dense
+    (D, 2**k_max, P, k_max) accumulator (absent patterns are zero)."""
+    k_max = max(group_sizes)
+    dense = np.zeros((len(group_sizes), 1 << k_max, n_phases, k_max))
+    for di, (ints, k) in enumerate(zip(d["integrals"], group_sizes)):
+        for pattern, acc in ints.items():
+            a = np.asarray(acc)
+            if a.dtype != np.float64 or a.shape != (n_phases, k):
+                raise TypeError(f"attr.integrals[{di}][{pattern}]: "
+                                f"{a.dtype} {a.shape}, expected float64 "
+                                f"{(n_phases, k)}")
+            dense[di, int(pattern), :, :k] = a
+    return FusedAttrCarry(
+        t_prev=_tensor(d["t_prev"], torch.float64, device, "attr.t_prev"),
+        integrals=torch.as_tensor(dense, device=device))
+
+
+def load_pipeline_state(pipe, state: dict):
+    """Install a windowed-pipeline state (schema above) into the port's
+    ``StreamingFusedPipeline`` ``pipe``; returns ``pipe``."""
+    dev, dt = pipe.device, pipe._dtype
+    ing = state["ingest"]
+    pipe.ingest.carry = IngestCarry(t=_tensor(ing["t"], dt, dev,
+                                              "ingest.t"),
+                                    v=_tensor(ing["v"], dt, dev,
+                                              "ingest.v"))
+    pipe.ingest._t_first = _tensor(ing["t_first"], torch.float64, dev,
+                                   "ingest.t_first")
+    pipe.ingest._unseeded = _tensor(ing["unseeded"], torch.bool, dev,
+                                    "ingest.unseeded")
+    pipe.ingest.dq_late = _tensor(ing["dq_late"], torch.int64, dev,
+                                  "ingest.dq_late")
+    pipe.ingest.dq_masked = _tensor(ing["dq_masked"], torch.int64, dev,
+                                    "ingest.dq_masked")
+    al = state.get("align")
+    if (al is None) != (pipe.align is None):
+        raise ValueError("state and pipeline disagree on delay tracking")
+    if al is not None:
+        pipe.align.origin = float(al["origin"])
+        pipe.align.carry = align_carry(al, dt, dev)
+        pipe.align._tail.carry = tail_carry(al["tail"], dt, dev)
+    fu = state["fuse"]
+    pipe.fuse.carry = fuse_carry(fu, dev)
+    pipe.fuse._t_first = _tensor(fu["t_first"], torch.float64, dev,
+                                 "fuse.t_first")
+    pipe.fuse._tail.carry = tail_carry(fu["tail"], dt, dev)
+    pipe.attr.carry = fused_attr_carry(state["attr"], pipe.group_sizes,
+                                       pipe.attr.n_phases, dev)
+    return pipe
+
+
+def _np(x):
+    return x.detach().cpu().numpy()
+
+
+def _tail_state(carry):
+    if carry is None:
+        return None
+    return {"t": _np(carry.t), "v": _np(carry.v),
+            "dropped_t": _np(carry.dropped_t)}
+
+
+def pipeline_state(pipe) -> dict:
+    """The port pipeline's state in the schema above (numpy, host)."""
+    ing = pipe.ingest
+    out = {"ingest": {"t": _np(ing.carry.t), "v": _np(ing.carry.v),
+                      "t_first": _np(ing._t_first),
+                      "unseeded": _np(ing._unseeded),
+                      "dq_late": _np(ing.dq_late),
+                      "dq_masked": _np(ing.dq_masked)},
+           "align": None}
+    if pipe.align is not None:
+        c = pipe.align.carry
+        out["align"] = {"origin": pipe.align.origin,
+                        "ring_v": _np(c.ring_v), "ring_m": _np(c.ring_m),
+                        "next_slot": c.next_slot,
+                        "last_est_slot": c.last_est_slot,
+                        "delay": _np(c.delay), "seen": _np(c.seen),
+                        "tail": _tail_state(pipe.align._tail.carry)}
+    fu = pipe.fuse
+    out["fuse"] = {"next_slot": fu.carry.next_slot, "n_k": _np(fu.carry.n_k),
+                   "ssr": _np(fu.carry.ssr), "t_first": _np(fu._t_first),
+                   "tail": _tail_state(fu._tail.carry)}
+    dense = _np(pipe.attr.carry.integrals)
+    ints = []
+    for di, k in enumerate(pipe.group_sizes):
+        ints.append({p: dense[di, p, :, :k].copy()
+                     for p in range(1, dense.shape[1])
+                     if dense[di, p].any()})
+    out["attr"] = {"t_prev": _np(pipe.attr.carry.t_prev), "integrals": ints}
+    return out

@@ -1,0 +1,13 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+Per kernel package: ``ref.py`` (the plain PyTorch version, same
+arithmetic as the reference's ``ref.py``), ``kernel.py`` (the wrapper:
+the CUDA kernel for a CUDA tensor, the plain version for a CPU tensor,
+an error otherwise; it counts its launches) and, where the reference
+has one, ``ops.py`` (the public op with its padding).  The CUDA sources
+live in ``repro_torch/csrc`` and are built by ``kernels.build``.
+
+  power_reconstruct — per-row wrap-corrected dE/dt (rows variant)
+  grid_resample     — masked lower bound + hold/linear regrid
+  xcorr_align       — lag-bank normalized cross-correlation
+"""

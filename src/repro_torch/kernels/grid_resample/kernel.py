@@ -1,0 +1,59 @@
+"""Wrapper of the ``grid_resample`` CUDA kernel (``csrc/grid_resample.cu``;
+replaces the TPU kernel ``grid_resample_kernel`` of
+``repro/kernels/grid_resample/kernel.py``)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.grid_resample.ref import (_ceil_log2,
+                                                   grid_resample_ref)
+
+_ARGS = (build.PTR,) * 8 + (build.INT,) * 5 + (build.PTR,)
+
+
+def grid_resample_kernel(times, values, n_row, first_row, grid, delays, *,
+                         mode: str = "hold"):
+    """times/values: (F, S) float32; n_row/first_row: (F,) int32;
+    grid: (G,) float32; delays: (F,) float32 -> (out (F, G) float32,
+    mask (F, G) bool).
+
+    A CPU tensor takes the plain version (its ``torch.searchsorted``
+    lower bound, index-identical to the halving loop); a CUDA tensor
+    launches the kernel on the current stream.
+    """
+    if mode not in ("hold", "linear"):
+        raise ValueError(f"grid_resample: unknown mode {mode!r}")
+    dev = times.device
+    if dev.type == "cpu":
+        return grid_resample_ref(times, values, n_row.reshape(-1, 1),
+                                 first_row.reshape(-1, 1),
+                                 grid.reshape(-1, 1), delays.reshape(-1, 1),
+                                 mode=mode, sorted_search=True)
+    if dev.type != "cuda":
+        raise ValueError(f"grid_resample: unsupported device {dev}")
+    f, s = times.shape
+    g = grid.shape[0]
+    for x, what, dtype, shape in (
+            (times, "times", torch.float32, (f, s)),
+            (values, "values", torch.float32, (f, s)),
+            (n_row, "n_row", torch.int32, (f,)),
+            (first_row, "first_row", torch.int32, (f,)),
+            (grid, "grid", torch.float32, (g,)),
+            (delays, "delays", torch.float32, (f,))):
+        build.check_tensor(x, what, dtype=dtype, shape=shape, device=dev)
+    out = torch.empty((f, g), dtype=torch.float32, device=dev)
+    mask = torch.empty((f, g), dtype=torch.bool, device=dev)
+    fn = build.c_function("grid_resample_launch", _ARGS)
+    with torch.cuda.device(dev):
+        rc = fn(times.data_ptr(), values.data_ptr(), n_row.data_ptr(),
+                first_row.data_ptr(), grid.data_ptr(), delays.data_ptr(),
+                out.data_ptr(), mask.data_ptr(), f, s, g,
+                _ceil_log2(s) + 1, int(mode == "linear"),
+                build.stream_ptr(dev))
+    build.check_launch(rc, "grid_resample")
+    grid_resample_kernel.launches += 1
+    return out, mask
+
+
+grid_resample_kernel.launches = 0

@@ -1,0 +1,50 @@
+"""Wrapper of the ``xcorr_align`` CUDA kernel (``csrc/xcorr_align.cu``;
+replaces the TPU kernel ``xcorr_align_kernel`` of
+``repro/kernels/xcorr_align/kernel.py``)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.xcorr_align.ref import xcorr_scores_ref
+
+_ARGS = (build.PTR,) * 7 + (build.INT,) * 4 + (build.PTR,)
+
+
+def xcorr_align_kernel(x, m, refbank, *, n_lags: int):
+    """x/m: (F, G) float32 streams and 0/1 validity; refbank: (L, G)
+    float32 whose rows from ``n_lags`` on are zero padding -> (F, L)
+    float32 normalized scores (those of the padding are 0).
+
+    A CPU tensor takes the plain version over the whole bank; a CUDA
+    tensor launches the kernel (two CUDA launches, one call) on the
+    current stream, which writes the padding's zeros without a product.
+    """
+    dev = x.device
+    if dev.type == "cpu":
+        return xcorr_scores_ref(x, m, refbank)
+    if dev.type != "cuda":
+        raise ValueError(f"xcorr_align: unsupported device {dev}")
+    f, g = x.shape
+    lags = refbank.shape[0]
+    if not 0 <= n_lags <= lags:
+        raise ValueError(f"xcorr_align: n_lags {n_lags} outside [0, {lags}]")
+    for t, what, shape in ((x, "x", (f, g)), (m, "m", (f, g)),
+                           (refbank, "refbank", (lags, g))):
+        build.check_tensor(t, what, dtype=torch.float32, shape=shape,
+                           device=dev)
+    xc = torch.empty_like(x)
+    den_x = torch.empty((f,), dtype=torch.float32, device=dev)
+    den_r = torch.empty((n_lags,), dtype=torch.float32, device=dev)
+    out = torch.empty((f, lags), dtype=torch.float32, device=dev)
+    fn = build.c_function("xcorr_align_launch", _ARGS)
+    with torch.cuda.device(dev):
+        rc = fn(x.data_ptr(), m.data_ptr(), refbank.data_ptr(),
+                xc.data_ptr(), den_x.data_ptr(), den_r.data_ptr(),
+                out.data_ptr(), f, g, lags, n_lags, build.stream_ptr(dev))
+    build.check_launch(rc, "xcorr_align")
+    xcorr_align_kernel.launches += 1
+    return out
+
+
+xcorr_align_kernel.launches = 0

@@ -1,0 +1,91 @@
+"""PyTorch port, import boundary: ``repro_torch`` loads with JAX and every
+module of the reference package blocked, its sources name neither, and
+its entry points never drop quietly to the CPU."""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.device import resolve_device
+
+SRC = Path(__file__).resolve().parent.parent / "src"
+PORT = SRC / "repro_torch"
+
+_BLOCKED_IMPORT = r'''
+import importlib, pkgutil, sys
+BLOCKED = ("jax", "jaxlib", "repro")
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        root = name.split(".")[0]
+        if root in BLOCKED:          # exact top-level name: not repro_torch
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("imported", len(names))
+'''
+
+
+def test_port_imports_with_jax_and_repro_blocked():
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT], capture_output=True,
+        text=True, timeout=120, env={"PYTHONPATH": str(SRC),
+                                     "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20
+
+
+def test_port_sources_name_neither_jax_nor_repro():
+    pat = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
+                     r"from\s+(jax|repro)(\.|\s)(?!_))", re.M)
+    files = sorted(PORT.rglob("*.py"))
+    assert len(files) >= 20
+    hits = [f"{p.relative_to(SRC)}: {m.group(0).strip()}"
+            for p in files for m in pat.finditer(p.read_text())]
+    assert not hits, hits
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """Without ``device=`` the port asks for the card; with no card it
+    raises instead of running on the CPU."""
+    from repro_torch.fleet import attribute_energy_fused_streaming
+    from repro_torch.fleet.pipeline import StreamingFusedPipeline
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingFusedPipeline([2], [(0.0, 1.0)], grid_origin=0.0,
+                               grid_step=1e-3, track=False,
+                               delays=np.zeros(2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        attribute_energy_fused_streaming([[object()]], [("p", 0.0, 1.0)])
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda")
+
+
+def test_kernel_build_flags_and_path():
+    """The library path is named by a digest of the sources and lies in
+    the build directory; the flags keep IEEE arithmetic and sm_90a."""
+    from repro_torch.kernels import build
+    path = build.library_path()
+    assert path.parent == build.BUILD_DIR
+    assert path.name.startswith("libreprotorch_")
+    srcs = sorted(p.name for p in build.CSRC.glob("*.cu"))
+    assert srcs == ["grid_resample.cu", "power_reconstruct_rows.cu",
+                    "xcorr_align.cu"]
+    assert "--use_fast_math" not in build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

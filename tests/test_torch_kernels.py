@@ -1,0 +1,174 @@
+"""PyTorch port, kernel modules: the plain versions (which the wrappers run
+on CPU tensors) against the JAX reference's oracles on the same seeded
+inputs, the ops' padding, and — on a card only — each CUDA kernel
+against its plain version."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.align.delay import estimate_delays as jax_estimate_delays
+from repro.kernels.grid_resample.ref import (grid_resample_ref as
+                                             jax_grid_resample_ref)
+from repro.kernels.grid_resample.ref import (searchsorted_rows as
+                                             jax_searchsorted_rows)
+from repro.kernels.power_reconstruct.ref import (
+    reconstruct_power_rows_ref as jax_reconstruct_rows_ref)
+from repro.kernels.xcorr_align.ops import make_refbank as jax_make_refbank
+from repro.kernels.xcorr_align.ref import (xcorr_scores_ref as
+                                           jax_xcorr_scores_ref)
+from repro_torch.align.delay import estimate_delays, peak_to_delay
+from torch_cases import _counter_rows, _regrid_case, _t, _xcorr_case
+
+# the test workers share the machine's cores: keep torch from taking them all
+torch.set_num_threads(2)
+from repro_torch.kernels.grid_resample import (grid_resample,
+                                               grid_resample_ref,
+                                               searchsorted_rows,
+                                               searchsorted_rows_sorted)
+from repro_torch.kernels.power_reconstruct import (
+    power_reconstruct_rows_kernel)
+from repro_torch.kernels.power_reconstruct.ref import (
+    reconstruct_power_rows_ref)
+from repro_torch.kernels.xcorr_align import (make_refbank,
+                                             xcorr_align_kernel,
+                                             xcorr_scores, xcorr_scores_ref)
+
+# ------------------------------------------------------------------ B1
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_power_rows_plain_matches_reference_exactly(seed):
+    e, t, w = _counter_rows(seed)
+    assert (np.diff(e[0]) < 0).any(), "rows must really wrap"
+    got = reconstruct_power_rows_ref(torch.from_numpy(e),
+                                     torch.from_numpy(t),
+                                     torch.from_numpy(w)).numpy()
+    want = np.asarray(jax_reconstruct_rows_ref(jnp.asarray(e),
+                                               jnp.asarray(t),
+                                               jnp.asarray(w)))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+def test_power_rows_wrapper_runs_plain_on_cpu_and_counts_nothing():
+    e, t, w = (torch.from_numpy(a) for a in _counter_rows(3))
+    before = power_reconstruct_rows_kernel.launches
+    out = power_reconstruct_rows_kernel(e, t, w)
+    assert torch.equal(out, reconstruct_power_rows_ref(e, t, w))
+    assert power_reconstruct_rows_kernel.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        power_reconstruct_rows_kernel(e.to("meta"), t.to("meta"),
+                                      w.to("meta"))
+
+
+# ------------------------------------------------------------------ B5
+
+@pytest.mark.parametrize("mode", ["hold", "linear"])
+@pytest.mark.parametrize("sorted_search", [False, True])
+def test_grid_resample_plain_matches_reference(mode, sorted_search):
+    t, v, n, first, grid, d = _regrid_case(7)
+    out, mask = grid_resample_ref(_t(t), _t(v), _t(n), _t(first),
+                                  _t(grid), _t(d), mode=mode,
+                                  sorted_search=sorted_search)
+    w_out, w_mask = jax_grid_resample_ref(
+        jnp.asarray(t), jnp.asarray(v), jnp.asarray(n), jnp.asarray(first),
+        jnp.asarray(grid), jnp.asarray(d), mode=mode)
+    w_out, w_mask = np.asarray(w_out), np.asarray(w_mask)
+    np.testing.assert_array_equal(mask.numpy(), w_mask)
+    assert mask.numpy().any() and not mask.numpy().all()
+    if mode == "hold":
+        np.testing.assert_array_equal(out.numpy(), w_out)
+    else:
+        np.testing.assert_allclose(out.numpy(), w_out, rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_lower_bound_loop_sorted_and_reference_identical(seed):
+    t, _, n, first, grid, d = _regrid_case(seed)
+    q = grid[:, 0][None, :] + d
+    loop = searchsorted_rows(_t(t), _t(q), _t(first), _t(n)).numpy()
+    srt = searchsorted_rows_sorted(_t(t), _t(q), _t(first), _t(n)).numpy()
+    ref = np.asarray(jax_searchsorted_rows(jnp.asarray(t), jnp.asarray(q),
+                                           jnp.asarray(first),
+                                           jnp.asarray(n)))
+    np.testing.assert_array_equal(loop, ref)
+    np.testing.assert_array_equal(srt, ref)
+    # on unmasked rows it is torch.searchsorted's left insertion point
+    full = (first[:, 0] == 0) & (n[:, 0] == t.shape[1])
+    plain = torch.searchsorted(_t(t[full]), _t(q[full])).numpy()
+    np.testing.assert_array_equal(loop[full], plain)
+
+
+def test_grid_resample_op_pads_the_grid_and_slices_back():
+    t, v, n, first, grid, d = _regrid_case(4, sentinel=False)
+    out, mask = grid_resample(_t(t), _t(v), _t(n), _t(first), _t(grid),
+                              _t(d))
+    assert out.shape == (t.shape[0], grid.shape[0])
+    ref_out, ref_mask = grid_resample_ref(_t(t), _t(v), _t(n), _t(first),
+                                          _t(grid), _t(d))
+    assert torch.equal(out, ref_out) and torch.equal(mask, ref_mask)
+
+
+# ------------------------------------------------------------------ B4
+
+def test_make_refbank_matches_reference():
+    _, _, ref, _, max_lag = _xcorr_case(0)
+    got = make_refbank(torch.tensor(ref, dtype=torch.float32),
+                       max_lag=max_lag).numpy()
+    want = np.asarray(jax_make_refbank(jnp.asarray(ref, jnp.float32),
+                                       max_lag=max_lag))
+    assert got.shape == (2 * max_lag + 1, len(ref))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_xcorr_plain_matches_reference(seed):
+    x, m, ref, _, max_lag = _xcorr_case(seed)
+    bank = np.asarray(jax_make_refbank(jnp.asarray(ref, jnp.float32),
+                                       max_lag=max_lag))
+    got = xcorr_scores_ref(_t(x), _t(m), _t(bank)).numpy()
+    want = np.asarray(jax_xcorr_scores_ref(jnp.asarray(x), jnp.asarray(m),
+                                           jnp.asarray(bank)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    # the op's LAG_ALIGN / ROW_ALIGN padding changes no score
+    padded = xcorr_scores(_t(x), _t(m), _t(bank)).numpy()
+    assert padded.shape == got.shape
+    np.testing.assert_allclose(padded, got, rtol=1e-5, atol=1e-6)
+
+
+def test_estimate_delays_matches_reference():
+    x, m, ref, lag, max_lag = _xcorr_case(5)
+    step = 5e-4
+    got = estimate_delays(_t(x), _t(m), ref, step=step, max_lag=max_lag)
+    want = jax_estimate_delays(x, m, ref, step=step, max_lag=max_lag,
+                               interpret=True, block_rows=8)
+    np.testing.assert_allclose(got.delay_s.numpy() / step,
+                               np.asarray(want.delay_s) / step, atol=1e-3)
+    np.testing.assert_allclose(got.peak_corr.numpy(), want.peak_corr,
+                               atol=1e-5)
+    assert np.all(np.abs(got.lag_steps.numpy() - lag) < 0.6)
+
+
+def test_peak_to_delay_matches_reference_on_edges_and_ties():
+    from repro.align.delay import peak_to_delay as jax_peak_to_delay
+    rng = np.random.default_rng(11)
+    s = rng.uniform(-1.0, 1.0, (40, 9))
+    s[0, 0] = s[1, -1] = 2.0                          # peaks at the edges
+    s[2, 3:6] = 1.5                                   # a flat top
+    s[3, [2, 6]] = 1.7                                # a tie
+    got = peak_to_delay(torch.from_numpy(s), 1e-3, 4)
+    want = jax_peak_to_delay(s, 1e-3, 4)
+    np.testing.assert_array_equal(got.lag_steps.numpy(), want.lag_steps)
+    np.testing.assert_array_equal(got.peak_corr.numpy(), want.peak_corr)
+    np.testing.assert_array_equal(got.delay_s.numpy(), want.delay_s)
+
+
+def test_xcorr_wrapper_rejects_other_devices():
+    x, m, ref, _, max_lag = _xcorr_case(1)
+    bank = make_refbank(torch.tensor(ref, dtype=torch.float32),
+                        max_lag=max_lag)
+    with pytest.raises(ValueError, match="unsupported device"):
+        xcorr_align_kernel(_t(x).to("meta"), _t(m).to("meta"),
+                           bank.to("meta"), n_lags=bank.shape[0])

@@ -1,0 +1,58 @@
+"""Seeded inputs shared by the port's kernel tests (numpy only, so the
+card-only tests can use them where JAX is not installed)."""
+import numpy as np
+import torch
+
+WRAP_26 = float(2 ** 26) * 1e-6        # the 2^26 uJ counter, in joules
+
+
+def _counter_rows(seed, f=16, s=300):
+    """Cumulative counters: some wrap at 2^26 uJ (float32 values near the
+    wrap), some at a small period, some never; jittered times with
+    duplicates (dt = 0)."""
+    rng = np.random.default_rng(seed)
+    dt = rng.uniform(0.5e-3, 1.5e-3, (f, s))
+    dt[:, ::17] = 0.0
+    t = np.cumsum(dt, axis=1).astype(np.float32)
+    de = rng.uniform(0.0, 0.4, (f, s))
+    e = WRAP_26 - 30.0 + np.cumsum(de, axis=1)
+    wrap = np.zeros((f, 1))
+    wrap[: f // 2] = WRAP_26
+    wrap[f // 2: 3 * f // 4] = 7.5
+    e = np.where(wrap > 0, np.mod(e, np.where(wrap > 0, wrap, 1.0)), e)
+    return e.astype(np.float32), t, wrap.astype(np.float32)
+
+
+def _regrid_case(seed, f=12, s=200, g=333, sentinel=True):
+    """Rows with a -inf sentinel column, first > 0 on some rows, n < S
+    on others, duplicate times, per-row delays."""
+    rng = np.random.default_rng(seed)
+    t = np.cumsum(rng.uniform(0.0, 2e-3, (f, s)), axis=1)
+    t[:, 5::11] = t[:, 4::11][:, :t[:, 5::11].shape[1]]   # equal times
+    if sentinel:
+        t[:, 0] = -np.inf
+    v = rng.normal(100.0, 20.0, (f, s))
+    n = np.full((f, 1), s, np.int32)
+    n[::3] = rng.integers(s // 2, s, (len(n[::3]), 1))
+    first = np.zeros((f, 1), np.int32)
+    first[1::4] = rng.integers(1, 20, (len(first[1::4]), 1))
+    grid = np.linspace(-0.01, float(np.nanmax(t[np.isfinite(t)])) + 0.01,
+                       g)[:, None]
+    d = rng.uniform(-3e-3, 3e-3, (f, 1))
+    return (t.astype(np.float32), v.astype(np.float32), n, first,
+            grid.astype(np.float32), d.astype(np.float32))
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _xcorr_case(seed, f=20, g=512, max_lag=16):
+    rng = np.random.default_rng(seed)
+    ref = np.where((np.arange(g) // 64) % 2 == 0, 55.0, 215.0)
+    lag = rng.integers(-8, 9, f)
+    x = np.stack([np.roll(ref, k) for k in lag]) \
+        + rng.normal(0.0, 3.0, (f, g)) + rng.uniform(0, 50, (f, 1))
+    m = (rng.random((f, g)) > 0.05).astype(np.float32)
+    m[:, :10] = 0.0
+    return x.astype(np.float32), m, ref, lag, max_lag
