@@ -1,5 +1,6 @@
 """Fleet-wide sensor delay estimation by lag-bank cross-correlation
-(port of ``repro/align/delay.py``, device path).
+(port of ``repro/align/delay.py``: the device path and its float64 host
+mirrors ``make_refbank_host`` / ``estimate_delays_host``).
 
 Every stream is scored in one ``xcorr_align`` call against a shared
 reference (the known phase schedule, or a chosen stream), and each
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.xcorr_align.ops import make_refbank, xcorr_scores
+from repro_torch.kernels.xcorr_align.ref import xcorr_scores_ref
 
 
 @dataclasses.dataclass
@@ -116,4 +118,35 @@ def estimate_delays(values, mask, ref, *, step: float, max_lag: int,
     """
     scores = delay_scores(values, mask, ref, max_lag=max_lag,
                           bank_cache=bank_cache)
+    return peak_to_delay(scores, step, max_lag)
+
+
+def schedule_reference(truth, grid) -> np.ndarray:
+    """The known phase schedule sampled on the grid (float64 watts, host);
+    ``truth`` is anything with ``power_at`` (a ``PiecewisePower``)."""
+    return truth.power_at(np.asarray(grid, np.float64))
+
+
+def make_refbank_host(ref, *, max_lag: int) -> np.ndarray:
+    """Float64 numpy mirror of ``make_refbank``."""
+    ref = np.asarray(ref, np.float64)
+    g = ref.shape[0]
+    ref_c = ref - ref.mean()
+    lags = np.arange(-max_lag, max_lag + 1)
+    src = np.arange(g)[None, :] - lags[:, None]
+    ok = (src >= 0) & (src < g)
+    return np.where(ok, ref_c[np.clip(src, 0, g - 1)], 0.0)
+
+
+def estimate_delays_host(values, mask, ref, *, step: float,
+                         max_lag: int) -> DelayEstimate:
+    """Float64 host mirror of ``estimate_delays`` (parity oracle): the
+    plain scores in float64 on the CPU; the estimate's tensors are float64
+    on the CPU."""
+    def host64(a):
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu().numpy()
+        return torch.as_tensor(np.asarray(a, np.float64))
+    bank = torch.as_tensor(make_refbank_host(ref, max_lag=max_lag))
+    scores = xcorr_scores_ref(host64(values), host64(mask), bank)
     return peak_to_delay(scores, step, max_lag)

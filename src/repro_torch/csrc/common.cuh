@@ -35,3 +35,35 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   __syncthreads();
   return scratch[32];
 }
+
+// Deterministic block-wide sums of N values per thread at once (N <= 32),
+// for kernels that keep N partial sums in registers: a fixed shuffle tree
+// inside each warp for each value, then thread j < N folds value j's
+// per-warp partials in warp order.  Thread j (j < N) gets value j's total;
+// the others get 0.  `scratch` holds N * (blockDim.x / 32) floats.  The
+// order depends only on blockDim, never on the data, the grid or
+// scheduling.  Every thread of the block must call it; blockDim.x must be
+// a multiple of 32.
+template <int N>
+__device__ __forceinline__ float block_sum_n(float (&v)[N], float* scratch) {
+  static_assert(N >= 1 && N <= 32, "one value per lane of the last fold");
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warps = blockDim.x >> 5;
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    for (int off = 16; off > 0; off >>= 1)
+      v[j] = __fadd_rn(v[j], __shfl_down_sync(full, v[j], off));
+  __syncthreads();                 // scratch may hold a previous result
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) scratch[warp * N + j] = v[j];
+  }
+  __syncthreads();
+  float total = 0.0f;
+  if (threadIdx.x < N)
+    for (int w = 0; w < n_warps; ++w)
+      total = __fadd_rn(total, scratch[w * N + threadIdx.x]);
+  return total;
+}

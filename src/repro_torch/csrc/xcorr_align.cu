@@ -27,11 +27,13 @@
 //            depth kBK per stage with the next stage prefetched into
 //            registers, and the divide fused into the epilogue.
 // Each output (f, l) is accumulated by ONE thread over g = 0..G-1 in
-// order with FFMA: no split-K, no atomics.  A row's score therefore never
-// depends on F or on which other rows are scored with it — the invariant
-// the reference pins with ROW_ALIGN.  With F*L_real outputs and no
-// split-K the grid is small (a few warps per SM at the main path's
-// shapes), so the tiles are kept small to spread it over all SMs.
+// order, kBK products at a time with FFMA into a stage sum that is then
+// added to the running sum: no split-K, no atomics.  A row's score
+// therefore never depends on F or on which other rows are scored with
+// it — the invariant the reference pins with ROW_ALIGN.  With F*L_real
+// outputs and no split-K the grid is small (a few warps per SM at the
+// windowed path's shapes), so the tiles are kept small to spread it over
+// all SMs.
 // sqrt and the divide are IEEE.
 #include "common.cuh"
 
@@ -160,6 +162,15 @@ scores_kernel(const float* __restrict__ xc, const float* __restrict__ bank,
     }
     __syncthreads();
     if (k0 + kBK < G) fetch(k0 + kBK);  // in flight during the FMAs
+    // blocked summation: the stage's kBK products are summed on their
+    // own, then added to the running sum, so rounding grows with
+    // kBK + G/kBK terms instead of G (a plain running sum over the
+    // batch path's ~16k grid points drifts ~1e-5 from the plain version)
+    float part[kTM][kTN];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) part[i][j] = 0.0f;
 #pragma unroll
     for (int k = 0; k < kBK; ++k) {
       float a[kTM], b[kTN];
@@ -168,8 +179,14 @@ scores_kernel(const float* __restrict__ xc, const float* __restrict__ bank,
 #pragma unroll
       for (int i = 0; i < kTM; ++i)
 #pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < kTN; ++j)
+          part[i][j] = fmaf(a[i], b[j], part[i][j]);
     }
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j)
+        acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);
     __syncthreads();
   }
 #pragma unroll

@@ -15,3 +15,23 @@ def resolve_device(device=None) -> torch.device:
                 "versions of the kernels")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def refuse_unported(entry: str, *, corrections=None, mesh=None,
+                    interpret=None, use_kernel=None, collectives=None,
+                    shard=None):
+    """Raise ``NotImplementedError`` naming every option ``entry`` was
+    given that the port does not run yet: calibration ``corrections``,
+    ``mesh`` sharding, multi-host ``collectives``/``shard``, Pallas
+    ``interpret=True`` and the kernel-free ``use_kernel=False``.  The
+    defaults (None, and True for ``use_kernel``) pass."""
+    todo = [name for name, given in (
+        ("corrections", corrections is not None),
+        ("mesh", mesh is not None),
+        ("collectives", collectives is not None),
+        ("shard", shard is not None),
+        ("interpret=True", bool(interpret)),
+        ("use_kernel=False", use_kernel is False)) if given]
+    if todo:
+        raise NotImplementedError(f"repro_torch's {entry} does not support "
+                                  + ", ".join(todo) + " yet")

@@ -1,5 +1,5 @@
-"""Ragged-trace packing (port of ``repro/fleet/packing.py``: the parts
-``pack_stream_rows`` uses).
+"""Ragged-trace packing (port of ``repro/fleet/packing.py``: single-host
+packing and ``unpack_series``; the multi-host shard types are not ported).
 
 Host-side numpy: a straight memcpy of the traces into padded
 (fleet, samples) arrays, identical to the reference's bytes, so both
@@ -11,7 +11,7 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.core.reconstruction import unwrap_counter
+from repro_torch.core.reconstruction import PowerSeries, unwrap_counter
 
 # the fleet row tile: rows are padded to a multiple of this, and the
 # delay tracker pins its xcorr row tile to it (a row's score must not
@@ -45,6 +45,11 @@ class PackedFleet:
     @property
     def shape(self):
         return self.energy.shape
+
+    @property
+    def valid(self):
+        """(F, S) bool: slot j of row i is one of its raw reads."""
+        return np.arange(self.shape[1])[None, :] < self.n_samples[:, None]
 
 
 def pack_traces(traces, *, use_t_measured: bool = True,
@@ -86,3 +91,22 @@ def pack_traces(traces, *, use_t_measured: bool = True,
         names.append(tr.name)
     return PackedFleet(energy, times, n_samples, wrap, names, n,
                        t0=t0, e0=e0)
+
+
+def unpack_series(packed: PackedFleet, power, times, valid_out):
+    """Fleet reconstruction output -> per-trace host ``PowerSeries`` list.
+
+    ``power/times/valid_out`` are the (F, S) results of
+    ``fleet_reconstruct`` (tensors on any device, or numpy); rows beyond
+    ``packed.n_traces`` are ignored.
+    """
+    power, times, valid_out = (
+        a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
+        for a in (power, times, valid_out))
+    out = []
+    for i in range(packed.n_traces):
+        m = valid_out[i]
+        out.append(PowerSeries(times[i][m].astype(np.float64) + packed.t0,
+                               power[i][m].astype(np.float64),
+                               source=packed.names[i]))
+    return out

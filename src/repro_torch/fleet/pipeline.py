@@ -21,6 +21,10 @@ torch tensors that stay on one device between stages:
                integrals in a dense (D, 2**k_max, P, k_max) accumulator,
                finalized with the end-of-run weights.
 
+The two-stage fleet streams (``fleet.streaming``) chain Ingest with
+``PhaseIntegrateStage`` (``phase_integrate``) or ``CounterAttributeStage``
+(``fleet_attribute``).
+
 Host round trips per window: the two emit/fill frontiers (one scalar
 each) and the two tail-reach checks (one bool each).  Float64 sums fold
 over fixed axes: no atomics, so results are deterministic.
@@ -42,7 +46,9 @@ from repro_torch.align.delay import (RefbankCache, estimate_delays,
 from repro_torch.device import resolve_device
 from repro_torch.fleet.config import resolve_config
 from repro_torch.fleet.packing import ROW_ALIGN, _round_up, pack_traces
+from repro_torch.kernels.fleet_attribute.kernel import fleet_attribute_kernel
 from repro_torch.kernels.grid_resample.ops import grid_resample
+from repro_torch.kernels.phase_integrate.kernel import phase_integrate_kernel
 from repro_torch.kernels.power_reconstruct.kernel import (
     power_reconstruct_rows_kernel)
 
@@ -917,6 +923,68 @@ class FusedPhaseAttributeStage:
             out.append(w / torch.clamp_min(w.sum(), 1e-30))
             lo += k
         return out
+
+
+# ---------------------------------------------------------------------------
+# Two-stage fleet streams: per-phase integration of closed windows
+# ---------------------------------------------------------------------------
+
+class _PhaseSumStage:
+    """The (F, P) float accumulator of per-phase joules that both
+    two-stage streams keep; phases are padded to the PHASE_ALIGN tile."""
+
+    def __init__(self, phases, n_streams: int, dtype, device):
+        self.device = resolve_device(device)
+        self.phases = torch.as_tensor(pad_phases(phases, dtype),
+                                      device=self.device)
+        self.n_phases = len(np.asarray(phases, np.float64).reshape(-1, 2))
+        self._acc = torch.zeros((n_streams, len(self.phases)),
+                                dtype=_torch_dtype(dtype), device=self.device)
+
+    def reset(self):
+        self._acc = torch.zeros_like(self._acc)
+        return self
+
+    def totals(self) -> np.ndarray:
+        """(n_streams, n_phases) accumulated joules (host numpy)."""
+        return self._acc[:, :self.n_phases].cpu().numpy()
+
+
+class PhaseIntegrateStage(_PhaseSumStage):
+    """Power windows -> (F, P) energies through the ``phase_integrate``
+    kernel (the ``StreamingPhaseAccumulator`` core)."""
+
+    def __init__(self, phases, n_streams: int, *, dtype=np.float32,
+                 device=None):
+        super().__init__(phases, n_streams, dtype, device)
+
+    def update(self, chunk: ClosedWindow):
+        self._acc = self._acc + phase_integrate_kernel(
+            chunk.times.contiguous(), chunk.values.contiguous(),
+            self.phases)
+        return None
+
+
+class CounterAttributeStage(_PhaseSumStage):
+    """Counter windows -> (F, P) energies through the fused
+    ``fleet_attribute`` kernel (dE/dt and integration in one pass; the
+    ``FleetStream`` core).  The counter wrap is fixed per interval inside
+    the kernel: dE telescopes across windows through the carry edge.
+    Single device: ``mesh`` sharding is not ported."""
+
+    def __init__(self, phases, n_streams: int, wrap_period=None, *,
+                 dtype=np.float32, device=None):
+        super().__init__(phases, n_streams, dtype, device)
+        wp = (np.zeros((n_streams,), dtype) if wrap_period is None
+              else np.asarray(wrap_period, dtype))
+        self._wrap_row = torch.as_tensor(wp.reshape(n_streams, 1),
+                                         device=self.device)
+
+    def update(self, chunk: ClosedWindow):
+        self._acc = self._acc + fleet_attribute_kernel(
+            chunk.times.contiguous(), chunk.values.contiguous(),
+            self._wrap_row, self.phases)
+        return None
 
 
 # ---------------------------------------------------------------------------

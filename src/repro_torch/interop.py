@@ -3,7 +3,8 @@
 The reference's objects reach this module as plain numpy arrays, dicts
 and numbers — the port never imports the reference; a caller that holds
 both (the parity tests) extracts the fields and passes them here.
-Covered: sensor traces and specs, the truth schedule, and every stage
+Covered: sensor traces and specs, the truth schedule, the packed blocks
+of the batch path (``PackedFleet``, ``SeriesRows``), and every stage
 carry of the windowed pipeline, so a run can start in the reference and
 finish in the port.  Arrays are installed verbatim: a dtype that differs
 from the carry's raises instead of being cast.
@@ -27,9 +28,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.align.regrid import SeriesRows
 from repro_torch.core.measurement_model import SensorSpec
 from repro_torch.core.power_model import PiecewisePower
 from repro_torch.core.sensors import SensorTrace
+from repro_torch.fleet.packing import PackedFleet
 from repro_torch.fleet.pipeline import (AlignCarry, FusedAttrCarry,
                                         FuseCarry, IngestCarry, TailCarry)
 
@@ -60,6 +63,27 @@ def trace_from_fields(name: str, spec: dict, t_read, t_measured,
 def power_from_arrays(times, watts) -> PiecewisePower:
     """A reference ``PiecewisePower``'s (times, watts)."""
     return PiecewisePower(np.asarray(times), np.asarray(watts))
+
+
+def packed_fleet_from_fields(fields: dict) -> PackedFleet:
+    """A reference ``PackedFleet``'s fields (``energy``, ``times``,
+    ``n_samples``, ``wrap_period``, ``names``, ``n_traces``, ``t0``,
+    ``e0``) -> the port's, arrays verbatim."""
+    f = dict(fields)
+    for k in ("energy", "times", "n_samples", "wrap_period", "e0"):
+        if f.get(k) is not None:
+            f[k] = np.array(f[k])
+    return PackedFleet(**f)
+
+
+def series_rows_from_fields(fields: dict) -> SeriesRows:
+    """A reference ``SeriesRows``' fields (``times``, ``values``, ``n``,
+    ``first``, ``names``, ``n_streams``, ``t0``) -> the port's, arrays
+    verbatim."""
+    f = dict(fields)
+    for k in ("times", "values", "n", "first"):
+        f[k] = np.array(f[k])
+    return SeriesRows(**f)
 
 
 def tail_carry(d, dtype: torch.dtype, device) -> TailCarry:

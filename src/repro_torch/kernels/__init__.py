@@ -7,7 +7,10 @@ an error otherwise; it counts its launches) and, where the reference
 has one, ``ops.py`` (the public op with its padding).  The CUDA sources
 live in ``repro_torch/csrc`` and are built by ``kernels.build``.
 
-  power_reconstruct — per-row wrap-corrected dE/dt (rows variant)
+  power_reconstruct — wrap-corrected dE/dt: per-row periods (rows), the
+                      fused fleet front end (fleet), one scalar period
   grid_resample     — masked lower bound + hold/linear regrid
   xcorr_align       — lag-bank normalized cross-correlation
+  phase_integrate   — per-phase energy of sample-and-hold power rows
+  fleet_attribute   — dE/dt and per-phase integration fused on counters
 """

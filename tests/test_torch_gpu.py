@@ -9,16 +9,23 @@ Without a card every test here skips (the kernels have no CPU mode).
 import pytest
 import torch
 
+from repro_torch.kernels.fleet_attribute import (fleet_attribute_kernel,
+                                                 fleet_attribute_ref)
 from repro_torch.kernels.grid_resample import (grid_resample_kernel,
                                                grid_resample_ref)
+from repro_torch.kernels.phase_integrate import (phase_energies_ref,
+                                                 phase_integrate_kernel)
 from repro_torch.kernels.power_reconstruct import (
+    power_reconstruct_fleet_kernel, power_reconstruct_kernel,
     power_reconstruct_rows_kernel)
 from repro_torch.kernels.power_reconstruct.ref import (
+    reconstruct_power_fleet_ref, reconstruct_power_ref,
     reconstruct_power_rows_ref)
 from repro_torch.kernels.xcorr_align import (make_refbank,
                                              xcorr_align_kernel,
                                              xcorr_scores, xcorr_scores_ref)
-from torch_cases import _counter_rows, _regrid_case, _t, _xcorr_case
+from torch_cases import (WRAP_26, _counter_rows, _fleet_rows, _phase_table,
+                         _power_rows, _regrid_case, _t, _xcorr_case)
 
 
 def _cuda():
@@ -85,3 +92,87 @@ def test_cuda_xcorr_writes_zero_scores_for_padded_lags():
     assert torch.equal(k[:, lags:], torch.zeros_like(k[:, lags:]))
     torch.testing.assert_close(k, xcorr_scores_ref(x, m, padded), rtol=0,
                                atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_power_fleet_matches_plain():
+    dev = _cuda()
+    args = tuple(_t(a).to(dev) for a in _fleet_rows(1))
+    n0 = power_reconstruct_fleet_kernel.launches
+    got = power_reconstruct_fleet_kernel(*args)
+    want = reconstruct_power_fleet_ref(*args)
+    torch.cuda.synchronize()
+    assert power_reconstruct_fleet_kernel.launches == n0 + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert got[2][:, 0].sum().item() == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrap", [0.0, WRAP_26])
+def test_cuda_power_scalar_wrap_matches_plain(wrap):
+    dev = _cuda()
+    e, t, _ = _counter_rows(2)
+    if wrap:
+        e = (e.astype("float64") % wrap).astype("float32")
+    e, t = _t(e).to(dev), _t(t).to(dev)
+    got = power_reconstruct_kernel(e, t, wrap_period=wrap)
+    assert torch.equal(got, reconstruct_power_ref(e, t, wrap_period=wrap))
+
+
+def _energy_close(got, want):
+    err = (got.double() - want.double()).abs()
+    assert (err <= 1e-5 * want.double().abs().clamp_min(1.0)).all(), \
+        err.max().item()
+
+
+@pytest.mark.gpu
+def test_cuda_phase_integrate_matches_plain_and_ignores_row_count():
+    dev = _cuda()
+    t, w = (_t(a).to(dev) for a in _power_rows(2, f=40, s=3000))
+    ph = _t(_phase_table(2, p=7, t_hi=3.0)).to(dev)
+    got = phase_integrate_kernel(t, w, ph)
+    _energy_close(got, phase_energies_ref(t, w, ph))
+    # a row's energy is bit-identical however many rows go together
+    assert torch.equal(phase_integrate_kernel(t[:8].contiguous(),
+                                              w[:8].contiguous(), ph),
+                       got[:8])
+    # more than one 32-phase tile
+    ph2 = torch.cat([ph, ph[:7]])
+    _energy_close(phase_integrate_kernel(t, w, ph2),
+                  phase_energies_ref(t, w, ph2))
+
+
+@pytest.mark.gpu
+def test_cuda_fleet_attribute_matches_plain_and_ignores_row_count():
+    dev = _cuda()
+    e, t, w = (_t(a).to(dev) for a in _counter_rows(3, f=40, s=2000))
+    ph = _t(_phase_table(3, p=6, t_hi=2.0)).to(dev)
+    got = fleet_attribute_kernel(t, e, w, ph)
+    _energy_close(got, fleet_attribute_ref(t, e, w, ph))
+    assert torch.equal(fleet_attribute_kernel(t[:8].contiguous(),
+                                              e[:8].contiguous(),
+                                              w[:8].contiguous(), ph),
+                       got[:8])
+
+
+@pytest.mark.gpu
+def test_cuda_grid_resample_unstaged_rows_match_plain():
+    """Rows of S > 6k samples do not fit the 48 KB staging buffer: the
+    kernel reads them from device memory instead."""
+    dev = _cuda()
+    t, v, n, first, grid, d = (_t(a).to(dev) for a in
+                               _regrid_case(5, f=24, s=7000, g=9000))
+    for mode in ("hold", "linear"):
+        ko, km = grid_resample_kernel(t, v, n[:, 0].contiguous(),
+                                      first[:, 0].contiguous(),
+                                      grid[:, 0].contiguous(),
+                                      d[:, 0].contiguous(), mode=mode)
+        po, pm = grid_resample_ref(t, v, n, first, grid, d, mode=mode)
+        torch.cuda.synchronize()
+        assert torch.equal(km, pm) and km.any()
+        if mode == "hold":
+            assert torch.equal(ko, po)
+        else:
+            torch.testing.assert_close(ko, po, rtol=1e-5, atol=1e-5,
+                                       equal_nan=True)

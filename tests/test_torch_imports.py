@@ -72,6 +72,30 @@ def test_entry_points_default_to_cuda(monkeypatch):
                                delays=np.zeros(2))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         attribute_energy_fused_streaming([[object()]], [("p", 0.0, 1.0)])
+    from repro_torch import align, fleet
+    from repro_torch.core import SensorSpec, ToolSpec, simulate_sensor
+    from repro_torch.core import square_wave
+    truth = square_wave(0.05, 1, lead_s=0.01, tail_s=0.01)
+    counter = simulate_sensor(SensorSpec(name="e", scope="chip",
+                                         kind="energy_cum", quantum=1e-6),
+                              ToolSpec(1e-3), truth, seed=0)
+    packed = fleet.pack_traces([counter])
+    phases = [("p", 0.0, 0.1)]
+    for call in (
+            lambda: fleet.fleet_power_series([counter]),
+            lambda: fleet.attribute_energy_fleet([counter], phases),
+            lambda: fleet.attribute_energy_fused([[counter]], phases),
+            lambda: fleet.attribute_energy_fused([[counter]], phases,
+                                                 streaming=True),
+            lambda: fleet.fleet_reconstruct(packed),
+            lambda: fleet.FleetStream([(0.0, 1.0)], 8),
+            lambda: fleet.StreamingPhaseAccumulator([(0.0, 1.0)], 8),
+            lambda: align.series_rows_from_traces([counter]),
+            lambda: align.align_and_fuse([[counter]]),
+            lambda: align.validate_streams([[counter]]),
+            lambda: align.attribute_energy_fused([[counter]], phases)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     assert resolve_device("cpu") == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_device(None) == torch.device("cuda")
@@ -85,7 +109,9 @@ def test_kernel_build_flags_and_path():
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("libreprotorch_")
     srcs = sorted(p.name for p in build.CSRC.glob("*.cu"))
-    assert srcs == ["grid_resample.cu", "power_reconstruct_rows.cu",
-                    "xcorr_align.cu"]
+    assert srcs == ["fleet_attribute.cu", "grid_resample.cu",
+                    "phase_integrate.cu", "power_reconstruct.cu",
+                    "power_reconstruct_fleet.cu",
+                    "power_reconstruct_rows.cu", "xcorr_align.cu"]
     assert "--use_fast_math" not in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

@@ -13,13 +13,22 @@ from repro.kernels.grid_resample.ref import (grid_resample_ref as
                                              jax_grid_resample_ref)
 from repro.kernels.grid_resample.ref import (searchsorted_rows as
                                              jax_searchsorted_rows)
+from repro.kernels.fleet_attribute.ref import (fleet_attribute_ref as
+                                              jax_fleet_attribute_ref)
+from repro.kernels.phase_integrate.ref import (phase_energies_ref as
+                                              jax_phase_energies_ref)
+from repro.kernels.power_reconstruct.ref import (
+    reconstruct_power_fleet_ref as jax_reconstruct_fleet_ref)
+from repro.kernels.power_reconstruct.ref import (
+    reconstruct_power_ref as jax_reconstruct_power_ref)
 from repro.kernels.power_reconstruct.ref import (
     reconstruct_power_rows_ref as jax_reconstruct_rows_ref)
 from repro.kernels.xcorr_align.ops import make_refbank as jax_make_refbank
 from repro.kernels.xcorr_align.ref import (xcorr_scores_ref as
                                            jax_xcorr_scores_ref)
 from repro_torch.align.delay import estimate_delays, peak_to_delay
-from torch_cases import _counter_rows, _regrid_case, _t, _xcorr_case
+from torch_cases import (WRAP_26, _counter_rows, _fleet_rows, _phase_table,
+                         _power_rows, _regrid_case, _t, _xcorr_case)
 
 # the test workers share the machine's cores: keep torch from taking them all
 torch.set_num_threads(2)
@@ -27,9 +36,17 @@ from repro_torch.kernels.grid_resample import (grid_resample,
                                                grid_resample_ref,
                                                searchsorted_rows,
                                                searchsorted_rows_sorted)
+from repro_torch.kernels.fleet_attribute import (fleet_attribute,
+                                                 fleet_attribute_kernel,
+                                                 fleet_attribute_ref)
+from repro_torch.kernels.phase_integrate import (phase_energies,
+                                                 phase_energies_ref,
+                                                 phase_integrate_kernel)
 from repro_torch.kernels.power_reconstruct import (
-    power_reconstruct_rows_kernel)
+    power_reconstruct_fleet_kernel, power_reconstruct_kernel,
+    power_reconstruct_rows_kernel, reconstruct_power)
 from repro_torch.kernels.power_reconstruct.ref import (
+    reconstruct_power_fleet_ref, reconstruct_power_ref,
     reconstruct_power_rows_ref)
 from repro_torch.kernels.xcorr_align import (make_refbank,
                                              xcorr_align_kernel,
@@ -172,3 +189,122 @@ def test_xcorr_wrapper_rejects_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         xcorr_align_kernel(_t(x).to("meta"), _t(m).to("meta"),
                            bank.to("meta"), n_lags=bank.shape[0])
+
+
+# ------------------------------------------------------------------ B2
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_power_fleet_plain_matches_reference_exactly(seed):
+    """Power, ``valid`` and ``reordered`` bit-identical to the JAX oracle,
+    on rows with duplicates, short rows, wraps and reordered reads."""
+    e, t, w, n = _fleet_rows(seed)
+    got = reconstruct_power_fleet_ref(_t(e), _t(t), _t(w), _t(n))
+    want = jax_reconstruct_fleet_ref(jnp.asarray(e), jnp.asarray(t),
+                                     jnp.asarray(w), jnp.asarray(n))
+    for g, x in zip(got, want):
+        assert g.shape == tuple(x.shape)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(x))
+    reordered = got[2].numpy()[:, 0]
+    assert reordered[[2, 9]].all() and reordered.sum() == 2
+    assert not got[1].numpy().all() and got[1].numpy().any()
+
+
+# ------------------------------------------------------------------ B3
+
+@pytest.mark.parametrize("wrap", [0.0, WRAP_26, 7.5])
+def test_power_scalar_wrap_plain_matches_reference_exactly(wrap):
+    """The unreassociated ``de + wrap`` form, bit for bit."""
+    e, t, _ = _counter_rows(4)
+    if wrap:
+        e = np.mod(e.astype(np.float64), wrap).astype(np.float32)
+        assert (np.diff(e, axis=1) < -0.5 * wrap).any()
+    got = reconstruct_power(_t(e), _t(t), wrap_period=wrap).numpy()
+    want = np.asarray(jax_reconstruct_power_ref(jnp.asarray(e),
+                                                jnp.asarray(t),
+                                                wrap_period=wrap))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        reconstruct_power_ref(_t(e), _t(t), wrap_period=wrap).numpy(), got)
+
+
+# ------------------------------------------------------------------ B6
+
+def _energy_close(got, want):
+    """Per-phase energies within 1e-5 x max(|E|, 1 J): the summation
+    order differs from the reference's reduction."""
+    want = np.asarray(want, np.float64)
+    err = np.abs(np.asarray(got, np.float64) - want)
+    assert (err <= 1e-5 * np.maximum(np.abs(want), 1.0)).all(), err.max()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_phase_integrate_plain_matches_reference(seed):
+    t, w = _power_rows(seed)
+    ph = _phase_table(seed)
+    got = phase_energies(_t(t), _t(w), _t(ph)).numpy()
+    want = np.asarray(jax_phase_energies_ref(jnp.asarray(t), jnp.asarray(w),
+                                             jnp.asarray(ph)))
+    assert got.shape == (t.shape[0], 32) and np.isfinite(got).all()
+    assert (got[:, :5] > 0).any() and (got[:, 5:] == 0).all()
+    _energy_close(got, want)
+
+
+# ------------------------------------------------------------------ B7
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fleet_attribute_plain_matches_reference(seed):
+    e, t, w = _counter_rows(seed)
+    ph = _phase_table(seed)
+    got = fleet_attribute(_t(t), _t(e), _t(w), _t(ph)).numpy()
+    want = np.asarray(jax_fleet_attribute_ref(jnp.asarray(t), jnp.asarray(e),
+                                              jnp.asarray(w),
+                                              jnp.asarray(ph)))
+    assert np.isfinite(got).all() and (got[:, :5] > 0).any()
+    _energy_close(got, want)
+
+
+def test_fleet_attribute_duplicates_add_exactly_zero():
+    """A duplicate read (same t, same E) is a zero-width interval: it adds
+    exactly 0 J, and the rows around it keep their energy."""
+    e, t, w = _counter_rows(5, f=4, s=100)
+    ph = _phase_table(5, t_hi=0.1)
+    dup_t = np.insert(t, 40, t[:, 39], axis=1)
+    dup_e = np.insert(e, 40, e[:, 39], axis=1)
+    pair = fleet_attribute_ref(_t(dup_t[:, 39:41]), _t(dup_e[:, 39:41]),
+                               _t(w), _t(ph))
+    assert torch.equal(pair, torch.zeros_like(pair))
+    a = fleet_attribute_ref(_t(t), _t(e), _t(w), _t(ph)).numpy()
+    b = fleet_attribute_ref(_t(dup_t), _t(dup_e), _t(w), _t(ph)).numpy()
+    _energy_close(b, a)
+
+
+# ------------------------------------------- the wrappers on the CPU
+
+def _wrapper_cases():
+    e, t, w, n = (torch.from_numpy(a) for a in _fleet_rows(6))
+    tp, wp = (torch.from_numpy(a) for a in _power_rows(6))
+    ph = torch.from_numpy(_phase_table(6))
+    return [
+        (power_reconstruct_fleet_kernel, (e, t, w, n), {},
+         reconstruct_power_fleet_ref),
+        (power_reconstruct_kernel, (e, t), {"wrap_period": 7.5},
+         reconstruct_power_ref),
+        (phase_integrate_kernel, (tp, wp, ph), {}, phase_energies_ref),
+        (fleet_attribute_kernel, (t, e, w, ph), {}, fleet_attribute_ref),
+    ]
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_new_wrappers_run_plain_on_cpu_and_raise_elsewhere(case):
+    """On CPU tensors each wrapper is its plain version and counts no
+    launch; on any other device (not CUDA) it raises."""
+    fn, args, kw, plain = _wrapper_cases()[case]
+    before = fn.launches
+    got, want = fn(*args, **kw), plain(*args, **kw)
+    for g, x in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(g, x)
+    assert fn.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        fn(*(a.to("meta") for a in args), **kw)

@@ -56,3 +56,39 @@ def _xcorr_case(seed, f=20, g=512, max_lag=16):
     m = (rng.random((f, g)) > 0.05).astype(np.float32)
     m[:, :10] = 0.0
     return x.astype(np.float32), m, ref, lag, max_lag
+
+
+def _fleet_rows(seed, f=16, s=300):
+    """Raw padded counter reads for the fused fleet front end: the
+    counter rows above plus per-row sample counts (some rows short) and,
+    on rows 2 and 9, a timestamp that goes backwards."""
+    e, t, w = _counter_rows(seed, f, s)
+    rng = np.random.default_rng(seed + 100)
+    n = np.full((f, 1), s, np.int32)
+    n[1::3] = rng.integers(s // 2, s, (len(n[1::3]), 1))
+    for r in (2, 9):
+        j = int(rng.integers(10, s // 2))
+        t[r, j] = t[r, j - 2]
+    return e, t, w, n
+
+
+def _phase_table(seed, p=5, t_hi=0.3):
+    """(32, 2) float32 phase windows: ``p`` real ones (overlapping, one
+    past the data) padded with zero-width rows."""
+    rng = np.random.default_rng(seed + 200)
+    a = np.sort(rng.uniform(0.0, t_hi, p))
+    b = a + rng.uniform(0.01, t_hi / 2, p)
+    ph = np.zeros((32, 2), np.float32)
+    ph[:p, 0], ph[:p, 1] = a, b
+    return ph
+
+
+def _power_rows(seed, f=12, s=300):
+    """Sample-and-hold power rows with a carry column: duplicates (zero
+    width), and a -inf first edge on row 3."""
+    rng = np.random.default_rng(seed + 300)
+    t = np.cumsum(rng.uniform(0.0, 2e-3, (f, s)), axis=1)
+    t[:, 7::13] = t[:, 6::13][:, :t[:, 7::13].shape[1]]
+    t[3, 0] = -np.inf
+    w = rng.uniform(40.0, 260.0, (f, s))
+    return t.astype(np.float32), w.astype(np.float32)
