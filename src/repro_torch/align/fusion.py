@@ -164,12 +164,13 @@ def _align_fuse(groups, *, reference=None, grid=None, grid_step=None,
                 use_t_measured: bool = True, align: bool = True,
                 delays=None, var_floor=VAR_FLOOR_W2, interpret=None,
                 use_kernel=None, dtype=np.float32, device=None) -> _Fused:
-    refuse_unported("align_and_fuse", corrections=corrections,
-                    interpret=interpret, use_kernel=use_kernel)
+    refuse_unported("align_and_fuse", interpret=interpret,
+                    use_kernel=use_kernel)
     dev = resolve_device(device)
     groups = [list(g) for g in groups]
     flat = [tr for g in groups for tr in g]
-    rows = series_rows_from_traces(flat, use_t_measured=use_t_measured,
+    rows = series_rows_from_traces(flat, corrections=corrections,
+                                   use_t_measured=use_t_measured,
                                    dtype=dtype, device=dev)
     if grid is None:
         grid, grid_step = default_grid(rows, grid_step=grid_step)
@@ -236,9 +237,10 @@ def align_and_fuse(groups, **kw) -> list:
     group's FIRST stream is its own reference), ``grid``/``grid_step``,
     ``max_lag``, ``mode``, ``use_t_measured``, ``align``, ``delays``
     (seconds per stream, flat order; overrides estimation),
-    ``var_floor``, ``dtype``; plus ``device`` (None means CUDA).
-    ``corrections``, ``interpret=True`` and ``use_kernel=False`` are not
-    ported.  Returns one ``FusedStream`` (host numpy) per group.
+    ``var_floor``, ``dtype``, ``corrections`` (``core.calibration``,
+    applied per trace before packing); plus ``device`` (None means
+    CUDA).  ``interpret=True`` and ``use_kernel=False`` are not ported.
+    Returns one ``FusedStream`` (host numpy) per group.
     """
     r = _align_fuse(groups, **kw)
     fused, dis, conf, w, out_m = (a.cpu().numpy() for a in r.fused)

@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.calibration import apply_corrections
 from repro_torch.device import refuse_unported, resolve_device
 from repro_torch.fleet.packing import ROW_ALIGN, _round_up, pack_traces
 from repro_torch.fleet.reconstruct import fleet_reconstruct
@@ -88,12 +89,13 @@ def series_rows_from_traces(traces, *, corrections=None,
     Counters are reconstructed to instantaneous power by
     ``fleet_reconstruct`` on ``device`` (None means CUDA); power sensors
     pack their raw readings, made non-decreasing in time with a running
-    max (the lower-bound search's precondition).  ``corrections``,
+    max (the lower-bound search's precondition).  ``corrections``
+    (``core.calibration``) apply to each trace on the host first.
     ``interpret=True`` and ``use_kernel=False`` are not ported.
     """
-    refuse_unported("series_rows_from_traces", corrections=corrections,
-                    interpret=interpret, use_kernel=use_kernel)
-    traces = list(traces)
+    refuse_unported("series_rows_from_traces", interpret=interpret,
+                    use_kernel=use_kernel)
+    traces = [apply_corrections(tr, corrections) for tr in traces]
     if not traces:
         raise ValueError("series_rows_from_traces needs at least one trace")
     dev = resolve_device(device)

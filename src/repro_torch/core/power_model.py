@@ -1,5 +1,11 @@
 """Ground-truth power process for the sensor fabric (port of
-``repro/core/power_model.py``: the piecewise truth and the square wave).
+``repro/core/power_model.py``: the piecewise truth, the square wave and
+the roofline-occupancy model that maps traced phases to watts).
+
+The occupancy model: at the bottleneck time T = max(terms), each unit's
+duty cycle is term/T, and chip power is
+
+    P = P_idle + (P_tdp - P_idle) * clip(w_mxu*c + w_hbm*m + w_ici*x, 0, 1)
 
 Host-side numpy: the truth schedule is a handful of segments, evaluated
 on the host for the delay tracker's reference and for ground-truth
@@ -12,6 +18,8 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core.measurement_model import CHIP_IDLE_W, CHIP_TDP_W
+
+W_MXU, W_HBM, W_ICI = 0.62, 0.33, 0.05
 
 
 @dataclasses.dataclass
@@ -80,4 +88,44 @@ def square_wave(period_s, n_cycles, *, duty=0.5, p_idle=CHIP_IDLE_W,
     if tail_s > 0:
         times.append(t + tail_s)
         watts.append(p_idle)
+    return PiecewisePower(np.asarray(times), np.asarray(watts))
+
+
+def occupancy_power(compute_s, memory_s, collective_s, *,
+                    p_idle=CHIP_IDLE_W, p_tdp=CHIP_TDP_W):
+    """Chip watts for a phase with the given roofline terms."""
+    t = max(compute_s, memory_s, collective_s, 1e-12)
+    occ = (W_MXU * compute_s / t + W_HBM * memory_s / t
+           + W_ICI * collective_s / t)
+    return float(p_idle + (p_tdp - p_idle) * min(max(occ, 0.0), 1.0))
+
+
+def phase_power(phases, roofline_by_phase, *, p_idle=CHIP_IDLE_W,
+                p_tdp=CHIP_TDP_W, default_power=None):
+    """Build a PiecewisePower from traced phases.
+
+    phases: list of (name, t_start_s, t_end_s), non-overlapping, sorted.
+    roofline_by_phase: name -> (compute_s, memory_s, collective_s) or
+        explicit {"watts": W}.
+    """
+    default_power = p_idle if default_power is None else default_power
+    times = []
+    watts = []
+    cursor = None
+    for name, ts, te in phases:
+        if cursor is None:
+            times.append(ts)
+        elif ts > cursor + 1e-9:
+            times.append(ts)
+            watts.append(default_power)      # inter-phase gap = idle
+        spec = roofline_by_phase.get(name)
+        if spec is None:
+            w = default_power
+        elif isinstance(spec, dict):
+            w = float(spec["watts"])
+        else:
+            w = occupancy_power(*spec, p_idle=p_idle, p_tdp=p_tdp)
+        times.append(te)
+        watts.append(w)
+        cursor = te
     return PiecewisePower(np.asarray(times), np.asarray(watts))

@@ -1,11 +1,15 @@
-"""Reconstructed power series and counter unwrapping (port of
-``PowerSeries`` and ``unwrap_counter`` from
-``repro/core/reconstruction.py``): host-side numpy."""
+"""Reconstructed power series, counter unwrapping and the per-trace
+dE/dt (port of ``PowerSeries``, ``unwrap_counter``,
+``delta_e_over_delta_t`` and ``power_trace_series`` from
+``repro/core/reconstruction.py``): host-side numpy, the per-trace oracle
+of the batched device path (``fleet.fleet_reconstruct``)."""
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+
+from repro_torch.core.sensors import SensorTrace
 
 
 @dataclasses.dataclass
@@ -51,3 +55,37 @@ def unwrap_counter(values, wrap_bits=0, quantum=1.0, *, period=None):
     jumps = np.diff(v) < -0.5 * period
     wraps = np.concatenate([[0.0], np.cumsum(jumps.astype(np.float64))])
     return v + wraps * period
+
+
+def delta_e_over_delta_t(trace: SensorTrace, *, use_t_measured=True,
+                         min_dt=None) -> PowerSeries:
+    """The paper's reconstruction, from a cumulative-energy SensorTrace:
+    repeated publications are dropped, the counter unwrapped with its
+    declared period, reordered timestamps dropped; ``min_dt`` coalesces
+    samples closer than that to bound quantization noise."""
+    assert trace.spec.is_cumulative, f"{trace.name} is not an energy counter"
+    ch = trace.changed_mask()
+    t = (trace.t_measured if use_t_measured else trace.t_read)[ch]
+    e = unwrap_counter(trace.value[ch], period=trace.spec.wrap_period_j)
+    keep = np.concatenate([[True], np.diff(t) > 0])
+    t, e = t[keep], e[keep]
+    if min_dt:
+        sel = [0]
+        last = t[0]
+        for i in range(1, len(t)):
+            if t[i] - last >= min_dt:
+                sel.append(i)
+                last = t[i]
+        t, e = t[np.asarray(sel)], e[np.asarray(sel)]
+    dt = np.diff(t)
+    de = np.diff(e)
+    return PowerSeries(t[1:], de / dt, source=trace.name)
+
+
+def power_trace_series(trace: SensorTrace, *, use_t_measured=True,
+                       dedupe=True) -> PowerSeries:
+    """A (possibly filtered) power sensor as a PowerSeries, deduplicated."""
+    ch = trace.changed_mask() if dedupe else np.ones(len(trace), bool)
+    t = (trace.t_measured if use_t_measured else trace.t_read)[ch]
+    keep = np.concatenate([[True], np.diff(t) > 0])
+    return PowerSeries(t[keep], trace.value[ch][keep], source=trace.name)

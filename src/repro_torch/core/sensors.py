@@ -1,5 +1,5 @@
 """Sensor-fabric simulator (port of ``repro/core/sensors.py``: the three
-stages and ``simulate_sensor``).
+stages, ``simulate_sensor`` and the per-node ``NodeFabric``).
 
 The randomness is numpy ``default_rng`` seeded exactly as the reference
 seeds it, so both packages produce bit-identical traces from one seed.
@@ -8,11 +8,14 @@ Host-side numpy: this is the data source, not the device path.
 from __future__ import annotations
 
 import dataclasses
+import re
 import zlib
 
 import numpy as np
 
-from repro_torch.core.measurement_model import SensorSpec, ToolSpec
+from repro_torch.core.measurement_model import (DDR_W, HOST_CPU_W, NIC_W,
+                                                SensorSpec, ToolSpec,
+                                                default_node_sensors)
 from repro_torch.core.power_model import PiecewisePower
 
 
@@ -124,3 +127,69 @@ def simulate_sensor(spec: SensorSpec, tool: ToolSpec,
     tm, val = produce(spec, truth, rng)
     tp, tmp, vp = publish(spec, tm, val, truth.t0, truth.t1, rng)
     return sample(spec, tool, tp, tmp, vp, truth.t0, truth.t1, rng)
+
+
+# ---------------------------------------------------------------------------
+# Node fabric: per-chip truths composed into tray/node-scope sensors.
+# ---------------------------------------------------------------------------
+
+def _merge_sum(pps, extra_const=0.0):
+    times = np.unique(np.concatenate([p.times for p in pps]))
+    mids = (times[:-1] + times[1:]) / 2.0
+    watts = sum(p.power_at(mids) for p in pps) + extra_const
+    return PiecewisePower(times, watts)
+
+
+@dataclasses.dataclass
+class NodeFabric:
+    """One node: 4 chips with their own power truths + host components.
+
+    ``cpu_activity`` scales host-CPU dynamic power with mean chip activity
+    (data feeding, launch overhead): CPU/memory/NIC form a mostly-static
+    baseline under GPU-bound load.
+    """
+    chip_truths: list                      # [PiecewisePower] * n_chips
+    node_id: int = 0
+    cpu_idle_w: float = HOST_CPU_W * 0.45
+    cpu_activity: float = 0.15
+    ddr_w: float = DDR_W
+    n_nics: int = 2
+
+    def truth_for(self, spec: SensorSpec) -> PiecewisePower:
+        name = spec.name
+        if name.startswith("chip") or name.startswith("pm_accel"):
+            chip = int(re.search(r"(?:chip|accel)(\d+)", name).group(1))
+            return self.chip_truths[chip]
+        if name == "pm_cpu_power":
+            total = _merge_sum(self.chip_truths)
+            act = (total.watts - total.watts.min()) \
+                / max(total.watts.max() - total.watts.min(), 1.0)
+            return PiecewisePower(
+                total.times,
+                self.cpu_idle_w + self.cpu_activity * HOST_CPU_W * act)
+        if name == "pm_memory_power":
+            t = self.chip_truths[0]
+            return PiecewisePower(np.asarray([t.t0, t.t1]),
+                                  np.asarray([self.ddr_w]))
+        if name == "pm_node_power":
+            cpu = self.truth_for(SensorSpec("pm_cpu_power", "node",
+                                            "power_inst"))
+            nic = self.n_nics * NIC_W
+            return _merge_sum(self.chip_truths + [cpu],
+                              extra_const=self.ddr_w + nic)
+        raise KeyError(name)
+
+    def sample_all(self, tool: ToolSpec = None, seed=0,
+                   sensors=None) -> dict:
+        """{name: SensorTrace} for every sensor of the node; each
+        sensor's stream is seeded with ``seed * 1000003 + node_id``, as
+        the reference seeds it."""
+        tool = tool or ToolSpec()
+        sensors = sensors or default_node_sensors(len(self.chip_truths))
+        tool = dataclasses.replace(tool, n_sensors_polled=len(sensors))
+        out = {}
+        for spec in sensors:
+            truth = self.truth_for(spec)
+            out[spec.name] = simulate_sensor(
+                spec, tool, truth, seed=seed * 1000003 + self.node_id)
+        return out

@@ -17,16 +17,14 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def refuse_unported(entry: str, *, corrections=None, mesh=None,
-                    interpret=None, use_kernel=None, collectives=None,
-                    shard=None):
+def refuse_unported(entry: str, *, mesh=None, interpret=None,
+                    use_kernel=None, collectives=None, shard=None):
     """Raise ``NotImplementedError`` naming every option ``entry`` was
-    given that the port does not run yet: calibration ``corrections``,
-    ``mesh`` sharding, multi-host ``collectives``/``shard``, Pallas
-    ``interpret=True`` and the kernel-free ``use_kernel=False``.  The
-    defaults (None, and True for ``use_kernel``) pass."""
+    given that the port does not run yet: ``mesh`` sharding, multi-host
+    ``collectives``/``shard``, Pallas ``interpret=True`` and the
+    kernel-free ``use_kernel=False``.  The defaults (None, and True for
+    ``use_kernel``) pass."""
     todo = [name for name, given in (
-        ("corrections", corrections is not None),
         ("mesh", mesh is not None),
         ("collectives", collectives is not None),
         ("shard", shard is not None),
@@ -35,3 +33,12 @@ def refuse_unported(entry: str, *, corrections=None, mesh=None,
     if todo:
         raise NotImplementedError(f"repro_torch's {entry} does not support "
                                   + ", ".join(todo) + " yet")
+
+
+def wait(device) -> None:
+    """Block the host until ``device`` has finished its queued work (the
+    counterpart of ``jax.block_until_ready``); nothing to wait for on the
+    CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.calibration import apply_corrections
 from repro_torch.device import refuse_unported, resolve_device
 from repro_torch.fleet.packing import pack_traces, unpack_series
 from repro_torch.fleet.reconstruct import fleet_reconstruct
@@ -33,12 +34,13 @@ def fleet_power_series(traces, *, use_t_measured: bool = True,
     """Batched dE/dt for many cumulative-energy traces -> [PowerSeries].
 
     One pack on the host and one fused kernel launch, any trace count
-    and lengths.  ``corrections``, ``interpret=True`` and
+    and lengths.  ``corrections`` (``core.calibration``) apply to each
+    trace on the host before packing.  ``interpret=True`` and
     ``use_kernel=False`` are not ported.
     """
-    refuse_unported("fleet_power_series", corrections=corrections,
-                    interpret=interpret, use_kernel=use_kernel)
-    traces = list(traces)
+    refuse_unported("fleet_power_series", interpret=interpret,
+                    use_kernel=use_kernel)
+    traces = [apply_corrections(tr, corrections) for tr in traces]
     _counters_only(traces)
     packed = pack_traces(traces, use_t_measured=use_t_measured, dtype=dtype)
     power, times, valid = fleet_reconstruct(packed, device=device)
@@ -51,13 +53,14 @@ def attribute_energy_fleet(traces, phases, *, corrections=None,
     """Per-phase energy for many cumulative traces in streamed chunks.
 
     phases: [(name, t_start, t_end)] absolute seconds.  Returns one
-    ``[PhaseEnergy]`` list per trace.  The packed block is uploaded once
+    ``[PhaseEnergy]`` list per trace.  ``corrections`` apply to each
+    trace on the host before packing.  The packed block is uploaded once
     and fed to ``FleetStream`` in ``chunk``-column windows.
     """
     from repro_torch.core.attribution import PhaseEnergy
-    refuse_unported("attribute_energy_fleet", corrections=corrections,
-                    interpret=interpret, use_kernel=use_kernel)
-    traces = list(traces)
+    refuse_unported("attribute_energy_fleet", interpret=interpret,
+                    use_kernel=use_kernel)
+    traces = [apply_corrections(tr, corrections) for tr in traces]
     dev = resolve_device(device)
     if not phases:
         return [[] for _ in traces]

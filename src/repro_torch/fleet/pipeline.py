@@ -31,7 +31,8 @@ over fixed axes: no atomics, so results are deterministic.
 
 Not ported yet (the entry point raises ``NotImplementedError``): the
 scan engine, multi-host collectives, checkpoints, health and metering
-stages, data-quality raise policies and calibration corrections.
+stages and data-quality raise policies.  Calibration ``corrections``
+apply per trace on the host before packing (``pack_stream_rows``).
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ import torch
 
 from repro_torch.align.delay import (RefbankCache, estimate_delays,
                                      stream_reference)
+from repro_torch.core.calibration import apply_corrections
 from repro_torch.device import resolve_device
 from repro_torch.fleet.config import resolve_config
 from repro_torch.fleet.packing import ROW_ALIGN, _round_up, pack_traces
@@ -1067,14 +1069,15 @@ class StreamRows:
         return self.times.shape
 
 
-def pack_stream_rows(traces, *, use_t_measured: bool = True, t0=None,
+def pack_stream_rows(traces, *, corrections=None,
+                     use_t_measured: bool = True, t0=None,
                      dtype=np.float32, cum_t0=None) -> StreamRows:
     """SensorTraces (mixed cumulative + power) -> raw streaming rows.
 
-    Calibration ``corrections`` are not ported: the entry point raises
-    for them.
+    Calibration ``corrections`` (``core.calibration``) apply to each
+    trace on the host before packing and before the float32 rebase.
     """
-    traces = list(traces)
+    traces = [apply_corrections(tr, corrections) for tr in traces]
     assert traces, "pack_stream_rows needs at least one trace"
     if t0 is None:
         t0 = min(float((tr.t_measured if use_t_measured
@@ -1290,7 +1293,7 @@ class StreamingFusedPipeline:
         return self
 
 
-def _unsupported(cfg, corrections, registry, meter):
+def _unsupported(cfg, registry, meter):
     """Name the options this port does not run yet (queue A of the
     roadmap), instead of ignoring them."""
     todo = []
@@ -1309,8 +1312,6 @@ def _unsupported(cfg, corrections, registry, meter):
         todo.append("interpret=True")
     if cfg.stream.use_kernel is False:
         todo.append("use_kernel=False")
-    if corrections is not None:
-        todo.append("corrections")
     if registry is not None:
         todo.append("registry")
     if meter:
@@ -1342,14 +1343,15 @@ def attribute_energy_fused_streaming(trace_groups, phases, *,
     ``DeprecationWarning``, as in the reference.  ``StreamConfig.grid``
     (absolute) pins the output grid.  reference: a ``PiecewisePower``
     (anything with ``power_at``, absolute seconds) or a callable in
-    pipeline time.  ``on_window(pipe, w)`` fires after window ``w``.
-    device: None means CUDA (raises without a card); pass "cpu" for the
-    plain PyTorch versions of the kernels.
+    pipeline time.  corrections: a ``core.calibration.Corrections``,
+    applied per trace before packing.  ``on_window(pipe, w)`` fires
+    after window ``w``.  device: None means CUDA (raises without a
+    card); pass "cpu" for the plain PyTorch versions of the kernels.
     """
     from repro_torch.core.attribution import PhaseEnergy
     cfg = resolve_config(config, legacy,
                          "attribute_energy_fused_streaming")
-    _unsupported(cfg, corrections, registry, meter)
+    _unsupported(cfg, registry, meter)
     dev = resolve_device(device)
     chunk = cfg.stream.chunk
     grid, grid_step = cfg.stream.grid, cfg.stream.grid_step
@@ -1358,7 +1360,8 @@ def attribute_energy_fused_streaming(trace_groups, phases, *,
     tail = cfg.track.tail
     groups = [list(g) for g in trace_groups]
     flat = [tr for g in groups for tr in g]
-    rows = pack_stream_rows(flat, use_t_measured=cfg.stream.use_t_measured,
+    rows = pack_stream_rows(flat, corrections=corrections,
+                            use_t_measured=cfg.stream.use_t_measured,
                             dtype=dtype)
     # one pass over the rows (the reference scans them once per use)
     cadence = _min_cadence(rows)

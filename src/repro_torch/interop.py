@@ -4,9 +4,10 @@ The reference's objects reach this module as plain numpy arrays, dicts
 and numbers — the port never imports the reference; a caller that holds
 both (the parity tests) extracts the fields and passes them here.
 Covered: sensor traces and specs, the truth schedule, the packed blocks
-of the batch path (``PackedFleet``, ``SeriesRows``), and every stage
-carry of the windowed pipeline, so a run can start in the reference and
-finish in the port.  Arrays are installed verbatim: a dtype that differs
+of the batch path (``PackedFleet``, ``SeriesRows``), every stage carry
+of the windowed pipeline, so a run can start in the reference and finish
+in the port, and the §V-B case study's inputs (a linear system, a region
+tracer's events).  Arrays are installed verbatim: a dtype that differs
 from the carry's raises instead of being cast.
 
 State schema for ``load_pipeline_state`` (``pipeline_state`` returns the
@@ -32,6 +33,7 @@ from repro_torch.align.regrid import SeriesRows
 from repro_torch.core.measurement_model import SensorSpec
 from repro_torch.core.power_model import PiecewisePower
 from repro_torch.core.sensors import SensorTrace
+from repro_torch.core.tracing import RegionTracer
 from repro_torch.fleet.packing import PackedFleet
 from repro_torch.fleet.pipeline import (AlignCarry, FusedAttrCarry,
                                         FuseCarry, IngestCarry, TailCarry)
@@ -84,6 +86,36 @@ def series_rows_from_fields(fields: dict) -> SeriesRows:
     for k in ("times", "values", "n", "first"):
         f[k] = np.array(f[k])
     return SeriesRows(**f)
+
+
+def system_from_arrays(a, b, x_true, *, dtype=torch.float32, device=None):
+    """A reference linear system (``make_system``/``make_dd_system``/
+    ``make_poisson`` outputs as numpy; ``None`` for a part the function
+    does not return) -> tensors of ``dtype`` on ``device`` (None means
+    CUDA).  ``x_true`` stays float32, as the reference keeps it."""
+    from repro_torch.device import resolve_device
+    dev = resolve_device(device)
+
+    def conv(x, dt):
+        return None if x is None else torch.as_tensor(
+            np.array(x), device=dev).to(dt)
+    return conv(a, dtype), conv(b, dtype), conv(x_true, torch.float32)
+
+
+def tracer_from_arrays(arrays: dict) -> RegionTracer:
+    """``RegionTracer.to_arrays()`` of either package -> the port's
+    tracer holding the same events (in start-time order)."""
+    tracer = RegionTracer()
+    names = list(arrays["names"])
+    for i in range(len(arrays["name_id"])):
+        tracer.add_region(names[int(arrays["name_id"][i])],
+                          float(arrays["t_start"][i]),
+                          float(arrays["t_end"][i]),
+                          depth=int(arrays["depth"][i]),
+                          device=int(arrays["device"][i]),
+                          step=int(arrays["step"][i]),
+                          slot=int(arrays["slot"][i]))
+    return tracer
 
 
 def tail_carry(d, dtype: torch.dtype, device) -> TailCarry:

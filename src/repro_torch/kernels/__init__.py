@@ -13,4 +13,5 @@ live in ``repro_torch/csrc`` and are built by ``kernels.build``.
   xcorr_align       — lag-bank normalized cross-correlation
   phase_integrate   — per-phase energy of sample-and-hold power rows
   fleet_attribute   — dE/dt and per-phase integration fused on counters
+  squarewave        — the calibrated vector-FMA load of the square wave
 """

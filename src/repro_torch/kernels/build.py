@@ -141,3 +141,4 @@ def stream_ptr(device: torch.device) -> int:
 
 PTR = ctypes.c_void_p      # device pointers and the stream
 INT = ctypes.c_int
+I64 = ctypes.c_longlong

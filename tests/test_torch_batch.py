@@ -456,8 +456,6 @@ def test_batch_matches_windowed_with_fixed_delays(case, chunk):
 # ------------------------------------------------ options not ported yet
 
 @pytest.mark.parametrize("call", [
-    lambda g, t: tfleet.fleet_power_series(g[0][:1], device=CPU,
-                                           corrections={}),
     lambda g, t: tfleet.attribute_energy_fleet(g[0][:1], [("p", 0, 1)],
                                                device=CPU,
                                                use_kernel=False),
@@ -466,14 +464,12 @@ def test_batch_matches_windowed_with_fixed_delays(case, chunk):
     lambda g, t: tfleet.attribute_energy_fused(g, [("p", 0, 1)],
                                                device=CPU, shard=1),
     lambda g, t: talign.align_and_fuse(g, device=CPU, interpret=True),
-    lambda g, t: talign.align_and_fuse(g, device=CPU, corrections={}),
     lambda g, t: tfleet.FleetStream([(0, 1)], 2, device=CPU, mesh=1),
     lambda g, t: tfleet.StreamingPhaseAccumulator([(0, 1)], 2, device=CPU,
                                                   use_kernel=False),
     lambda g, t: tfleet.fleet_reconstruct(t, device=CPU, mesh=1),
-], ids=["fps-corrections", "aef-use_kernel", "fused-collectives",
-        "fused-shard", "align-interpret", "align-corrections",
-        "stream-mesh", "acc-use_kernel", "recon-mesh"])
+], ids=["aef-use_kernel", "fused-collectives", "fused-shard",
+        "align-interpret", "stream-mesh", "acc-use_kernel", "recon-mesh"])
 def test_unported_options_raise(case, call):
     _, traces = _counter_traces(n=1)
     packed = tfleet.pack_traces([_port_trace(traces[0])])

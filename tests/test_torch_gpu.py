@@ -18,6 +18,9 @@ from repro_torch.kernels.phase_integrate import (phase_energies_ref,
 from repro_torch.kernels.power_reconstruct import (
     power_reconstruct_fleet_kernel, power_reconstruct_kernel,
     power_reconstruct_rows_kernel)
+from repro_torch.kernels.squarewave import (squarewave_fused_ref,
+                                            squarewave_kernel,
+                                            squarewave_load, squarewave_ref)
 from repro_torch.kernels.power_reconstruct.ref import (
     reconstruct_power_fleet_ref, reconstruct_power_ref,
     reconstruct_power_rows_ref)
@@ -176,3 +179,66 @@ def test_cuda_grid_resample_unstaged_rows_match_plain():
         else:
             torch.testing.assert_close(ko, po, rtol=1e-5, atol=1e-5,
                                        equal_nan=True)
+
+
+# rtol of the square-wave kernel (one rounding per step) against its plain
+# version (two): K ulps relative; bf16 the reference's own bound
+_SW_RTOL = {torch.float32: lambda k: k * 2.0 ** -23,
+            torch.float64: lambda k: k * 2.0 ** -52,
+            torch.bfloat16: lambda k: 2e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fma_chain", [17, 80])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_cuda_squarewave_matches_plain(dtype, fma_chain):
+    """Whole vectors plus a scalar tail (width 67 is no multiple of any
+    vector width), and a misaligned view through the public op."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((256, 67), generator=gen, device=dev).to(dtype)
+    n0 = squarewave_kernel.launches
+    k = squarewave_kernel(x, fma_chain=fma_chain)
+    p = squarewave_ref(x, fma_chain=fma_chain)
+    torch.cuda.synchronize()
+    assert squarewave_kernel.launches == n0 + 1
+    assert k.dtype == dtype and k.shape == x.shape
+    torch.testing.assert_close(k.double(), p.double(), atol=0.0,
+                               rtol=_SW_RTOL[dtype](fma_chain))
+    flat = torch.randn(4097, generator=gen, device=dev).to(dtype)
+    view = flat[1:].view(64, 64)                  # not 16-byte aligned
+    with pytest.raises(ValueError, match="aligned"):
+        squarewave_kernel(view, fma_chain=fma_chain)
+    torch.testing.assert_close(
+        squarewave_load(view, fma_chain=fma_chain).double(),
+        squarewave_ref(view, fma_chain=fma_chain).double(), atol=0.0,
+        rtol=_SW_RTOL[dtype](fma_chain))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fma_chain", [1, 17, 80])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_cuda_squarewave_rounds_once_per_step(dtype, fma_chain):
+    """Bit for bit the plain one-rounding chain (``squarewave_fused_ref``):
+    a float32 or float64 step moves a value by ~1.1e-6 relative, so a
+    dropped or extra FMA fails here.  bfloat16 cannot show the chain
+    (both versions return ``x``); there this checks the layout."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((256, 67), generator=gen, device=dev).to(dtype)
+    got = squarewave_kernel(x, fma_chain=fma_chain)
+    assert torch.equal(got, squarewave_fused_ref(x, fma_chain=fma_chain))
+
+
+@pytest.mark.gpu
+def test_cuda_squarewave_ignores_row_count():
+    """A row's result does not depend on how many rows are launched."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((1024, 256), generator=gen, device=dev)
+    whole = squarewave_kernel(x, fma_chain=80)
+    part = squarewave_kernel(x[:256].contiguous(), fma_chain=80)
+    torch.cuda.synchronize()
+    assert torch.equal(whole[:256], part)

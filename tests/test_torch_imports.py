@@ -48,6 +48,64 @@ def test_port_imports_with_jax_and_repro_blocked():
     assert int(out.stdout.split()[-1]) >= 20
 
 
+_CASE_STUDY_MODULES = ("repro_torch.core.tracing",
+                       "repro_torch.core.calibration",
+                       "repro_torch.core.attribution",
+                       "repro_torch.kernels.squarewave",
+                       "repro_torch.kernels.squarewave.ops",
+                       "repro_torch.hpl", "repro_torch.hpl.hpl",
+                       "repro_torch.hpl.hpl_mxp", "repro_torch.hpl.hpg_mxp",
+                       "repro_torch.hpl.energy")
+
+
+@pytest.mark.parametrize("module", _CASE_STUDY_MODULES)
+def test_case_study_module_imports_with_jax_and_repro_blocked(module):
+    """Each module of the §V-B case study loads on its own with JAX and
+    the reference blocked."""
+    code = _BLOCKED_IMPORT.split("import repro_torch")[0] + (
+        f"import importlib\nimportlib.import_module({module!r})\n"
+        "leaked = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] in BLOCKED)\n"
+        "assert not leaked, leaked\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+
+
+def test_case_study_entry_points_default_to_cuda(monkeypatch):
+    """The §V-B entry points ask for the card without ``device=``; with
+    no card they raise instead of running on the CPU."""
+    from repro_torch import hpl
+    from repro_torch.core import RegionTracer
+    from repro_torch.kernels.squarewave import squarewave_load
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tracer = RegionTracer()
+    tracer.add_region("hpl_factorize", 0.0, 0.2)
+    a = np.eye(4, dtype=np.float32)
+    for call in (
+            lambda: hpl.make_system(4),
+            lambda: hpl.make_dd_system(4),
+            lambda: hpl.make_poisson(4),
+            lambda: hpl.hpl_solve(a, a[0], nb=2),
+            lambda: hpl.hpl_mxp_solve(a, a[0], nb=2),
+            lambda: hpl.hpg_solve(np.ones((4, 4, 4), np.float32)),
+            lambda: hpl.energize(tracer),
+            lambda: hpl.fleet_energize(tracer, 1),
+            lambda: hpl.fused_fleet_energize(tracer, 1),
+            lambda: hpl.fused_fleet_energize(tracer, 1, streaming=True),
+            lambda: hpl.mxp_energy_report(tracer, tracer, 1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    with pytest.raises(NotImplementedError, match="interpret=True"):
+        squarewave_load(torch.ones(8, 8), fma_chain=2, interpret=True)
+    with pytest.raises(NotImplementedError, match="use_kernel=False"):
+        squarewave_load(torch.ones(8, 8), fma_chain=2, use_kernel=False)
+    with pytest.raises(NotImplementedError, match="shard"):
+        hpl.fused_fleet_energize(tracer, 1, shard=object(),
+                                 collectives=object(), device="cpu")
+
+
 def test_port_sources_name_neither_jax_nor_repro():
     pat = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
                      r"from\s+(jax|repro)(\.|\s)(?!_))", re.M)
@@ -112,6 +170,7 @@ def test_kernel_build_flags_and_path():
     assert srcs == ["fleet_attribute.cu", "grid_resample.cu",
                     "phase_integrate.cu", "power_reconstruct.cu",
                     "power_reconstruct_fleet.cu",
-                    "power_reconstruct_rows.cu", "xcorr_align.cu"]
+                    "power_reconstruct_rows.cu", "squarewave.cu",
+                    "xcorr_align.cu"]
     assert "--use_fast_math" not in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

@@ -246,11 +246,10 @@ def test_interop_refuses_a_cast(case):
     dict(config=PipelineConfig(dq=object())),
     dict(config=PipelineConfig(stream=StreamConfig(host=True))),
     dict(config=PipelineConfig(stream=StreamConfig(use_kernel=False))),
-    dict(corrections=object()),
     dict(meter=[object()]),
     dict(registry=object()),
 ], ids=["scan", "checkpoint", "health", "dq", "host", "no_kernel",
-        "corrections", "meter", "registry"])
+        "meter", "registry"])
 def test_unsupported_options_raise(case, option):
     with pytest.raises(NotImplementedError):
         attribute_energy_fused_streaming(case["port_groups"],
