@@ -1,0 +1,51 @@
+#!/usr/bin/env python3
+"""The serving phases of ``chip_smoke.py`` alone, on one card.
+
+    python3 scripts/serve_probe.py [--seed 0]
+
+Builds the kernels, holds B9 (``flash_attention``) and B10
+(``selective_scan``) against their plain versions at the serving shapes
+and times them (``chip_smoke.check_serve_kernels``), then serves both
+configurations (``chip_smoke.run_serving``: llama3.2-3b at full size
+and the 8-layer Jamba-width hybrid) with every gate of the full script.
+A quick check of the serving path, and a second sample of its numbers:
+the last line is one JSON object with the kernels' records and each
+configuration's summary.  Needs a CUDA card; imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("serve_probe: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"kernels built in {build.timed_build():.1f} s")
+    records = cs.check_serve_kernels(torch.device("cuda"), args.seed)
+    serving = {}
+    for label, cfg, cuts in cs.serve_configs():
+        serving[label], _ = cs.run_serving(label, cfg, cuts, args.seed)
+    print(json.dumps({"kernels": {k: cs.kernel_entry(v)
+                                  for k, v in records.items()},
+                      "serving": serving}, default=str))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

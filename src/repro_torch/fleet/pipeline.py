@@ -31,7 +31,8 @@ over fixed axes: no atomics, so results are deterministic.
 
 Not ported yet (the entry point raises ``NotImplementedError``): the
 scan engine, multi-host collectives, checkpoints, health and metering
-stages and data-quality raise policies.  Calibration ``corrections``
+stages and data-quality raise policies.  The metering schedule's
+``SlotSegment`` is here; its stage is not.  Calibration ``corrections``
 apply per trace on the host before packing (``pack_stream_rows``).
 """
 from __future__ import annotations
@@ -1291,6 +1292,32 @@ class StreamingFusedPipeline:
     def reset(self):
         self.pipeline.reset()
         return self
+
+
+# ---------------------------------------------------------------------------
+# Per-request metering schedule (the ``MeteringStage`` itself is not ported)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SlotSegment:
+    """One constant-occupancy interval of a serve engine's timeline.
+
+    ``rids``/``tokens`` list the requests concurrently active in
+    ``[t_lo, t_hi)`` and the token weight each contributed (prompt
+    length for prefill segments, decoded steps for decode segments).
+    Segment boundaries fall on every admission/eviction, so occupancy
+    is constant inside a segment and the union of segments tiles the
+    engine's depth-0 phases exactly.
+    """
+    t_lo: float
+    t_hi: float
+    rids: tuple
+    tokens: tuple
+    kind: str = "decode"
+
+    def shifted(self, dt: float) -> "SlotSegment":
+        return dataclasses.replace(self, t_lo=self.t_lo + dt,
+                                   t_hi=self.t_hi + dt)
 
 
 def _unsupported(cfg, registry, meter):

@@ -6,9 +6,10 @@ both (the parity tests) extracts the fields and passes them here.
 Covered: sensor traces and specs, the truth schedule, the packed blocks
 of the batch path (``PackedFleet``, ``SeriesRows``), every stage carry
 of the windowed pipeline, so a run can start in the reference and finish
-in the port, and the §V-B case study's inputs (a linear system, a region
-tracer's events).  Arrays are installed verbatim: a dtype that differs
-from the carry's raises instead of being cast.
+in the port, the §V-B case study's inputs (a linear system, a region
+tracer's events), and a model's parameters and decode cache (nested dicts
+of arrays, stacked per ``pos{i}``).  Arrays are installed verbatim: a
+dtype that differs from the carry's raises instead of being cast.
 
 State schema for ``load_pipeline_state`` (``pipeline_state`` returns the
 same from a port pipeline)::
@@ -238,3 +239,62 @@ def pipeline_state(pipe) -> dict:
                      if dense[di, p].any()})
     out["attr"] = {"t_prev": _np(pipe.attr.carry.t_prev), "integrals": ints}
     return out
+
+
+# ---------------------------------------------------------------------------
+# Models: parameters and decode caches
+# ---------------------------------------------------------------------------
+
+def _array_tensor(arr, dtype: torch.dtype, shape, device, what: str):
+    """A numpy array (bfloat16 as ml_dtypes gives it) -> a tensor of
+    exactly ``dtype`` and ``shape`` on ``device``; anything else raises."""
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+        t = t.view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: dtype {a.dtype}, the port holds {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: shape {tuple(t.shape)}, the port holds "
+                         f"{tuple(shape)}")
+    return t.to(device)
+
+
+def _install(tree, spec, device, what: str, leaf):
+    """Walk ``spec`` (nested dict of leaves); ``leaf(spec_leaf)`` gives
+    (dtype, shape).  The tree must have exactly the spec's keys."""
+    if isinstance(spec, dict):
+        if not isinstance(tree, dict) or set(tree) != set(spec):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"{what}: keys {got}, the port holds "
+                             f"{sorted(spec)}")
+        return {k: _install(tree[k], spec[k], device, f"{what}.{k}", leaf)
+                for k in spec}
+    dtype, shape = leaf(spec)
+    return _array_tensor(tree, dtype, shape, device, what)
+
+
+def model_params_from_arrays(tree, cfg, device=None) -> dict:
+    """The reference ``Model.init`` pytree as nested dicts of numpy
+    arrays -> the port's parameters for ``cfg`` on ``device`` (None
+    means CUDA), each leaf in the config's ``param_dtype``."""
+    from repro_torch.device import resolve_device
+    from repro_torch.models import Model
+    from repro_torch.models.layers import torch_dtype
+    dtype = torch_dtype(cfg.param_dtype)
+    return _install(tree, Model(cfg).specs(), resolve_device(device),
+                    "params", lambda s: (dtype, s.shape))
+
+
+def model_cache_from_arrays(tree, cfg, batch_size: int, max_len: int,
+                            device=None) -> dict:
+    """A reference decode cache (``Model.init_cache(batch_size,
+    max_len)`` or a prefilled one) as nested dicts of numpy arrays ->
+    the port's cache on ``device`` (None means CUDA)."""
+    from repro_torch.device import resolve_device
+    from repro_torch.models import Model
+    specs = Model(cfg).cache_specs(batch_size, max_len)
+    return _install(tree, specs, resolve_device(device), "cache",
+                    lambda sd: (sd[1], sd[0]))

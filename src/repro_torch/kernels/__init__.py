@@ -14,4 +14,6 @@ live in ``repro_torch/csrc`` and are built by ``kernels.build``.
   phase_integrate   — per-phase energy of sample-and-hold power rows
   fleet_attribute   — dE/dt and per-phase integration fused on counters
   squarewave        — the calibrated vector-FMA load of the square wave
+  flash_attention   — causal or full GQA attention, online softmax, cap
+  ssm_scan          — the Mamba-1 selective-scan recurrence
 """

@@ -1,0 +1,7 @@
+"""Causal or full GQA flash attention with an optional soft-cap (B9)."""
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: F401
+    flash_attention_kernel)
+from repro_torch.kernels.flash_attention.ops import (  # noqa: F401
+    flash_attention)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: F401
+    flash_attention_ref)

@@ -1,0 +1,80 @@
+"""Wrapper of the ``flash_attention`` CUDA kernel
+(``csrc/flash_attention.cu``; replaces the TPU kernel
+``flash_attention_kernel`` of ``repro/kernels/flash_attention/kernel.py``).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+_ENTRY = {(torch.float32, 64): "fa_launch_f32_d64",
+          (torch.float32, 128): "fa_launch_f32_d128",
+          (torch.bfloat16, 64): "fa_launch_bf16_d64",
+          (torch.bfloat16, 128): "fa_launch_bf16_d128"}
+_ARGS = (build.PTR,) * 4 + (build.INT,) * 4 + (
+    build.PTR, build.INT, ctypes.c_float, build.PTR)
+
+
+def _check(x: torch.Tensor, what: str, dtype, shape, dev):
+    if x.device != dev:
+        raise ValueError(f"flash_attention: {what} on {x.device}, "
+                         f"expected {dev}")
+    if x.dtype != dtype:
+        raise TypeError(f"flash_attention: {what} dtype {x.dtype}, "
+                        f"expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"flash_attention: {what} shape "
+                         f"{tuple(x.shape)}, expected {tuple(shape)}")
+    if x.stride(-1) != 1:
+        raise ValueError(f"flash_attention: {what}'s head dimension must "
+                         f"be contiguous")
+
+
+def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, causal: bool = True,
+                           logit_cap: float = 0.0) -> torch.Tensor:
+    """q: (B, Hq, S, D); k/v: (B, Hkv, S, D), float32 or bfloat16 ->
+    (B, Hq, S, D) in q's dtype, laid out in memory as q is.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel on the current stream.  The kernel takes any strides with a
+    contiguous head dimension (so a ``(B, S, H, D)`` tensor transposed
+    to ``(B, H, S, D)`` goes in without a copy), D in {64, 128}, any
+    S >= 1 and Hq a multiple of Hkv.
+    """
+    dev = q.device
+    if dev.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal,
+                                   logit_cap=logit_cap)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {dev}")
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    if (q.dtype, d) not in _ENTRY:
+        raise ValueError(f"flash_attention: dtype {q.dtype} with head_dim "
+                         f"{d}; the kernel takes float32 or bfloat16 with "
+                         f"head_dim 64 or 128")
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"flash_attention: {hq} query heads are not a "
+                         f"multiple of {hkv} kv heads")
+    _check(q, "q", q.dtype, (b, hq, s, d), dev)
+    _check(k, "k", q.dtype, (b, hkv, s, d), dev)
+    _check(v, "v", q.dtype, (b, hkv, s, d), dev)
+    out = torch.empty_like(q)          # q's layout (dense: same strides)
+    strides = (ctypes.c_longlong * 12)(
+        *(st for x in (q, k, v, out) for st in x.stride()[:3]))
+    fn = build.c_function(_ENTRY[(q.dtype, d)], _ARGS)
+    with torch.cuda.device(dev):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b, hq, hkv, s, ctypes.addressof(strides), int(bool(causal)),
+                float(logit_cap or 0.0), build.stream_ptr(dev))
+    build.check_launch(rc, "flash_attention")
+    flash_attention_kernel.launches += 1
+    return out
+
+
+flash_attention_kernel.launches = 0

@@ -1,0 +1,118 @@
+"""Mamba-1 selective SSM block (arXiv:2312.00752; port of
+``repro/models/mamba.py``).
+
+The multi-token scan is one call of the ``selective_scan`` kernel (B10)
+over the whole sequence, carrying ``h0`` in: on a CUDA tensor the
+hand-written kernel, on a CPU tensor its plain version.  The reference
+chunks the scan into ``chunk``-step associative scans to bound its
+memory on a TPU; a sequential scan needs no chunks, so ``chunk`` is
+accepted and changes nothing (the results agree up to rounding).  The
+single-token decode step stays PyTorch ops, as it is jnp in the
+reference.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ssm_scan import selective_scan
+from repro_torch.models.layers import ParamSpec, torch_dtype
+
+
+def mamba_specs(cfg):
+    d = cfg.d_model
+    d_in = cfg.mamba_expand * d
+    n = cfg.mamba_d_state
+    dt_rank = max(1, d // 16)
+    return {
+        "in_proj": ParamSpec((d, 2 * d_in), ("embed", "mamba_inner")),
+        "conv_w": ParamSpec((cfg.mamba_d_conv, d_in), (None, "mamba_inner")),
+        "conv_b": ParamSpec((d_in,), ("mamba_inner",), init="zeros"),
+        "x_proj": ParamSpec((d_in, dt_rank + 2 * n), ("mamba_inner", None)),
+        "dt_proj": ParamSpec((dt_rank, d_in), (None, "mamba_inner")),
+        "dt_bias": ParamSpec((d_in,), ("mamba_inner",), init="zeros"),
+        "A_log": ParamSpec((d_in, n), ("mamba_inner", None), init="zeros"),
+        "D": ParamSpec((d_in,), ("mamba_inner",), init="ones"),
+        "out_proj": ParamSpec((d_in, d), ("mamba_inner", "embed")),
+    }
+
+
+def _ssm_params(p, x, cfg):
+    """x: (B, L, d_in) -> dt (B,L,d_in), B/C (B,L,N), A (d_in,N), the
+    last three float32; dt_proj, dt_bias and A_log are read in float32."""
+    dt_rank = p["dt_proj"].shape[0]
+    n = cfg.mamba_d_state
+    proj = x @ p["x_proj"].to(x.dtype)
+    dt_in, b_mat, c_mat = torch.split(proj, [dt_rank, n, n], dim=-1)
+    pre = dt_in.float() @ p["dt_proj"].float() + p["dt_bias"].float()
+    dt = torch.logaddexp(pre, torch.zeros_like(pre))    # softplus
+    a_mat = -torch.exp(p["A_log"].float())               # (d_in, N) < 0
+    return dt, b_mat.float(), c_mat.float(), a_mat
+
+
+def mamba_apply(p, cfg, x, *, ssm_state=None, conv_state=None, chunk=512):
+    """x: (B, S, d) -> (y, new_states).
+
+    Prefill when S > 1 (states None or initial); decode when S == 1
+    with states given.  States: ssm (B, d_in, N) float32, conv
+    (B, d_conv-1, d_in).  ``chunk``: see the module docstring.
+    """
+    b, s, d = x.shape
+    dt_model = x.dtype
+    d_in = cfg.mamba_expand * d
+    dc = cfg.mamba_d_conv
+
+    xz = x @ p["in_proj"].to(dt_model)
+    xs, z = torch.chunk(xz, 2, dim=-1)                 # (B, S, d_in)
+
+    # --- depthwise causal conv over time ---------------------------------
+    if s == 1 and conv_state is not None:
+        window = torch.cat([conv_state.to(dt_model), xs], dim=1)
+        new_conv = window[:, 1:]
+        conv = torch.einsum("bkc,kc->bc", window, p["conv_w"].to(dt_model))
+        conv = conv[:, None, :] + p["conv_b"].to(dt_model)
+    else:
+        if conv_state is None:
+            pad = torch.zeros((b, dc - 1, d_in), dtype=dt_model,
+                              device=x.device)
+        else:
+            pad = conv_state.to(dt_model)
+        window = torch.cat([pad, xs], dim=1)           # (B, S+dc-1, d_in)
+        stacked = torch.stack([window[:, i:i + s] for i in range(dc)],
+                              dim=0)                   # (dc, B, S, d_in)
+        conv = torch.einsum("kbsc,kc->bsc", stacked,
+                            p["conv_w"].to(dt_model))
+        conv = conv + p["conv_b"].to(dt_model)
+        new_conv = window[:, -(dc - 1):]
+    xs = F.silu(conv)
+
+    dt, b_mat, c_mat, a_mat = _ssm_params(p, xs, cfg)
+    h0 = (torch.zeros((b, d_in, cfg.mamba_d_state), dtype=torch.float32,
+                      device=x.device)
+          if ssm_state is None else ssm_state.float())
+
+    if s == 1:
+        abar = torch.exp(dt[:, 0, :, None] * a_mat[None])
+        bx = (dt[:, 0] * xs[:, 0].float())[..., None] \
+            * b_mat[:, 0, None, :]
+        h = abar * h0 + bx
+        y = torch.einsum("bdn,bn->bd", h, c_mat[:, 0])[:, None].to(dt_model)
+        h_last = h
+    else:
+        y, h_last = selective_scan(dt, xs, b_mat, c_mat, a_mat, h0)
+
+    y = y + xs * p["D"].to(dt_model)
+    y = y * F.silu(z)
+    out = y @ p["out_proj"].to(dt_model)
+    states = {"ssm": h_last.float(), "conv": new_conv}
+    return out, states
+
+
+def mamba_state_specs(cfg, batch):
+    """{name: (shape, dtype)} of one Mamba layer's decode state."""
+    d_in = cfg.mamba_expand * cfg.d_model
+    return {
+        "ssm": ((batch, d_in, cfg.mamba_d_state), torch.float32),
+        "conv": ((batch, cfg.mamba_d_conv - 1, d_in),
+                 torch_dtype(cfg.compute_dtype)),
+    }

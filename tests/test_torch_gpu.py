@@ -27,8 +27,13 @@ from repro_torch.kernels.power_reconstruct.ref import (
 from repro_torch.kernels.xcorr_align import (make_refbank,
                                              xcorr_align_kernel,
                                              xcorr_scores, xcorr_scores_ref)
-from torch_cases import (WRAP_26, _counter_rows, _fleet_rows, _phase_table,
-                         _power_rows, _regrid_case, _t, _xcorr_case)
+from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                 flash_attention_ref)
+from repro_torch.kernels.ssm_scan import (selective_scan_kernel,
+                                          selective_scan_ref)
+from torch_cases import (WRAP_26, _attention_case, _counter_rows,
+                         _fleet_rows, _phase_table, _power_rows,
+                         _regrid_case, _scan_case, _t, _xcorr_case)
 
 
 def _cuda():
@@ -242,3 +247,142 @@ def test_cuda_squarewave_ignores_row_count():
     part = squarewave_kernel(x[:256].contiguous(), fma_chain=80)
     torch.cuda.synchronize()
     assert torch.equal(whole[:256], part)
+
+
+def _rel(got, want):
+    """Largest difference relative to the plain output's largest
+    magnitude (the gates of the serve path's kernels)."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("cap", [0.0, 50.0])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_matches_plain(dtype, d, cap, causal):
+    """S = 200 (a masked tail tile), GQA 4/2: float32 within 1e-5 and
+    bfloat16 within 8e-3 of the plain output's largest magnitude."""
+    dev = _cuda()
+    q, k, v = (torch.from_numpy(a).to(dev, dtype)
+               for a in _attention_case(0, s=200, d=d))
+    n0 = flash_attention_kernel.launches
+    got = flash_attention_kernel(q, k, v, causal=causal, logit_cap=cap)
+    want = flash_attention_ref(q, k, v, causal=causal, logit_cap=cap)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert _rel(got, want) <= (1e-5 if dtype == torch.float32 else 8e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 130])
+def test_cuda_flash_attention_short_and_ragged_lengths(s):
+    dev = _cuda()
+    q, k, v = (torch.from_numpy(a).to(dev)
+               for a in _attention_case(1, b=1, hq=6, hkv=2, s=s, d=128))
+    got = flash_attention_kernel(q, k, v)
+    assert _rel(got, flash_attention_ref(q, k, v)) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_takes_strided_model_layout():
+    """(B, S, H, D) activations transposed to (B, H, S, D) go in without
+    a copy and come out in the same layout, equal to contiguous input."""
+    dev = _cuda()
+    q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
+               for a in _attention_case(2, s=100, d=128))
+    qt, kt, vt = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                  for x in (q, k, v))
+    got = flash_attention_kernel(qt, kt, vt)
+    assert got.stride() == qt.stride()
+    assert torch.equal(got, flash_attention_kernel(q, k, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [8, 16, 40])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.bfloat16)])
+def test_cuda_selective_scan_matches_plain(dtypes, n):
+    """D = 160 (a partial channel block), L = 96 (three 32-step tiles):
+    y within 1e-5 (float32) or 8e-3 (bfloat16) and h_last within 1e-5 of
+    the plain output's largest magnitude."""
+    dev = _cuda()
+    dt, x, bm, cm, a, h0 = (torch.from_numpy(v).to(dev)
+                            for v in _scan_case(0, n=n))
+    dt, x = dt.to(dtypes[0]), x.to(dtypes[1])
+    n0 = selective_scan_kernel.launches
+    y, h = selective_scan_kernel(dt, x, bm, cm, a, h0)
+    wy, wh = selective_scan_ref(dt, x, bm, cm, a, h0)
+    torch.cuda.synchronize()
+    assert selective_scan_kernel.launches == n0 + 1
+    assert y.dtype == dtypes[1] and h.dtype == torch.float32
+    assert _rel(y, wy) <= (1e-5 if dtypes[1] == torch.float32 else 8e-3)
+    assert _rel(h, wh) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_cuda_selective_scan_refuses_large_state():
+    dev = _cuda()
+    dt, x, bm, cm, a, h0 = (torch.from_numpy(v).to(dev)
+                            for v in _scan_case(1, seq=4, d=32, n=65))
+    with pytest.raises(ValueError, match="d_state 65"):
+        selective_scan_kernel(dt, x, bm, cm, a, h0)
+
+
+def _hybrid_smoke(head_dim=64):
+    """The reduced Jamba hybrid with MoE dropped and B9's head width."""
+    import dataclasses
+    from repro_torch.configs import get_arch, reduced
+    return dataclasses.replace(reduced(get_arch("jamba-1.5-large-398b")),
+                               moe=None, head_dim=head_dim,
+                               compute_dtype="float32")
+
+
+@pytest.mark.gpu
+def test_cuda_model_prefill_runs_the_kernels_and_matches_cpu():
+    """A reduced hybrid's prefill on the card launches B9 once per
+    attention layer and B10 once per Mamba layer, and its logits and
+    cache match the same weights on the CPU (float32; the card's and the
+    CPU's matrix products sum in other orders)."""
+    from repro_torch.models import Model
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _hybrid_smoke()
+    model = Model(cfg)
+    cpu_p = model.init(3, device="cpu")
+
+    def to(tree, d):
+        return ({k: to(v, d) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree.to(d))
+    card_p = to(cpu_p, dev)
+    toks = torch.randint(0, cfg.vocab_size, (1, 70),
+                         generator=torch.Generator().manual_seed(0))
+    f0, s0 = flash_attention_kernel.launches, selective_scan_kernel.launches
+    lg, cache = model.prefill(card_p, {"tokens": toks.to(dev)},
+                              model.init_cache(1, 96))
+    torch.cuda.synchronize()
+    n_attn = sum(k == "attn" for k in cfg.blocks)
+    assert flash_attention_kernel.launches - f0 == n_attn
+    assert selective_scan_kernel.launches - s0 == cfg.num_layers - n_attn
+    want, wcache = model.prefill(cpu_p, {"tokens": toks},
+                                 model.init_cache(1, 96, device="cpu"))
+    assert _rel(lg.cpu(), want) <= 1e-4
+    ssm = cache["pos1"]["ssm"].cpu()
+    assert _rel(ssm, wcache["pos1"]["ssm"]) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_attention_refuses_what_has_no_kernel():
+    """On the card, sliding-window attention (gemma2's local layers) and
+    a kv mask raise instead of falling back to the plain form."""
+    from repro_torch.models.layers import attention
+    dev = _cuda()
+    q = torch.zeros((1, 8, 4, 64), device=dev)
+    with pytest.raises(NotImplementedError, match="A4b"):
+        attention(q, q, q, window=4)
+    with pytest.raises(NotImplementedError, match="A4b"):
+        attention(q, q, q, kv_len_mask=torch.ones((1, 8), dtype=torch.bool,
+                                                  device=dev))

@@ -106,6 +106,57 @@ def test_case_study_entry_points_default_to_cuda(monkeypatch):
                                  collectives=object(), device="cpu")
 
 
+_SERVE_MODULES = ("repro_torch.configs", "repro_torch.configs.base",
+                  "repro_torch.models", "repro_torch.models.layers",
+                  "repro_torch.models.mamba",
+                  "repro_torch.models.transformer",
+                  "repro_torch.distributed.decode_attention",
+                  "repro_torch.kernels.flash_attention",
+                  "repro_torch.kernels.flash_attention.ops",
+                  "repro_torch.kernels.ssm_scan",
+                  "repro_torch.kernels.ssm_scan.ops",
+                  "repro_torch.serve", "repro_torch.serve.engine",
+                  "repro_torch.serve.loadgen", "repro_torch.serve.metering",
+                  "repro_torch.launch.serve", "repro_torch.interop")
+
+
+@pytest.mark.parametrize("module", _SERVE_MODULES)
+def test_serve_module_imports_with_jax_and_repro_blocked(module):
+    """Each module of the serving path loads on its own with JAX and the
+    reference blocked (the configs are the port's own copy)."""
+    test_case_study_module_imports_with_jax_and_repro_blocked(module)
+
+
+def test_serve_entry_points_default_to_cuda(monkeypatch):
+    """The serving path's entry points ask for the card without
+    ``device=``; with no card they raise instead of running on the CPU,
+    and the B9/B10 ops never take their plain version for a tensor that
+    is not on the CPU."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssm_scan import selective_scan
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models import Model
+    from repro_torch.serve import FixedBatchEngine, ServeEngine
+    model = Model(reduced(get_arch("llama3.2-3b")))
+    params = model.init(0, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: model.init(0),
+                 lambda: model.init_cache(1, 8),
+                 lambda: ServeEngine(model, params),
+                 lambda: FixedBatchEngine(model, params),
+                 lambda: serve_main([])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    q = torch.zeros((1, 2, 8, 64), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention(q, q, q)
+    x = torch.zeros((1, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        selective_scan(x, x, x[..., :4], x[..., :4], x[0, :, :4],
+                       x[:, :, :4])
+
+
 def test_port_sources_name_neither_jax_nor_repro():
     pat = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
                      r"from\s+(jax|repro)(\.|\s)(?!_))", re.M)
@@ -167,10 +218,10 @@ def test_kernel_build_flags_and_path():
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("libreprotorch_")
     srcs = sorted(p.name for p in build.CSRC.glob("*.cu"))
-    assert srcs == ["fleet_attribute.cu", "grid_resample.cu",
-                    "phase_integrate.cu", "power_reconstruct.cu",
-                    "power_reconstruct_fleet.cu",
-                    "power_reconstruct_rows.cu", "squarewave.cu",
-                    "xcorr_align.cu"]
+    assert srcs == ["flash_attention.cu", "fleet_attribute.cu",
+                    "grid_resample.cu", "phase_integrate.cu",
+                    "power_reconstruct.cu", "power_reconstruct_fleet.cu",
+                    "power_reconstruct_rows.cu", "selective_scan.cu",
+                    "squarewave.cu", "xcorr_align.cu"]
     assert "--use_fast_math" not in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS

@@ -9,6 +9,11 @@ import torch
 import jax.numpy as jnp
 
 from repro.align.delay import estimate_delays as jax_estimate_delays
+from repro.kernels.flash_attention.ref import (flash_attention_ref as
+                                               jax_flash_attention_ref)
+from repro.kernels.ssm_scan.ref import (selective_scan_ref as
+                                        jax_selective_scan_ref)
+from repro.models.mamba import _chunk_scan as jax_chunk_scan
 from repro.kernels.grid_resample.ref import (grid_resample_ref as
                                              jax_grid_resample_ref)
 from repro.kernels.grid_resample.ref import (searchsorted_rows as
@@ -27,8 +32,9 @@ from repro.kernels.xcorr_align.ops import make_refbank as jax_make_refbank
 from repro.kernels.xcorr_align.ref import (xcorr_scores_ref as
                                            jax_xcorr_scores_ref)
 from repro_torch.align.delay import estimate_delays, peak_to_delay
-from torch_cases import (WRAP_26, _counter_rows, _fleet_rows, _phase_table,
-                         _power_rows, _regrid_case, _t, _xcorr_case)
+from torch_cases import (WRAP_26, _attention_case, _counter_rows,
+                         _fleet_rows, _phase_table, _power_rows,
+                         _regrid_case, _scan_case, _t, _xcorr_case)
 
 # the test workers share the machine's cores: keep torch from taking them all
 torch.set_num_threads(2)
@@ -51,6 +57,12 @@ from repro_torch.kernels.power_reconstruct.ref import (
 from repro_torch.kernels.xcorr_align import (make_refbank,
                                              xcorr_align_kernel,
                                              xcorr_scores, xcorr_scores_ref)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_kernel,
+                                                 flash_attention_ref)
+from repro_torch.kernels.ssm_scan import (selective_scan,
+                                          selective_scan_kernel,
+                                          selective_scan_ref)
 
 # ------------------------------------------------------------------ B1
 
@@ -292,10 +304,16 @@ def _wrapper_cases():
          reconstruct_power_ref),
         (phase_integrate_kernel, (tp, wp, ph), {}, phase_energies_ref),
         (fleet_attribute_kernel, (t, e, w, ph), {}, fleet_attribute_ref),
+        (flash_attention_kernel,
+         tuple(torch.from_numpy(a) for a in _attention_case(6, s=40)),
+         {"causal": True, "logit_cap": 50.0}, flash_attention_ref),
+        (selective_scan_kernel,
+         tuple(torch.from_numpy(a) for a in _scan_case(6, seq=20)), {},
+         selective_scan_ref),
     ]
 
 
-@pytest.mark.parametrize("case", range(4))
+@pytest.mark.parametrize("case", range(6))
 def test_new_wrappers_run_plain_on_cpu_and_raise_elsewhere(case):
     """On CPU tensors each wrapper is its plain version and counts no
     launch; on any other device (not CUDA) it raises."""
@@ -308,3 +326,100 @@ def test_new_wrappers_run_plain_on_cpu_and_raise_elsewhere(case):
     assert fn.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
         fn(*(a.to("meta") for a in args), **kw)
+
+
+# ------------------------------------------------------------------ B9
+
+def _bf16_np(a):
+    """float32 numpy -> (jnp bfloat16, torch bfloat16), the same values."""
+    return (jnp.asarray(a, jnp.bfloat16),
+            torch.from_numpy(a).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("cap", [0.0, 50.0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_matches_reference(dtype, cap, causal):
+    """S = 200 (not a multiple of the reference kernel's 128 block), GQA
+    4/2; float32 within 1e-5 of the largest output, bfloat16 at the
+    reference's bf16 bounds."""
+    q, k, v = _attention_case(0, s=200)
+    if dtype == "float32":
+        jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+        tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    else:
+        (jq, tq), (jk, tk), (jv, tv) = (_bf16_np(a) for a in (q, k, v))
+    want = np.asarray(jax_flash_attention_ref(jq, jk, jv, causal=causal,
+                                              logit_cap=cap), np.float32)
+    got = flash_attention(tq, tk, tv, causal=causal, logit_cap=cap)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    got = got.float().numpy()
+    if dtype == "float32":
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    else:
+        np.testing.assert_allclose(got, want, atol=5e-2, rtol=1e-2)
+
+
+def test_flash_attention_plain_takes_the_model_layout():
+    """The model hands (B, S, H, D) activations over transposed; the
+    plain version gives the same as on contiguous (B, H, S, D) input."""
+    q, k, v = (torch.from_numpy(a) for a in _attention_case(1, s=33))
+    qt, kt, vt = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                  for x in (q, k, v))
+    assert not qt.is_contiguous()
+    torch.testing.assert_close(flash_attention(qt, kt, vt),
+                               flash_attention(q, k, v), rtol=0, atol=0)
+
+
+def test_flash_attention_refuses_unported_options():
+    q, k, v = (torch.from_numpy(a) for a in _attention_case(2, s=8))
+    with pytest.raises(NotImplementedError, match="interpret=True"):
+        flash_attention(q, k, v, interpret=True)
+    with pytest.raises(NotImplementedError, match="use_kernel=False"):
+        flash_attention(q, k, v, use_kernel=False)
+
+
+# ------------------------------------------------------------------ B10
+
+@pytest.mark.parametrize("seed,n", [(0, 8), (1, 16)])
+def test_selective_scan_plain_matches_reference(seed, n):
+    dt, x, bm, cm, a, h0 = _scan_case(seed, n=n)
+    y, h = selective_scan(*(torch.from_numpy(v) for v in
+                            (dt, x, bm, cm, a, h0)))
+    wy, wh = jax_selective_scan_ref(*(jnp.asarray(v) for v in
+                                      (dt, x, bm, cm, a, h0)))
+    wy, wh = np.asarray(wy), np.asarray(wh)
+    assert y.dtype == torch.float32 and h.dtype == torch.float32
+    assert np.abs(y.numpy() - wy).max() <= 1e-5 * np.abs(wy).max()
+    assert np.abs(h.numpy() - wh).max() <= 1e-5 * np.abs(wh).max()
+
+
+def test_selective_scan_plain_matches_model_chunk_scan():
+    """Against the Mamba layer's own scan, chunk by chunk with the carry
+    (four 24-step chunks), as ``mamba_apply`` runs it."""
+    dt, x, bm, cm, a, h0 = _scan_case(2, seq=96)
+    y, h = selective_scan(*(torch.from_numpy(v) for v in
+                            (dt, x, bm, cm, a, h0)))
+    hc = jnp.asarray(h0)
+    ys = []
+    for i in range(0, 96, 24):
+        dtc, bc, cc, xc = (jnp.asarray(v[:, i:i + 24])
+                           for v in (dt, bm, cm, x))
+        yc, hc = jax_chunk_scan(dtc, bc, cc, jnp.asarray(a), xc, hc)
+        ys.append(np.asarray(yc))
+    wy, wh = np.concatenate(ys, axis=1), np.asarray(hc)
+    assert np.abs(y.numpy() - wy).max() <= 1e-5 * np.abs(wy).max()
+    assert np.abs(h.numpy() - wh).max() <= 1e-5 * np.abs(wh).max()
+
+
+def test_selective_scan_bf16_input_rounds_y_once():
+    """x in bfloat16 (the model's compute dtype): y comes back bfloat16,
+    the float32 result rounded once; the state stays float32."""
+    dt, x, bm, cm, a, h0 = _scan_case(3, seq=40)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    args = [torch.from_numpy(v) for v in (dt, bm, cm, a, h0)]
+    y, h = selective_scan(args[0], tx, *args[1:])
+    y32, h32 = selective_scan(args[0], tx.float(), *args[1:])
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    assert torch.equal(y, y32.to(torch.bfloat16))
+    assert torch.equal(h, h32)

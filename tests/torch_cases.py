@@ -92,3 +92,27 @@ def _power_rows(seed, f=12, s=300):
     t[3, 0] = -np.inf
     w = rng.uniform(40.0, 260.0, (f, s))
     return t.astype(np.float32), w.astype(np.float32)
+
+
+def _attention_case(seed, b=2, hq=4, hkv=2, s=200, d=64):
+    """q (B, Hq, S, D) and k/v (B, Hkv, S, D) float32, scaled so that the
+    soft-cap at 50 bites on some scores."""
+    rng = np.random.default_rng(seed + 400)
+    q = rng.normal(0.0, 1.0, (b, hq, s, d)) * (8.0 / d ** 0.25)
+    k = rng.normal(0.0, 1.0, (b, hkv, s, d)) * (8.0 / d ** 0.25)
+    v = rng.normal(0.0, 1.0, (b, hkv, s, d))
+    return (q.astype(np.float32), k.astype(np.float32),
+            v.astype(np.float32))
+
+
+def _scan_case(seed, b=2, seq=96, d=160, n=8):
+    """Selective-scan inputs as Mamba builds them: dt > 0 (softplus),
+    A < 0, x, B, C, and a non-zero carried state h0; float32."""
+    rng = np.random.default_rng(seed + 500)
+    dt = np.log1p(np.exp(rng.normal(-1.0, 1.0, (b, seq, d))))
+    x = rng.normal(0.0, 1.0, (b, seq, d))
+    bm = rng.normal(0.0, 1.0, (b, seq, n))
+    cm = rng.normal(0.0, 1.0, (b, seq, n))
+    a = -np.exp(rng.normal(0.0, 0.5, (d, n)))
+    h0 = rng.normal(0.0, 1.0, (b, d, n))
+    return tuple(v.astype(np.float32) for v in (dt, x, bm, cm, a, h0))
