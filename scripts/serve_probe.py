@@ -9,8 +9,10 @@ and times them (``chip_smoke.check_serve_kernels``), then serves both
 configurations (``chip_smoke.run_serving``: llama3.2-3b at full size
 and the 8-layer Jamba-width hybrid) with every gate of the full script.
 A quick check of the serving path, and a second sample of its numbers:
-the last line is one JSON object with the kernels' records and each
-configuration's summary.  Needs a CUDA card; imports nothing of JAX.
+the last line is one JSON object with the kernels' records (the card's
+SM clock, draw and temperature read before and after each kernel's
+timings, seconds after the build) and each configuration's summary.
+Needs a CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -41,8 +43,10 @@ def main(argv=None) -> int:
     serving = {}
     for label, cfg, cuts in cs.serve_configs():
         serving[label], _ = cs.run_serving(label, cfg, cuts, args.seed)
-    print(json.dumps({"kernels": {k: cs.kernel_entry(v)
-                                  for k, v in records.items()},
+    kernels = {k: dict(cs.kernel_entry(v), clocks_before=v["clocks_before"],
+                       clocks_after=v["clocks_after"])
+               for k, v in records.items()}
+    print(json.dumps({"kernels": kernels,
                       "serving": serving}, default=str))
     return 0
 

@@ -8,63 +8,99 @@
 //   s[i,j] = -1e30 where causal and j > i;   o_i = softmax_j(s[i,:]) v
 // for q (B, Hq, S, D) and k/v (B, Hkv, S, D), query head h reading kv
 // head h / (Hq / Hkv) (jnp.repeat's order in the reference), float32
-// accumulation, the output in q's type (float32 or bfloat16).
+// accumulation, the output in q's type.  Strides are arguments (the head
+// dimension must be contiguous), so the model's (B, S, H, D) activations
+// go in as they are, without a transpose, and the output keeps q's layout.
+// Both kernels take one block per (batch * query head, 64-row query
+// tile), mask keys and rows past S (any S >= 1), and stop the causal loop
+// at the diagonal tile.
 //
 // Bound on the H100: at the serve path's shapes (S ~ 1000, D = 128) the
-// work, 4*S*S*D/2 operations a head causal, sits above the bytes (q, k,
-// v and o read or written once), so the bound is the bf16 tensor-core
-// rate.  This first version does not reach the tensor cores: it is a
-// plain SIMT kernel with float32 FMAs.  Design: one block per
-// (batch*query head, 64-row query tile); the tile's queries stay in
-// shared memory as float32, the block walks 64-key tiles of k (stored
-// transposed, padded against bank conflicts) and v, and each of its 256
-// threads owns 4 query rows x 4 keys of a score tile and 4 rows x D/16
-// output columns, so the per-row running max and sum (m, l) are folded
-// by shuffles inside one half-warp and never leave registers.  The
-// causal loop stops at the diagonal tile; keys past S are masked, so
-// any S >= 1 runs.  Strides are arguments (the head dimension must be
-// contiguous), so the model's (B, S, H, D) activations go in as they
-// are, without a transpose.  Shared memory exceeds 48 KB and is opted
-// into with cudaFuncSetAttribute.
+// work, 2*S*S*D operations a head causal, sits far above the bytes (q, k,
+// v and o once), so the bound is the bf16 tensor-core rate (989 TFLOP/s
+// dense): 0.0062 ms at llama's (1, 24/8, 1000, 128).
+//
+// bfloat16 -> fa_mma_kernel, on the tensor cores (mma.sync.m16n8k16,
+// bf16 in, float32 accumulate; the FlashAttention-2 layout).  Chosen over
+// wgmma because its fragment layouts are fixed by the PTX ISA and need no
+// shared-memory descriptors or swizzle modes that only the card could
+// check; wgmma (64-row warpgroup tiles fed by TMA) is the next step.
+//   - 4 warps, each owning 16 query rows of the 64-row tile; k/v tiles of
+//     64 keys.  Q's A fragments are loaded once (ldmatrix) and stay in
+//     registers; S = Q K^T runs on K fragments from ldmatrix, O += P V on
+//     V fragments from ldmatrix.trans.  P goes from the S accumulators
+//     straight into the A fragments of the PV product (rounded to bf16;
+//     the row sums l stay float32), never through shared memory.
+//   - K/V tiles are double-buffered with cp.async: tile t+1's copy is in
+//     flight while tile t's products run.  Rows past S are zero-filled
+//     (cp.async with a source size of 0), so padded V rows add nothing.
+//   - 1/sqrt(D) and log2(e) are one multiply of the scores (exp2f then
+//     gives e^x); with a cap, one multiply before tanhf and one after.
+//     The online softmax (m, l) lives in registers; a row's 64 scores are
+//     spread over the 4 threads of a quad and folded with 2 shuffles.
+//   - Causal query tiles launch heaviest first (the diagonal-most tiles
+//     do the most key tiles), heads fastest in the grid.
+//   - Shared memory: Q + 2 x (K, V) tiles of 64 rows at a pitch of D + 8
+//     bf16 (272 bytes at D = 128: the 8 row addresses of an ldmatrix fall
+//     in distinct bank groups) = 87,040 bytes at D = 128 (2 blocks an SM),
+//     46,080 at D = 64.  Registers: the 16 x D output and 16 x 64 score
+//     accumulators and Q's fragments (D/16 x 4 words) make 251 a thread
+//     at D = 128 and 167 at D = 64, no spills (-Xptxas=-v, which
+//     chip_smoke.py prints with the build).
+//   - What bounds it: 16 rows a warp means each K/V fragment read from
+//     shared memory (ldmatrix) feeds one mma: a block moves 128 KB of
+//     fragments per 64-key tile (64 ldmatrix.x4 a warp), 1,024 clocks at
+//     128 bytes a clock an SM, for its 512 mma.sync.  Shared-memory
+//     bandwidth and mma.sync's rate bound it, not device memory; wgmma,
+//     which reads B from shared memory itself, would lift the first.
+//   - P rounded to bf16 moves the float32 output by at most 0.31 bf16
+//     ulp at the output's largest magnitude over the card tests' edge
+//     cases (scripts/fa_bf16_rounding.py), so the bf16 output differs
+//     from the plain version's by one rounding flip at most, as a kernel
+//     that keeps P in float32 does.  A bf16 residual of P in a second PV
+//     product cost 18% and left that unchanged (scripts/kernel_ab.py),
+//     so it was not kept.
+//   The wrapper refuses bf16 pointers or strides that are not 16-byte
+//   aligned (cp.async copies 16 bytes).
+//
+// float32 -> fa_f32_kernel, the SIMT kernel (float32 FMAs): TF32 keeps
+// about 3 digits and would break the 1e-5 gates of the float32 path.
+// Each of its 256 threads owns 4 query rows x 4 keys of a score tile and
+// 4 rows x D/16 output columns; q, k (transposed, padded) and v are
+// float32 in shared memory (113 KB at D = 128); each row's (m, l) is
+// folded by shuffles inside one half-warp.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int kBQ = 64;          // query rows per block
 constexpr int kBK = 64;          // keys per tile
-constexpr int kKPad = kBK + 1;   // transposed k row: conflict-free stores
-constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 struct Strides {                 // in elements; the D axis is contiguous
   long long b, h, s;
 };
 
+// ------------------------------------------------ float32: SIMT kernel
+
+constexpr int kKPad = kBK + 1;   // transposed k row: conflict-free stores
+constexpr int kF32Threads = 256;
+
 template <int D>
-constexpr int smem_floats() {
+constexpr int f32_smem_floats() {
   return kBQ * D + D * kKPad + kBK * D + kBQ * kKPad;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int Hq, int group,
-          int S, Strides sq, Strides sk, Strides sv, Strides so,
-          int causal, float cap, float sqrt_d) {
+template <int D>
+__global__ void __launch_bounds__(kF32Threads)
+fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int Hq,
+              int group, int S, Strides sq, Strides sk, Strides sv,
+              Strides so, int causal, float cap, float sqrt_d) {
   extern __shared__ float smem[];
   float* Qs = smem;                    // [kBQ][D]
   float* Ks = Qs + kBQ * D;            // [D][kKPad], transposed
@@ -78,14 +114,14 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.y / Hq;
   const int hk = h / group;
   const int q0 = blockIdx.x * kBQ;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + hk * sk.h;
-  const T* vb = v + b * sv.b + hk * sv.h;
-  T* ob = o + b * so.b + h * so.h;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + hk * sk.h;
+  const float* vb = v + b * sv.b + hk * sv.h;
+  float* ob = o + b * so.b + h * so.h;
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
+  for (int i = tid; i < kBQ * D; i += kF32Threads) {
     const int r = i / D, d = i % D;
-    Qs[i] = q0 + r < S ? to_f32(qb[(q0 + r) * sq.s + d]) : 0.0f;
+    Qs[i] = q0 + r < S ? qb[(q0 + r) * sq.s + d] : 0.0f;
   }
   float m[4], l[4], acc[4][C];
 #pragma unroll
@@ -101,11 +137,11 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBK;
     __syncthreads();                   // the last tile's k/v are consumed
-    for (int i = tid; i < kBK * D; i += kThreads) {
+    for (int i = tid; i < kBK * D; i += kF32Threads) {
       const int r = i / D, d = i % D;
       const bool ok = k0 + r < S;
-      Ks[d * kKPad + r] = ok ? to_f32(kb[(k0 + r) * sk.s + d]) : 0.0f;
-      Vs[i] = ok ? to_f32(vb[(k0 + r) * sv.s + d]) : 0.0f;
+      Ks[d * kKPad + r] = ok ? kb[(k0 + r) * sk.s + d] : 0.0f;
+      Vs[i] = ok ? vb[(k0 + r) * sv.s + d] : 0.0f;
     }
     __syncthreads();
     float s[4][4];
@@ -178,43 +214,340 @@ fa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < C; ++c)
-      ob[row * so.s + tx + 16 * c] = from_f32<T>(__fdiv_rn(acc[i][c], den));
+      ob[row * so.s + tx + 16 * c] = __fdiv_rn(acc[i][c], den);
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int S, const long long* st, int causal,
-           float cap, void* stream) {
-  if (B <= 0 || S <= 0 || Hq <= 0) return 0;
-  const int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// ------------------------------------- bfloat16: tensor cores (mma.sync)
+
+constexpr int kMmaThreads = 128;       // 4 warps x 16 query rows
+
+template <int D>
+__host__ __device__ constexpr int mma_pitch() { return D + 8; }  // a smem row
+
+template <int D>
+constexpr int mma_smem_bytes() {              // Q, then 2 x K, 2 x V
+  return 5 * kBQ * mma_pitch<D>() * static_cast<int>(sizeof(bf16));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !ok
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  const int n = ok ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8x8 b16 matrices; lanes 8j..8j+7 give matrix j's row addresses,
+// register j holds matrix j's (row lane/4, columns 2*(lane%4) .. +1)
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+// the same, transposed: register j holds matrix j's (rows 2*(lane%4) .. +1,
+// column lane/4)
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x: low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k16), g = lane / 4, c = lane % 4:
+//   A regs 0..3: (row g, k 2c..2c+1), (g+8, 2c..), (g, 2c+8..), (g+8, 2c+8..)
+//   B regs 0..1: (k 2c..2c+1, n g), (k 2c+8.., n g)
+//   C 0..3:      (row g, n 2c), (g, 2c+1), (g+8, 2c), (g+8, 2c+1)
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, bf16* __restrict__ o, int Hq,
+              int group, int S, Strides sq, Strides sk, Strides sv,
+              Strides so, int causal, float score_mul, float cap_mul) {
+  constexpr int P = mma_pitch<D>();
+  constexpr int KD = D / 16;           // k-steps of Q K^T
+  constexpr int ND = D / 8;            // n-tiles of the output
+  constexpr int CH = D / 8;            // 16-byte chunks a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [kBQ][P]
+  bf16* Ks = Qs + kBQ * P;                        // [2][kBK][P]
+  bf16* Vs = Ks + 2 * kBK * P;                    // [2][kBK][P]
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c4 = lane & 3;
+  const int h = blockIdx.x % Hq;
+  const int b = blockIdx.x / Hq;
+  const int hk = h / group;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * kBQ;
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* kb = k + b * sk.b + hk * sk.h;
+  const bf16* vb = v + b * sv.b + hk * sv.h;
+  bf16* ob = o + b * so.b + h * so.h;
+
+  // a 64-row tile of rows r0.. into shared memory, zeros past S
+  auto load_tile = [&](bf16* dst, const bf16* src, long long stride,
+                       int r0) {
+#pragma unroll
+    for (int i = 0; i < kBQ * CH / kMmaThreads; ++i) {
+      const int chunk = tid + i * kMmaThreads;
+      const int r = chunk / CH, cc = chunk % CH;
+      const bool ok = r0 + r < S;
+      const bf16* from = ok ? src + (r0 + r) * stride + cc * 8 : src;
+      cp_async16(smem_u32(dst + r * P + cc * 8), from, ok);
+    }
+  };
+
+  const int n_keys = causal ? min(S, q0 + kBQ) : S;
+  const int n_tiles = (n_keys + kBK - 1) / kBK;
+  load_tile(Qs, qb, sq.s, q0);
+  cp_async_commit();
+  load_tile(Ks, kb, sk.s, 0);
+  load_tile(Vs, vb, sv.s, 0);
+  cp_async_commit();
+  cp_async_wait<1>();                  // Q has landed
+  __syncthreads();
+
+  uint32_t qf[KD][4];                  // this warp's 16 rows of Q
+  {
+    const int r = warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+    const int col = 8 * (lane >> 4);
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+      ldsm_x4(smem_u32(Qs + r * P + kk * 16 + col), qf[kk]);
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};     // rows g and g+8, log2 domain
+  float l[2] = {0.0f, 0.0f};           // this thread's share of the sums
+  const int row0 = q0 + warp * 16 + g;
+  const unsigned full = 0xffffffffu;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) {             // the next tile's copy overlaps
+      load_tile(Ks + (buf ^ 1) * kBK * P, kb, sk.s, (t + 1) * kBK);
+      load_tile(Vs + (buf ^ 1) * kBK * P, vb, sv.s, (t + 1) * kBK);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                   // tile t is in shared memory
+    const bf16* Kt = Ks + buf * kBK * P;
+    const bf16* Vt = Vs + buf * kBK * P;
+
+    float s[8][4];                     // 16 rows x 64 keys
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {  // keys 16np .. 16np+15
+        uint32_t kf[4];
+        const int key = np * 16 + (lane & 7) + 8 * (lane >> 4);
+        const int col = kk * 16 + 8 * ((lane >> 3) & 1);
+        ldsm_x4(smem_u32(Kt + key * P + col), kf);
+        mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+
+    // scale (and cap) into the log2 domain, mask, online softmax
+    const int k0 = t * kBK;
+    const bool masked = k0 + kBK > S || (causal && k0 + kBK - 1 > q0);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * score_mul;
+        if (cap_mul > 0.0f) x = cap_mul * tanhf(x);
+        if (masked) {
+          const int key = k0 + 8 * n + 2 * c4 + (e & 1);
+          const int row = row0 + 8 * (e >> 1);
+          if (key >= S || (causal && key > row)) x = kNegInf;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(full, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(full, mx[r], 2));
+      corr[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[n][e] - m[e >> 1]);
+        s[n][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+    }
+
+    // O += P V: the S accumulators of keys 16kk.. are P's A fragment
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const int key = kk * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {  // columns 16dp .. 16dp+15
+        uint32_t vf[4];
+        ldsm_x4_t(smem_u32(Vt + key * P + dp * 16 + 8 * (lane >> 4)), vf);
+        mma_bf16(acc[2 * dp], pa, vf[0], vf[1]);
+        mma_bf16(acc[2 * dp + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();                   // buffer buf is free for tile t+2
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(full, l[r], 1);
+    l[r] += __shfl_xor_sync(full, l[r], 2);
+  }
+  const float inv0 = 1.0f / fmaxf(l[0], 1e-30f);
+  const float inv1 = 1.0f / fmaxf(l[1], 1e-30f);
+  const int row1 = row0 + 8;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int col = 8 * n + 2 * c4;
+    if (row0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * so.s + col) =
+          __floats2bfloat162_rn(acc[n][0] * inv0, acc[n][1] * inv0);
+    if (row1 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row1 * so.s + col) =
+          __floats2bfloat162_rn(acc[n][2] * inv1, acc[n][3] * inv1);
+  }
+}
+
+// ------------------------------------------------------------ launchers
+
+constexpr int kMaxDevices = 64;
+
+// a kernel's opt-in to more than 48 KB of dynamic shared memory, once
+// per device (the driver keeps it; a launch needs no further call)
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, int bytes, bool (&opted)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && opted[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) opted[dev] = true;
+  return err;
+}
+
+Strides strides_of(const long long* st, int i) {
+  return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int Hq, int Hkv, int S, const long long* st, int causal,
+               float cap, void* stream) {
+  const int smem = f32_smem_floats<D>() * static_cast<int>(sizeof(float));
+  static bool opted[kMaxDevices] = {};
+  const cudaError_t err = opt_in(fa_f32_kernel<D>, smem, opted);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBQ - 1) / kBQ, B * Hq);
-  const Strides sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
-      sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
-  fa_kernel<T, D><<<grid, kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Hq, Hq / Hkv, S, sq, sk,
-      sv, so, causal, cap, sqrtf(static_cast<float>(D)));
+  fa_f32_kernel<D><<<grid, kF32Threads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Hq, Hq / Hkv, S,
+      strides_of(st, 0), strides_of(st, 1), strides_of(st, 2),
+      strides_of(st, 3), causal, cap, sqrtf(static_cast<float>(D)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int Hq, int Hkv, int S, const long long* st, int causal,
+                float cap, void* stream) {
+  const int smem = mma_smem_bytes<D>();
+  static bool opted[kMaxDevices] = {};
+  const cudaError_t err = opt_in(fa_mma_kernel<D>, smem, opted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // scores -> log2 domain: x * log2(e) / sqrt(D), or with the cap
+  // cap * log2(e) * tanh(x / (sqrt(D) * cap))
+  const float log2e = 1.4426950408889634f;
+  const float rsd = 1.0f / sqrtf(static_cast<float>(D));
+  const float score_mul = cap > 0.0f ? rsd / cap : rsd * log2e;
+  const float cap_mul = cap > 0.0f ? cap * log2e : 0.0f;
+  const dim3 grid(B * Hq, (S + kBQ - 1) / kBQ);
+  fa_mma_kernel<D><<<grid, kMmaThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), Hq, Hq / Hkv, S,
+      strides_of(st, 0), strides_of(st, 1), strides_of(st, 2),
+      strides_of(st, 3), causal, score_mul, cap_mul);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // strides: 12 int64, (batch, head, seq) for q, k, v and o in turn.
-#define FA_ENTRY(NAME, T, D)                                                 \
+#define FA_ENTRY(NAME, LAUNCH)                                               \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* o,  \
                       int B, int Hq, int Hkv, int S,                         \
                       const long long* strides, int causal, float cap,       \
                       void* stream) {                                        \
-    return launch<T, D>(q, k, v, o, B, Hq, Hkv, S, strides, causal, cap,     \
-                        stream);                                             \
+    if (B <= 0 || S <= 0 || Hq <= 0) return 0;                               \
+    return LAUNCH(q, k, v, o, B, Hq, Hkv, S, strides, causal, cap, stream);  \
   }
 
-FA_ENTRY(fa_launch_f32_d64, float, 64)
-FA_ENTRY(fa_launch_f32_d128, float, 128)
-FA_ENTRY(fa_launch_bf16_d64, __nv_bfloat16, 64)
-FA_ENTRY(fa_launch_bf16_d128, __nv_bfloat16, 128)
+FA_ENTRY(fa_launch_f32_d64, launch_f32<64>)
+FA_ENTRY(fa_launch_f32_d128, launch_f32<128>)
+FA_ENTRY(fa_launch_bf16_d64, launch_bf16<64>)
+FA_ENTRY(fa_launch_bf16_d128, launch_bf16<128>)

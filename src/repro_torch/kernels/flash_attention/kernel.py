@@ -32,6 +32,16 @@ def _check(x: torch.Tensor, what: str, dtype, shape, dev):
     if x.stride(-1) != 1:
         raise ValueError(f"flash_attention: {what}'s head dimension must "
                          f"be contiguous")
+    if x.dtype == torch.bfloat16 and (
+            x.data_ptr() % 16
+            or any(st % 8 for st, n in zip(x.stride()[:3], x.shape[:3])
+                   if n > 1)):
+        raise ValueError(f"flash_attention: bfloat16 {what} must be "
+                         f"16-byte aligned, in its pointer and its batch, "
+                         f"head and sequence strides (the tensor-core "
+                         f"kernel copies 16-byte rows); got pointer "
+                         f"offset {x.data_ptr() % 16} and strides "
+                         f"{x.stride()}")
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
@@ -41,10 +51,14 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     (B, Hq, S, D) in q's dtype, laid out in memory as q is.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel on the current stream.  The kernel takes any strides with a
-    contiguous head dimension (so a ``(B, S, H, D)`` tensor transposed
-    to ``(B, H, S, D)`` goes in without a copy), D in {64, 128}, any
-    S >= 1 and Hq a multiple of Hkv.
+    kernel on the current stream: bfloat16 runs on the tensor cores
+    (``mma.sync``, P rounded to bfloat16), float32 on the SIMT kernel
+    (float32 FMAs).  The kernel takes any strides with a contiguous head
+    dimension (so a ``(B, S, H, D)`` tensor transposed to
+    ``(B, H, S, D)`` goes in without a copy), D in {64, 128}, any
+    S >= 1 and Hq a multiple of Hkv.  In bfloat16 the pointers and the
+    batch, head and sequence strides must be 16-byte aligned; a view
+    that is not raises ``ValueError`` (it is not copied).
     """
     dev = q.device
     if dev.type == "cpu":

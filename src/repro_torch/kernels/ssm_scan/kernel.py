@@ -8,7 +8,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 
-MAX_STATE = 64                    # states a thread holds in registers
+MAX_STATE = 64                    # states a channel holds in registers
 _ENTRY = {(torch.float32, torch.float32): "ss_launch_f32_f32",
           (torch.float32, torch.bfloat16): "ss_launch_f32_bf16",
           (torch.bfloat16, torch.bfloat16): "ss_launch_bf16_bf16"}
@@ -23,8 +23,8 @@ def selective_scan_kernel(dt: torch.Tensor, x: torch.Tensor,
     -> (y (B, L, D) in x's dtype, h_last (B, D, N) float32).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel on the current stream (one thread per (b, d) channel, so
-    N <= 64 and every tensor contiguous).
+    kernel on the current stream (four threads share a (b, d)
+    channel's states, N <= 64; every tensor contiguous).
     """
     dev = x.device
     if dev.type == "cpu":

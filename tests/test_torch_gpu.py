@@ -306,9 +306,9 @@ def test_cuda_flash_attention_takes_strided_model_layout():
                                     (torch.float32, torch.bfloat16),
                                     (torch.bfloat16, torch.bfloat16)])
 def test_cuda_selective_scan_matches_plain(dtypes, n):
-    """D = 160 (a partial channel block), L = 96 (three 32-step tiles):
-    y within 1e-5 (float32) or 8e-3 (bfloat16) and h_last within 1e-5 of
-    the plain output's largest magnitude."""
+    """D = 160, L = 96 (three 32-step tiles): y within 1e-5 (float32) or
+    8e-3 (bfloat16) and h_last within 1e-5 of the plain output's largest
+    magnitude."""
     dev = _cuda()
     dt, x, bm, cm, a, h0 = (torch.from_numpy(v).to(dev)
                             for v in _scan_case(0, n=n))
@@ -321,6 +321,77 @@ def test_cuda_selective_scan_matches_plain(dtypes, n):
     assert y.dtype == dtypes[1] and h.dtype == torch.float32
     assert _rel(y, wy) <= (1e-5 if dtypes[1] == torch.float32 else 8e-3)
     assert _rel(h, wh) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [0.0, 30.0])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 3, 8])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 63, 64, 65, 127, 128, 129,
+                               1000])
+def test_cuda_flash_attention_bf16_tensor_cores_edges(s, d, group, causal,
+                                                      cap):
+    """The bf16 path (mma.sync, P rounded to bf16) at every tile edge,
+    both head widths, GQA groups 1/3/8, causal or not, with and without
+    the cap: within 8e-3 of the plain output's largest magnitude."""
+    dev = _cuda()
+    q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
+               for a in _attention_case(3, b=1, hq=2 * group, hkv=2, s=s,
+                                        d=d))
+    got = flash_attention_kernel(q, k, v, causal=causal, logit_cap=cap)
+    want = flash_attention_ref(q, k, v, causal=causal, logit_cap=cap)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert _rel(got, want) <= 8e-3
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_refuses_misaligned_bf16_views():
+    """cp.async copies 16-byte rows: a bf16 view whose pointer or
+    sequence stride is not 16-byte aligned is refused, not copied."""
+    dev = _cuda()
+    q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
+               for a in _attention_case(4, b=1, hq=4, hkv=2, s=40, d=64))
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=dev)
+    shifted = flat[1:].view(q.shape)               # pointer 2 bytes off
+    shifted.copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_kernel(shifted, k, v)
+    wide = torch.zeros((1, 40, 4 * 64 + 4), dtype=torch.bfloat16,
+                       device=dev)                 # sequence stride 260
+    wide[..., :4 * 64] = q.transpose(1, 2).reshape(1, 40, 4 * 64)
+    strided = wide[..., :4 * 64].view(1, 40, 4, 64).transpose(1, 2)
+    assert strided.stride(2) == 260
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_kernel(strided, k, v)
+    # the same values, aligned, run
+    torch.testing.assert_close(flash_attention_kernel(q, k, v),
+                               flash_attention_kernel(q.clone(), k, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 37, 75), (1, 70, 33), (3, 5, 160)])
+@pytest.mark.parametrize("n", [1, 8, 16, 40, 64])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.bfloat16)])
+def test_cuda_selective_scan_lane_split_edges(dtypes, n, shape):
+    """Four lanes a channel, N from 1 to 64 (states past N padded), D
+    not a multiple of the block's 32 channels, L not a multiple of the
+    tile: h_last bit-identical to the plain stepped recurrence (each
+    lane steps its states in the plain version's order), y within 1e-5
+    (float32 x) or 8e-3 (bfloat16 x)."""
+    dev = _cuda()
+    b, seq, d = shape
+    dt, x, bm, cm, a, h0 = (torch.from_numpy(v).to(dev)
+                            for v in _scan_case(2, b=b, seq=seq, d=d, n=n))
+    dt, x = dt.to(dtypes[0]), x.to(dtypes[1])
+    y, h = selective_scan_kernel(dt, x, bm, cm, a, h0)
+    wy, wh = selective_scan_ref(dt, x, bm, cm, a, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(h, wh)
+    assert _rel(y, wy) <= (1e-5 if dtypes[1] == torch.float32 else 8e-3)
 
 
 @pytest.mark.gpu
