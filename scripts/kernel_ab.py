@@ -1,25 +1,36 @@
-"""Time B9 and B10 of another source tree beside this tree's, in one
-process on one CUDA card.
+"""Time kernels of another source tree beside this tree's, in one process
+on one CUDA card.
 
     mkdir -p build/ab_old
     git archive <commit> src/repro_torch/csrc | tar -x -C build/ab_old
-    python3 scripts/kernel_ab.py --against build/ab_old
+    python3 scripts/kernel_ab.py --against build/ab_old [--only b5,b6]
 
-Builds the other tree's ``flash_attention.cu`` and ``selective_scan.cu``
-into a library of their own (the same nvcc flags) and calls both
-libraries through this tree's wrappers (the C entries take the same
-arguments).  At the serve path's shapes -- B9 bf16 causal at llama's
-(1, 24/8, 1000, 128) and the hybrid's (1, 64/8, 1000, 128), B10 at
-(1, 1000, 16384, 16) with dt float32 and x bf16, inputs drawn as
-``chip_smoke.check_serve_kernels`` draws them -- it times each kernel
-with ``chip_smoke.timed`` in the order other, this, this, other and
-prints the ratio of the means, with the card's SM clock before and
-after.  Then it runs the bf16 edge cases of
+Builds the other tree's sources of the chosen kernels (``--only``, any of
+b5, b6, b9, b10; all four by default) into a library of their own (the
+same nvcc flags) and calls both libraries through this tree's wrappers
+(the C entries take the same arguments).  Shapes and data:
+- B5 ``grid_resample``, hold, at ``chip_smoke.py``'s windowed shape (the
+  second replay window, 1024 rows of ~2.3k samples -> 2048 grid points)
+  and batch shape (1024 whole-run rows of ~8.8k samples -> 16384), on
+  its seeded 512-device data; gate: values and mask ``torch.equal`` to
+  the plain version;
+- B6 ``phase_integrate`` at the batch shape (512 x 4097) with the six
+  real phases padded to 32, with 32 real windows that all cover the run
+  (``chip_smoke.overlap_phases``), and on each row's samples shuffled
+  with 32 windows inside the run (``chip_smoke.dense_case``: no term can
+  be skipped); gate: 1e-5 x max(|E|, 1 J), NaN at the same places;
+- B9 bf16 causal at llama's (1, 24/8, 1000, 128) and the hybrid's
+  (1, 64/8, 1000, 128), B10 at (1, 1000, 16384, 16) with dt float32 and
+  x bf16, inputs drawn as ``chip_smoke.check_serve_kernels`` draws them.
+Each kernel is timed with ``chip_smoke.timed`` in the order other, this,
+this, other; the ratio of the means is printed with the card's SM clock
+before and after.  With b9, the bf16 edge cases of
 ``tests/test_torch_gpu.py::test_cuda_flash_attention_bf16_tensor_cores_edges``
-through both libraries and prints each one's largest error against the
-plain version, as the gate measures it (relative to the plain output's
-largest magnitude) and in bf16 ulps at that magnitude.  The last line
-is one JSON object.  Needs a CUDA card and nvcc; imports nothing of JAX.
+then run through both libraries, each one's largest error against the
+plain version printed as the gate measures it (relative to the plain
+output's largest magnitude) and in bf16 ulps at that magnitude.  The last
+line is one JSON object; the exit code is 1 if a kernel of this tree
+fails its gate.  Needs a CUDA card and nvcc; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -35,30 +46,33 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-SOURCES = ("flash_attention.cu", "selective_scan.cu")
+SOURCES = {"b5": "grid_resample.cu", "b6": "phase_integrate.cu",
+           "b9": "flash_attention.cu", "b10": "selective_scan.cu"}
 
 
-def build_other(tree: Path, build) -> Path:
-    """The other tree's B9 and B10 sources as one shared library."""
+def build_other(tree: Path, build, names) -> Path:
+    """The other tree's sources ``names`` as one shared library."""
     csrc = tree / "src" / "repro_torch" / "csrc"
     h = hashlib.sha256(" ".join(build.NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in names:
+        h.update(name.encode())
         h.update((csrc / name).read_bytes())
     out = build.BUILD_DIR / f"libab_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = build._nvcc()
-    objs = [out.with_name(f"{out.stem}_{Path(n).stem}.o") for n in SOURCES]
-    procs = [subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-c",
+    objs = [out.with_name(f"{out.stem}_{Path(n).stem}.o") for n in names]
+    procs = [subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-Xptxas=-v", "-c",
                                str(csrc / n), "-o", str(o)],
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-             for n, o in zip(SOURCES, objs)]
-    for n, p in zip(SOURCES, procs):
+             for n, o in zip(names, objs)]
+    for n, p in zip(names, procs):
         log, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed on the other {n}:\n{log}")
+        print(f"the other {n}:\n{log}", end="")
     subprocess.run([nvcc, *build.ARCH, "-shared", "-o", str(out),
                     *map(str, objs)], check=True)
     return out
@@ -88,85 +102,117 @@ def top_ulp(want) -> float:
     return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--against", type=Path, required=True,
-                    help="a tree holding src/repro_torch/csrc")
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+def attribution_calls(cs, seed: int, dev, want) -> dict:
+    """B5 and B6 at ``chip_smoke.py``'s shapes, on its seeded data:
+    name -> (kernel call, plain call, comparison -> (dict, passed))."""
+    if not {"b5", "b6"} & set(want):
+        return {}
     import torch
-    if not torch.cuda.is_available():
-        print("kernel_ab: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
-    sys.path.insert(0, str(ROOT))
-    sys.path.insert(0, str(ROOT / "tests"))
-    import chip_smoke as cs
-    from repro_torch.kernels import build
+    from repro_torch.fleet import StreamConfig, TrackConfig
+    from repro_torch.fleet.pipeline import (_min_cadence, default_tail,
+                                            pack_stream_rows)
+    from repro_torch.kernels.grid_resample import (grid_resample_kernel,
+                                                   grid_resample_ref)
+    from repro_torch.kernels.phase_integrate import (phase_energies_ref,
+                                                     phase_integrate_kernel)
+    truth, groups, delays = cs.sim_groups(cs.DEVICES, cs.SPAN_S, seed)
+    phases = cs.phases_of(truth)
+    _, b5_batch, _, b6, _ = cs.batch_kernel_inputs(groups, truth, phases,
+                                                   delays, dev)
+    calls = {}
+
+    def regrid(b5):
+        t, v, n, first, grid, d = b5
+
+        def same(got, want):
+            res = {"mask_equal": torch.equal(got[1], want[1]),
+                   "hold_equal": torch.equal(got[0], want[0])}
+            return res, all(res.values())
+        return (lambda: grid_resample_kernel(t, v, n, first, grid, d),
+                lambda: grid_resample_ref(t, v, n[:, None], first[:, None],
+                                          grid[:, None], d[:, None],
+                                          sorted_search=True), same)
+    if "b5" in want:
+        rows = pack_stream_rows([tr for g in groups for tr in g])
+        chunk = StreamConfig().chunk
+        step = 0.5 * _min_cadence(rows)
+        tail = default_tail(rows, chunk, max_lag=TrackConfig().max_lag,
+                            grid_step=step)
+        _, b5_win, _, _ = cs.kernel_inputs(rows, delays, truth, tail, chunk,
+                                           step, dev)
+        for label, b5 in (("windowed", b5_win), ("batch", b5_batch)):
+            f, s = b5[0].shape
+            calls[f"B5 {label} ({f}x{s} -> {b5[4].shape[0]}) hold"] = \
+                regrid(b5)
+    if "b6" in want:
+        t, w, ph = b6
+
+        def close(got, want):
+            diff, rel = cs.energy_err(got, want)
+            return {"max_abs": diff, "max_rel": rel}, rel <= cs.KERNEL_TOL
+        r, s = t.shape
+        for label, args in (
+                ("6 real phases padded to 32", (t, w, ph)),
+                ("32 overlapping windows", (t, w, cs.overlap_phases(t))),
+                ("shuffled samples, 32 interior windows",
+                 cs.dense_case(t, w))):
+            calls[f"B6 ({r}x{s}) {label}"] = (
+                lambda args=args: phase_integrate_kernel(*args),
+                lambda args=args: phase_energies_ref(*args), close)
+    return calls
+
+
+def serve_calls(cs, gen, dev, want) -> dict:
+    """B9 and B10 at the serve path's shapes, as
+    ``chip_smoke.check_serve_kernels`` draws their inputs."""
+    import torch
     from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                      flash_attention_ref)
     from repro_torch.kernels.ssm_scan import (selective_scan_kernel,
                                               selective_scan_ref)
-    from torch_cases import _attention_case
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
-    print(f"this tree's kernels built in "
-          f"{build.timed_build(verbose=True):.1f} s")
-    other = ctypes.CDLL(str(build_other(args.against, build)))
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev).mul_(scale)
 
+    def rel(got, want):
+        r = cs._rel_err(got, want)
+        return {"rel": r}, r <= cs.BF16_TOL
+
+    def scan(got, want):
+        res = {"y_rel": cs._rel_err(got[0], want[0]),
+               "h_last_equal": torch.equal(got[1], want[1])}
+        return res, res["y_rel"] <= cs.BF16_TOL and res["h_last_equal"]
+
     bf16 = torch.bfloat16
     calls = {}
-    for label, hq in (("llama", 24), ("hybrid", 64)):
-        q = randn(1, hq, 1000, 128, scale=3.0).to(bf16)
-        k = randn(1, 8, 1000, 128, scale=3.0).to(bf16)
-        v = randn(1, 8, 1000, 128).to(bf16)
-        calls[f"B9 {label} (1,{hq}/8,1000,128) bf16 causal"] = (
-            lambda q=q, k=k, v=v: flash_attention_kernel(q, k, v),
-            lambda q=q, k=k, v=v: flash_attention_ref(q, k, v))
-    dt = torch.nn.functional.softplus(randn(1, 1000, 16384) - 1.0)
-    x = randn(1, 1000, 16384).to(bf16)
-    bm, cm = randn(1, 1000, 16), randn(1, 1000, 16)
-    a = -torch.exp(randn(16384, 16, scale=0.5))
-    h0 = randn(1, 16384, 16)
-    calls["B10 (1,1000,16384,16) dt f32, x bf16"] = (
-        lambda: selective_scan_kernel(dt, x, bm, cm, a, h0),
-        lambda: selective_scan_ref(dt, x, bm, cm, a, h0))
+    if "b9" in want:
+        for label, hq in (("llama", 24), ("hybrid", 64)):
+            q = randn(1, hq, 1000, 128, scale=3.0).to(bf16)
+            k = randn(1, 8, 1000, 128, scale=3.0).to(bf16)
+            v = randn(1, 8, 1000, 128).to(bf16)
+            calls[f"B9 {label} (1,{hq}/8,1000,128) bf16 causal"] = (
+                lambda q=q, k=k, v=v: flash_attention_kernel(q, k, v),
+                lambda q=q, k=k, v=v: flash_attention_ref(q, k, v), rel)
+    if "b10" in want:
+        dt = torch.nn.functional.softplus(randn(1, 1000, 16384) - 1.0)
+        x = randn(1, 1000, 16384).to(bf16)
+        bm, cm = randn(1, 1000, 16), randn(1, 1000, 16)
+        a = -torch.exp(randn(16384, 16, scale=0.5))
+        h0 = randn(1, 16384, 16)
+        calls["B10 (1,1000,16384,16) dt f32, x bf16"] = (
+            lambda: selective_scan_kernel(dt, x, bm, cm, a, h0),
+            lambda: selective_scan_ref(dt, x, bm, cm, a, h0), scan)
+    return calls
 
-    result = {"timing": {}, "edges": {}}
-    for name, (fn, ref) in calls.items():
-        want = ref()
-        checks = {}
-        for side, lib in (("other", other), ("this", None)):
-            with using(lib, build):
-                got = fn()
-            if isinstance(got, tuple):          # B10: (y, h_last)
-                checks[side] = {"y_rel": cs._rel_err(got[0], want[0]),
-                                "h_last_equal": torch.equal(got[1],
-                                                            want[1])}
-            else:
-                checks[side] = {"rel": cs._rel_err(got, want)}
-        del want
-        before = cs.gpu_clocks()
-        ms = {"other": [], "this": []}
-        for side in ("other", "this", "this", "other"):
-            with using(other if side == "other" else None, build):
-                ms[side].append(cs.timed(fn)["device_ms"])
-        after = cs.gpu_clocks()
-        mean = {s: sum(v) / len(v) for s, v in ms.items()}
-        result["timing"][name] = dict(ms=ms, ratio=mean["other"]
-                                      / mean["this"], checks=checks,
-                                      clocks_before=before,
-                                      clocks_after=after)
-        print(f"{name}: other {ms['other']} ms, this {ms['this']} ms, "
-              f"other/this {mean['other'] / mean['this']:.3f}; {checks}; "
-              f"card before {before}, after {after}")
 
+def flash_edges(cs, other, build, dev) -> dict:
+    """B9 bf16's worst error over the card tests' edge cases, both
+    libraries."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_kernel,
+                                                     flash_attention_ref)
+    from torch_cases import _attention_case
+    bf16 = torch.bfloat16
     worst = {"other": (0.0, None), "this": (0.0, None)}
     for s, d, group, causal, cap in itertools.product(
             (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 1000), (64, 128),
@@ -185,12 +231,79 @@ def main(argv=None) -> int:
                 worst[side] = (rel, dict(s=s, d=d, hq=2 * group, hkv=2,
                                          causal=causal, cap=cap,
                                          top_ulps=ulps))
+    edges = {}
     for side, (rel, case) in worst.items():
-        result["edges"][side] = dict(max_rel_err=rel, case=case)
+        edges[side] = dict(max_rel_err=rel, case=case)
         print(f"B9 bf16 edge cases, {side}: worst {rel:.4e} (gate "
               f"{cs.BF16_TOL:g}) at {case}")
+    return edges
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", type=Path, required=True,
+                    help="a tree holding src/repro_torch/csrc")
+    ap.add_argument("--only", default="b5,b6,b9,b10",
+                    help="kernels to compare: any of b5, b6, b9, b10")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    want = [k.strip() for k in args.only.split(",") if k.strip()]
+    if not want or set(want) - set(SOURCES):
+        ap.error(f"--only takes a list of {', '.join(SOURCES)}")
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tests"))
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    print(f"this tree's kernels built in "
+          f"{build.timed_build(verbose=True):.1f} s")
+    other = ctypes.CDLL(str(build_other(args.against, build,
+                                        [SOURCES[k] for k in want])))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    calls = {**attribution_calls(cs, args.seed, dev, want),
+             **serve_calls(cs, gen, dev, want)}
+
+    result = {"timing": {}, "edges": {}}
+    failed = []
+    for name, (fn, ref, compare) in calls.items():
+        want_out = ref()
+        checks = {}
+        for side, lib in (("other", other), ("this", None)):
+            with using(lib, build):
+                checks[side], ok = compare(fn(), want_out)
+            if not ok and side == "this":
+                failed.append(name)
+        del want_out
+        before = cs.gpu_clocks()
+        ms = {"other": [], "this": []}
+        for side in ("other", "this", "this", "other"):
+            with using(other if side == "other" else None, build):
+                ms[side].append(cs.timed(fn)["device_ms"])
+        after = cs.gpu_clocks()
+        mean = {s: sum(v) / len(v) for s, v in ms.items()}
+        result["timing"][name] = dict(ms=ms, ratio=mean["other"]
+                                      / mean["this"], checks=checks,
+                                      clocks_before=before,
+                                      clocks_after=after)
+        print(f"{name}: other {ms['other']} ms, this {ms['this']} ms, "
+              f"other/this {mean['other'] / mean['this']:.3f}; {checks}; "
+              f"card before {before}, after {after}")
+    if "b9" in want:
+        result["edges"] = flash_edges(cs, other, build, dev)
+    result["failed"] = failed
     print(json.dumps(result, default=str))
-    return 0
+    if failed:
+        print(f"kernel_ab: this tree fails its gate on {failed}",
+              file=sys.stderr)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

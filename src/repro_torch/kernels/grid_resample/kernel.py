@@ -18,9 +18,16 @@ def grid_resample_kernel(times, values, n_row, first_row, grid, delays, *,
     grid: (G,) float32; delays: (F,) float32 -> (out (F, G) float32,
     mask (F, G) bool).
 
-    A CPU tensor takes the plain version (its ``torch.searchsorted``
-    lower bound, index-identical to the halving loop); a CUDA tensor
-    launches the kernel on the current stream.
+    Each row must be non-decreasing in ``[first_row, n_row)`` (slots
+    outside may hold anything), with ``0 <= first_row`` and ``n_row <=
+    S``; on such rows every lower bound is unique.  A CPU tensor takes the
+    plain version (its ``torch.searchsorted`` lower bound, index-identical
+    to the reference's halving loop); a CUDA tensor launches the kernel on
+    the current stream.  The kernel is fastest when ``grid`` is sorted
+    (as ``ops.grid_resample`` keeps it): it then searches each run of 32
+    queries between the lower bounds of its ends.  Where 32 consecutive
+    queries are out of order (an unsorted or NaN grid) it searches each
+    over the whole row instead: the same indices.
     """
     if mode not in ("hold", "linear"):
         raise ValueError(f"grid_resample: unknown mode {mode!r}")

@@ -13,9 +13,11 @@ def grid_resample(times, values, n_row, first_row, grid, delays, *,
                   mode: str = "hold"):
     """Resample a padded fleet onto one grid -> (out, mask), each (F, G).
 
-    times/values: (F, S); n_row/first_row/delays: (F,) or (F, 1);
-    grid: (G,) or (G, 1).  G is padded to ``GRID_ALIGN`` (replicating the
-    last query point) and sliced back, as the reference op does.
+    times/values: (F, S), each row non-decreasing in [first, n);
+    n_row/first_row/delays: (F,) or (F, 1); grid: (G,) or (G, 1), sorted
+    for the kernel's fast path (any order gives the same result).  G is
+    padded to ``GRID_ALIGN`` (replicating the last query point, which
+    keeps a sorted grid sorted) and sliced back, as the reference op does.
     """
     n_row = n_row.reshape(-1).to(torch.int32).contiguous()
     first_row = first_row.reshape(-1).to(torch.int32).contiguous()

@@ -31,9 +31,11 @@ from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                  flash_attention_ref)
 from repro_torch.kernels.ssm_scan import (selective_scan_kernel,
                                           selective_scan_ref)
-from torch_cases import (WRAP_26, _attention_case, _counter_rows,
-                         _fleet_rows, _phase_table, _power_rows,
-                         _regrid_case, _scan_case, _t, _xcorr_case)
+from torch_cases import (PHASE_EDGES, REGRID_EDGES, WRAP_26,
+                         _attention_case, _counter_rows, _fleet_rows,
+                         _phase_edge_case, _phase_partition, _phase_table,
+                         _power_rows, _regrid_case, _regrid_edge_case,
+                         _scan_case, _t, _xcorr_case)
 
 
 def _cuda():
@@ -166,8 +168,8 @@ def test_cuda_fleet_attribute_matches_plain_and_ignores_row_count():
 
 @pytest.mark.gpu
 def test_cuda_grid_resample_unstaged_rows_match_plain():
-    """Rows of S > 6k samples do not fit the 48 KB staging buffer: the
-    kernel reads them from device memory instead."""
+    """Rows of 7000 samples (56 KB of times and values, past the 48 KB
+    a block has without the opt-in): staged in dynamic shared memory."""
     dev = _cuda()
     t, v, n, first, grid, d = (_t(a).to(dev) for a in
                                _regrid_case(5, f=24, s=7000, g=9000))
@@ -184,6 +186,89 @@ def test_cuda_grid_resample_unstaged_rows_match_plain():
         else:
             torch.testing.assert_close(ko, po, rtol=1e-5, atol=1e-5,
                                        equal_nan=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", REGRID_EDGES)
+def test_cuda_grid_resample_edges_match_plain(kind):
+    """The warp-range search on each edge case of
+    ``torch_cases._regrid_edge_case``: chunks straddling t[first] and
+    t[n-1] with junk outside [first, n), queries outside both ends,
+    duplicate timestamps, the -inf sentinel, S = 301/302/303, 20000-sample
+    rows, and grids out of order (the per-chunk order test sends those
+    chunks to the full search).  Hold values and masks identical to both
+    plain searches (the halving loop and torch.searchsorted), linear
+    within 1e-5."""
+    dev = _cuda()
+    t, v, n, first, grid, d = (_t(a).to(dev)
+                               for a in _regrid_edge_case(kind))
+    n0 = grid_resample_kernel.launches
+    for mode in ("hold", "linear"):
+        ko, km = grid_resample_kernel(t, v, n[:, 0].contiguous(),
+                                      first[:, 0].contiguous(),
+                                      grid[:, 0].contiguous(),
+                                      d[:, 0].contiguous(), mode=mode)
+        for sorted_search in (False, True):
+            po, pm = grid_resample_ref(t, v, n, first, grid, d, mode=mode,
+                                       sorted_search=sorted_search)
+            torch.cuda.synchronize()
+            assert torch.equal(km, pm) and km.any() and not km.all()
+            if mode == "hold":
+                assert torch.equal(ko, po)
+            else:
+                torch.testing.assert_close(ko, po, rtol=1e-5, atol=1e-5,
+                                           equal_nan=True)
+    assert grid_resample_kernel.launches == n0 + 2
+
+
+def _energies_match(got, want):
+    """NaN and inf where the plain version has them, the rest within
+    1e-5 x max(|E|, 1 J)."""
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    inf = torch.isinf(want)
+    assert torch.equal(got[inf], want[inf])
+    fin = torch.isfinite(want)
+    _energy_close(got[fin], want[fin])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", PHASE_EDGES)
+def test_cuda_phase_integrate_edges_match_plain(kind):
+    """Each edge case of ``torch_cases._phase_edge_case``: non-finite
+    watts and times (the dense branch: non-finite in every phase of
+    their rows and only there), the -inf carry column, 32 overlapping
+    unsorted windows, empty windows between real ones, P = 39."""
+    dev = _cuda()
+    t, w, ph = (_t(a).to(dev) for a in _phase_edge_case(kind))
+    n0 = phase_integrate_kernel.launches
+    got = phase_integrate_kernel(t, w, ph)
+    want = phase_energies_ref(t, w, ph)
+    torch.cuda.synchronize()
+    assert phase_integrate_kernel.launches == n0 + 1
+    _energies_match(got, want)
+    bad = (~torch.isfinite(got).all(1)).nonzero().flatten().tolist()
+    if kind == "nonfinite":
+        assert bad == [2, 5, 9]
+        assert not torch.isfinite(got[[2, 5, 9]]).any()
+    else:
+        assert bad == [] and (got > 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [1, 8, 512])
+def test_cuda_phase_integrate_rows_ignore_row_count(r):
+    """At the batch path's width (4097 samples, 6 phases padded to 32) a
+    row's energies are bit-identical whether R = 1, 8 or 512 rows are
+    passed or 600."""
+    dev = _cuda()
+    t, w = (_t(a).to(dev) for a in _power_rows(4, f=600, s=4097))
+    t_hi = t[torch.isfinite(t)].max().item()
+    ph = _t(_phase_partition(t_hi).astype("float32")).to(dev)
+    whole = phase_integrate_kernel(t, w, ph)
+    _energies_match(whole, phase_energies_ref(t, w, ph))
+    part = phase_integrate_kernel(t[:r].contiguous(), w[:r].contiguous(),
+                                  ph)
+    assert torch.equal(part, whole[:r])
 
 
 # rtol of the square-wave kernel (one rounding per step) against its plain

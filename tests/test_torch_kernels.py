@@ -32,9 +32,10 @@ from repro.kernels.xcorr_align.ops import make_refbank as jax_make_refbank
 from repro.kernels.xcorr_align.ref import (xcorr_scores_ref as
                                            jax_xcorr_scores_ref)
 from repro_torch.align.delay import estimate_delays, peak_to_delay
-from torch_cases import (WRAP_26, _attention_case, _counter_rows,
-                         _fleet_rows, _phase_table, _power_rows,
-                         _regrid_case, _scan_case, _t, _xcorr_case)
+from torch_cases import (PHASE_EDGES, WRAP_26, _attention_case,
+                         _counter_rows, _fleet_rows, _phase_edge_case,
+                         _phase_table, _power_rows, _regrid_case,
+                         _regrid_edge_case, _scan_case, _t, _xcorr_case)
 
 # the test workers share the machine's cores: keep torch from taking them all
 torch.set_num_threads(2)
@@ -111,6 +112,37 @@ def test_grid_resample_plain_matches_reference(mode, sorted_search):
     else:
         np.testing.assert_allclose(out.numpy(), w_out, rtol=1e-5,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["hold", "linear"])
+@pytest.mark.parametrize("kind", ["straddle", "duplicates", "sentinel"])
+def test_grid_resample_plain_matches_reference_on_edges(kind, mode):
+    """What the CUDA kernel must keep, on the JAX oracle: queries before
+    t[first] and after t[n-1] with unsorted junk outside [first, n),
+    runs of equal timestamps with grid points on them, and the -inf
+    sentinel column; both of the port's searches."""
+    t, v, n, first, grid, d = _regrid_edge_case(kind)
+    w_out, w_mask = jax_grid_resample_ref(
+        jnp.asarray(t), jnp.asarray(v), jnp.asarray(n), jnp.asarray(first),
+        jnp.asarray(grid), jnp.asarray(d), mode=mode)
+    w_out, w_mask = np.asarray(w_out), np.asarray(w_mask)
+    q = grid[:, 0][None, :] + d
+    rows = np.arange(t.shape[0])
+    start = t[rows, first[:, 0]]            # past the sentinel, if any
+    start = np.where(np.isfinite(start), start, t[rows, first[:, 0] + 1])
+    assert (q < start[:, None]).any(1).all()
+    assert (q > t[rows, n[:, 0] - 1][:, None]).any(1).all()
+    for sorted_search in (False, True):
+        out, mask = grid_resample_ref(_t(t), _t(v), _t(n), _t(first),
+                                      _t(grid), _t(d), mode=mode,
+                                      sorted_search=sorted_search)
+        np.testing.assert_array_equal(mask.numpy(), w_mask)
+        assert mask.numpy().any() and not mask.numpy().all()
+        if mode == "hold":
+            np.testing.assert_array_equal(out.numpy(), w_out)
+        else:
+            np.testing.assert_allclose(out.numpy(), w_out, rtol=1e-5,
+                                       atol=1e-5)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -260,6 +292,30 @@ def test_phase_integrate_plain_matches_reference(seed):
     assert got.shape == (t.shape[0], 32) and np.isfinite(got).all()
     assert (got[:, :5] > 0).any() and (got[:, 5:] == 0).all()
     _energy_close(got, want)
+
+
+@pytest.mark.parametrize("kind", PHASE_EDGES)
+def test_phase_integrate_plain_matches_reference_on_edges(kind):
+    """What the CUDA kernel must keep, on the JAX oracle: NaN and inf
+    watts and a NaN time (non-finite in every phase of their rows, NaN at
+    the same places), the -inf carry column, 32 overlapping unsorted
+    windows, empty windows between real ones, and 39 windows."""
+    t, w, ph = _phase_edge_case(kind)
+    got = phase_energies(_t(t), _t(w), _t(ph)).numpy()
+    want = np.asarray(jax_phase_energies_ref(jnp.asarray(t), jnp.asarray(w),
+                                             jnp.asarray(ph)))
+    assert got.shape == (t.shape[0], ph.shape[0])
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    inf = np.isinf(want)
+    np.testing.assert_array_equal(got[inf], want[inf])
+    fin = np.isfinite(want)
+    _energy_close(got[fin], want[fin])
+    bad = ~np.isfinite(got).all(1)
+    if kind == "nonfinite":
+        assert bad.nonzero()[0].tolist() == [2, 5, 9]
+        assert not np.isfinite(got[[2, 5, 9]]).any()
+    else:
+        assert not bad.any() and (got > 0).any()
 
 
 # ------------------------------------------------------------------ B7

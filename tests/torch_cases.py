@@ -116,3 +116,107 @@ def _scan_case(seed, b=2, seq=96, d=160, n=8):
     a = -np.exp(rng.normal(0.0, 0.5, (d, n)))
     h0 = rng.normal(0.0, 1.0, (b, d, n))
     return tuple(v.astype(np.float32) for v in (dt, x, bm, cm, a, h0))
+
+
+# Edge cases of the regrid (B5): per kind, (t, v, n, first, grid, d) as
+# ``_regrid_case`` returns them.  Every row is sorted inside [first, n).
+REGRID_EDGES = ("straddle", "duplicates", "sentinel", "mod1", "mod2",
+                "mod3", "long", "xlong", "unsorted_grid", "swapped_grid")
+
+
+def _regrid_edge_case(kind, seed=0, f=12, s=300):
+    """``straddle``: first > 0 and n < S with unsorted junk outside
+    [first, n), and a grid finer than the samples, so that 32-query chunks
+    straddle t[first] and t[n-1] and queries fall before and after both;
+    ``duplicates``: runs of equal timestamps, grid points on them;
+    ``sentinel``: the -inf column the streaming tail prepends; ``mod1``,
+    ``mod2``, ``mod3``: S = 301, 302, 303 (rows not 16-byte aligned);
+    ``long``: rows of 20000 samples (160 KB of times and values, past
+    the 48 KB a block has without the opt-in); ``xlong``: 32768 samples
+    (256 KB: more than an H100 block's shared memory holds);
+    ``unsorted_grid``: the grid shuffled, so no chunk is in order;
+    ``swapped_grid``: a few neighbouring grid points swapped, so some
+    chunks are in order and some are not."""
+    rng = np.random.default_rng(seed + 600)
+    if kind.startswith("mod"):
+        s = 300 + int(kind[3:])
+    elif kind == "long":
+        f, s = 4, 20000
+    elif kind == "xlong":
+        f, s = 2, 32768
+    dt = rng.uniform(0.2e-3, 2e-3, (f, s))
+    if kind == "duplicates":
+        dt[rng.random((f, s)) < 0.4] = 0.0
+    t = np.cumsum(dt, axis=1)
+    v = rng.normal(100.0, 20.0, (f, s))
+    n = np.full((f, 1), s, np.int32)
+    first = np.zeros((f, 1), np.int32)
+    d = rng.uniform(-1e-3, 1e-3, (f, 1))
+    lo = float(np.min(t[:, 1])) - 0.02
+    hi = float(np.max(t[:, s - 1])) + 0.02
+    if kind == "straddle":
+        first[:, 0] = rng.integers(5, 40, f)
+        n[:, 0] = s - rng.integers(5, 40, f)
+        for r in range(f):
+            t[r, :first[r, 0]] = rng.uniform(-1.0, 2.0, first[r, 0])
+            t[r, n[r, 0]:] = rng.uniform(-1.0, 2.0, s - n[r, 0])
+    if kind == "sentinel":
+        t[:, 0] = -np.inf
+    grid = np.linspace(lo, hi, int((hi - lo) / 3e-4))
+    if kind == "duplicates":
+        d[0] = 0.0
+        grid = np.sort(np.concatenate([grid, t[0, ::7]]))
+    grid = grid.astype(np.float32)
+    if kind == "unsorted_grid":
+        grid = rng.permutation(grid)
+    elif kind == "swapped_grid":
+        for j in rng.choice(len(grid) - 1, 12, replace=False):
+            grid[j], grid[j + 1] = grid[j + 1], grid[j]
+    return (t.astype(np.float32), v.astype(np.float32), n, first,
+            grid[:, None], d.astype(np.float32))
+
+
+# Edge cases of the phase integration (B6): per kind, (t, w, phases).
+PHASE_EDGES = ("nonfinite", "carry", "overlap32", "zero_width", "p39")
+
+
+def _phase_partition(t_hi, p=6, pad_to=32):
+    """``p`` phases that partition [0.05, 0.95] x t_hi, padded to
+    ``pad_to`` with empty [0, 0) windows as the pipeline pads them."""
+    e = np.linspace(0.05 * t_hi, 0.95 * t_hi, p + 1)
+    ph = np.zeros((max(p, pad_to), 2))
+    ph[:p, 0], ph[:p, 1] = e[:-1], e[1:]
+    return ph
+
+
+def _phase_edge_case(kind, seed=0, f=16, s=1500):
+    """``nonfinite``: a NaN watt in row 2, an inf watt in row 5 and a NaN
+    time in row 9, among finite rows; ``carry``: the -inf carry column in
+    every row; ``overlap32``: 32 real windows, overlapping and unsorted;
+    ``zero_width``: empty windows (a == b, and one with a > b) between
+    the real ones; ``p39``: 39 overlapping windows (two 32-window tiles).
+    The rows are ``_power_rows``'s (duplicate times, -inf at t[3, 0])."""
+    t, w = _power_rows(seed, f=f, s=s)
+    rng = np.random.default_rng(seed + 700)
+    t_hi = float(t[np.isfinite(t)].max())
+    ph = _phase_partition(t_hi)
+    if kind == "nonfinite":
+        w[2, s // 3] = np.nan
+        w[5, s // 2] = np.inf
+        t[9, 2 * s // 3] = np.nan
+    elif kind == "carry":
+        t[:, 0] = -np.inf
+    elif kind in ("overlap32", "p39"):
+        p = 32 if kind == "overlap32" else 39
+        a = rng.uniform(-0.1 * t_hi, 0.6 * t_hi, p)
+        ph = np.stack([a, a + rng.uniform(0.2 * t_hi, 0.8 * t_hi, p)], 1)
+    elif kind == "zero_width":
+        real = _phase_partition(t_hi, pad_to=0)
+        mids = 0.5 * (real[:, 0] + real[:, 1])
+        empty = np.concatenate([np.stack([real[:, 1], real[:, 1]], 1),
+                                np.stack([mids, mids], 1),
+                                [[0.6 * t_hi, 0.4 * t_hi]]])
+        ph = np.zeros((32, 2))
+        ph[:len(real) + len(empty)] = np.concatenate([real, empty])[
+            rng.permutation(len(real) + len(empty))]
+    return t, w, ph.astype(np.float32)
