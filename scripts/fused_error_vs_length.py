@@ -4,7 +4,8 @@ Replays an HPL-MxP-shaped timeline (``mxp_factorize`` of each given
 length, then a 0.057 s ``mxp_refine``) through ``fused_fleet_energize``
 over simulated nodes, and prints, per length, the worst node total and
 the worst per-phase error against the synthetic truth: the numbers
-``chip_smoke.py``'s 1% energy gates read.  Either package runs it, on
+``chip_smoke.py``'s fused energy gates read, each also as seconds of
+its phase's (or the run's) own power, the unit of ``FUSED_EDGE_S``.  Either package runs it, on
 the CPU, one package per process; ``--save`` also keeps each node's
 phase energies and its streams' estimated delays (``align_and_fuse`` on
 the same node streams), and ``--compare`` sets two saved runs side by
@@ -100,12 +101,16 @@ def main():
         got = np.array([[pe.energy_j for pe in row] for row in rows])
         total = np.abs(got.sum(1) - e_true.sum()) / e_true.sum()
         per = (np.abs(got - e_true[None]) / e_true[None]).max(0)
+        dur = np.array([b - a for _, a, b in shifted])
         print(json.dumps({
             "package": args.package, "nodes": args.nodes,
             "factorize_s": length,
             "worst_node_total": float(total.max()),
             "worst_per_phase": {n: float(e) for (n, _, _), e in
                                 zip(shifted, per)},
+            "worst_node_total_s": float(total.max() * dur.sum()),
+            "worst_per_phase_s": {n: float(e * d) for (n, _, _), e, d in
+                                  zip(shifted, per, dur)},
             "wall_s": wall}))
         if args.save:
             saved["lengths"].append(length)

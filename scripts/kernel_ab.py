@@ -3,12 +3,16 @@ on one CUDA card.
 
     mkdir -p build/ab_old
     git archive <commit> src/repro_torch/csrc | tar -x -C build/ab_old
-    python3 scripts/kernel_ab.py --against build/ab_old [--only b5,b6]
+    python3 scripts/kernel_ab.py --against build/ab_old [--only b2,b6,b7]
 
 Builds the other tree's sources of the chosen kernels (``--only``, any of
-b5, b6, b9, b10; all four by default) into a library of their own (the
-same nvcc flags) and calls both libraries through this tree's wrappers
-(the C entries take the same arguments).  Shapes and data:
+b2, b5, b6, b7, b9, b10; all six by default) into a library of their own
+(the same nvcc flags) and calls both libraries through this tree's
+wrappers (the C entries take the same arguments).  Shapes and data:
+- B2 ``power_reconstruct_fleet`` at ``chip_smoke.py``'s batch shape (the
+  512 packed counters, 8773 columns) as run, wrapping, and padded to a
+  width of the other 16-byte alignment (``chip_smoke.b2_cases``); gate:
+  power, valid and reordered ``torch.equal`` to the plain version;
 - B5 ``grid_resample``, hold, at ``chip_smoke.py``'s windowed shape (the
   second replay window, 1024 rows of ~2.3k samples -> 2048 grid points)
   and batch shape (1024 whole-run rows of ~8.8k samples -> 16384), on
@@ -18,7 +22,13 @@ same nvcc flags) and calls both libraries through this tree's wrappers
   real phases padded to 32, with 32 real windows that all cover the run
   (``chip_smoke.overlap_phases``), and on each row's samples shuffled
   with 32 windows inside the run (``chip_smoke.dense_case``: no term can
-  be skipped); gate: 1e-5 x max(|E|, 1 J), NaN at the same places;
+  be skipped); gate: 1e-5 x max(|E|, 1 J), NaN at the same places, and
+  the two libraries' outputs ``torch.equal`` (the integral both B6 and
+  B7 include, ``csrc/phase_windows.cuh``, must leave B6's bits alone);
+- B7 ``fleet_attribute`` at the counter chunk (512 x 1025) as run,
+  wrapping, with 32 covering windows and on shuffled reads, and at a
+  4097-column chunk (``chip_smoke.b7_cases``); gate: 1e-5 x max(|E|,
+  1 J), NaN at the same places;
 - B9 bf16 causal at llama's (1, 24/8, 1000, 128) and the hybrid's
   (1, 64/8, 1000, 128), B10 at (1, 1000, 16384, 16) with dt float32 and
   x bf16, inputs drawn as ``chip_smoke.check_serve_kernels`` draws them.
@@ -46,7 +56,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-SOURCES = {"b5": "grid_resample.cu", "b6": "phase_integrate.cu",
+SOURCES = {"b2": "power_reconstruct_fleet.cu", "b5": "grid_resample.cu",
+           "b6": "phase_integrate.cu", "b7": "fleet_attribute.cu",
            "b9": "flash_attention.cu", "b10": "selective_scan.cu"}
 
 
@@ -103,23 +114,51 @@ def top_ulp(want) -> float:
 
 
 def attribution_calls(cs, seed: int, dev, want) -> dict:
-    """B5 and B6 at ``chip_smoke.py``'s shapes, on its seeded data:
-    name -> (kernel call, plain call, comparison -> (dict, passed))."""
-    if not {"b5", "b6"} & set(want):
+    """B2, B5, B6 and B7 at ``chip_smoke.py``'s shapes, on its seeded data:
+    name -> (kernel call, plain call, comparison -> (dict, passed), and
+    whether both libraries must give the same bits)."""
+    if not {"b2", "b5", "b6", "b7"} & set(want):
         return {}
     import torch
     from repro_torch.fleet import StreamConfig, TrackConfig
     from repro_torch.fleet.pipeline import (_min_cadence, default_tail,
                                             pack_stream_rows)
+    from repro_torch.kernels.fleet_attribute import (fleet_attribute_kernel,
+                                                     fleet_attribute_ref)
     from repro_torch.kernels.grid_resample import (grid_resample_kernel,
                                                    grid_resample_ref)
     from repro_torch.kernels.phase_integrate import (phase_energies_ref,
                                                      phase_integrate_kernel)
+    from repro_torch.kernels.power_reconstruct import (
+        power_reconstruct_fleet_kernel)
+    from repro_torch.kernels.power_reconstruct.ref import (
+        reconstruct_power_fleet_ref)
     truth, groups, delays = cs.sim_groups(cs.DEVICES, cs.SPAN_S, seed)
     phases = cs.phases_of(truth)
-    _, b5_batch, _, b6, _ = cs.batch_kernel_inputs(groups, truth, phases,
-                                                   delays, dev)
+    b2, b5_batch, _, b6, b7 = cs.batch_kernel_inputs(groups, truth, phases,
+                                                     delays, dev)
     calls = {}
+
+    def close(got, want):
+        diff, rel = cs.energy_err(got, want)
+        return {"max_abs": diff, "max_rel": rel}, rel <= cs.KERNEL_TOL
+
+    if "b2" in want:
+        def same(got, want):
+            res = {k: torch.equal(g, w) for k, g, w in
+                   zip(("power", "valid", "reordered"), got, want)}
+            return res, all(res.values())
+        for label, args in cs.b2_cases(*b2):
+            f, s = args[0].shape
+            calls[f"B2 ({f}x{s}) {label}"] = (
+                lambda args=args: power_reconstruct_fleet_kernel(*args),
+                lambda args=args: reconstruct_power_fleet_ref(*args), same)
+    if "b7" in want:
+        for label, args in cs.b7_cases(*b7, cs.b7_wide(b2, b7)):
+            r, s = args[0].shape
+            calls[f"B7 ({r}x{s}) {label}"] = (
+                lambda args=args: fleet_attribute_kernel(*args),
+                lambda args=args: fleet_attribute_ref(*args), close)
 
     def regrid(b5):
         t, v, n, first, grid, d = b5
@@ -146,19 +185,16 @@ def attribution_calls(cs, seed: int, dev, want) -> dict:
                 regrid(b5)
     if "b6" in want:
         t, w, ph = b6
-
-        def close(got, want):
-            diff, rel = cs.energy_err(got, want)
-            return {"max_abs": diff, "max_rel": rel}, rel <= cs.KERNEL_TOL
         r, s = t.shape
         for label, args in (
                 ("6 real phases padded to 32", (t, w, ph)),
                 ("32 overlapping windows", (t, w, cs.overlap_phases(t))),
                 ("shuffled samples, 32 interior windows",
                  cs.dense_case(t, w))):
+            # the shared header must leave B6 as it was: same bits
             calls[f"B6 ({r}x{s}) {label}"] = (
                 lambda args=args: phase_integrate_kernel(*args),
-                lambda args=args: phase_energies_ref(*args), close)
+                lambda args=args: phase_energies_ref(*args), close, True)
     return calls
 
 
@@ -243,8 +279,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", type=Path, required=True,
                     help="a tree holding src/repro_torch/csrc")
-    ap.add_argument("--only", default="b5,b6,b9,b10",
-                    help="kernels to compare: any of b5, b6, b9, b10")
+    ap.add_argument("--only", default=",".join(SOURCES),
+                    help=f"kernels to compare: any of "
+                         f"{', '.join(SOURCES)}")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     want = [k.strip() for k in args.only.split(",") if k.strip()]
@@ -273,15 +310,21 @@ def main(argv=None) -> int:
 
     result = {"timing": {}, "edges": {}}
     failed = []
-    for name, (fn, ref, compare) in calls.items():
+    for name, (fn, ref, compare, *same_bits) in calls.items():
         want_out = ref()
-        checks = {}
+        checks, outs = {}, {}
         for side, lib in (("other", other), ("this", None)):
             with using(lib, build):
-                checks[side], ok = compare(fn(), want_out)
+                outs[side] = fn()
+                checks[side], ok = compare(outs[side], want_out)
             if not ok and side == "this":
                 failed.append(name)
-        del want_out
+        if same_bits:
+            checks["libraries_equal"] = torch.equal(outs["other"],
+                                                    outs["this"])
+            if not checks["libraries_equal"]:
+                failed.append(f"{name}: the two libraries differ")
+        del want_out, outs
         before = cs.gpu_clocks()
         ms = {"other": [], "this": []}
         for side in ("other", "this", "this", "other"):

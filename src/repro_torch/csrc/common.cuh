@@ -12,6 +12,25 @@ __device__ __forceinline__ float pmin(float a, float b) {
   return (a < b || a != a) ? a : b;
 }
 
+// The power of the interval from read (t0, e0) to read (t1, e1) of a
+// counter wrapping at w (0: none): ref.py's wrapped_diff, reassociated
+// as e1 + (w - e0) when w > 0 and dE < -w/2 (both subtractions
+// Sterbenz-exact in float32), over max(t1 - t0, 1e-12); IEEE-rounded
+// intrinsics and an IEEE division, so nvcc can neither contract nor
+// reassociate it and the result is the plain version's bit for bit.
+// A zero dE (a repeated read: ~16% of a counter's intervals when the
+// tool reads faster than the counter updates) sends the IEEE division to
+// its slow path, so it is not divided: dE / dt is then dE itself (a zero
+// of dE's sign, as dt >= 1e-12 > 0), or NaN when dt is NaN.
+__device__ __forceinline__ float wrapped_power(float e1, float e0, float t1,
+                                               float t0, float w) {
+  float de = __fsub_rn(e1, e0);
+  if (w > 0.0f && de < -0.5f * w) de = __fadd_rn(e1, __fsub_rn(w, e0));
+  const float dt = pmax(__fsub_rn(t1, t0), 1e-12f);
+  const float q = __fdiv_rn(de == 0.0f ? 1.0f : de, dt);
+  return de == 0.0f && dt == dt ? de : q;
+}
+
 // Deterministic block-wide sum: a fixed shuffle tree inside each warp,
 // then warp 0 folds the per-warp partials in warp order.  The order
 // depends only on blockDim, never on the data or on scheduling.

@@ -142,3 +142,17 @@ def stream_ptr(device: torch.device) -> int:
 PTR = ctypes.c_void_p      # device pointers and the stream
 INT = ctypes.c_int
 I64 = ctypes.c_longlong
+
+
+def empty_launch(device: torch.device, blocks: int = 1,
+                 threads: int = 32):
+    """Launch the library's empty kernel (``csrc/empty.cu``: ``blocks``
+    blocks of ``threads`` threads that do nothing) on the current stream:
+    timed, it is what a launch alone costs the card.  Not one of the
+    ported kernels, and counted nowhere."""
+    if device.type != "cuda":
+        raise ValueError(f"empty_launch: needs a CUDA device, not {device}")
+    fn = c_function("empty_launch", (INT, INT, PTR))
+    with torch.cuda.device(device):
+        rc = fn(blocks, threads, stream_ptr(device))
+    check_launch(rc, "empty")

@@ -31,10 +31,12 @@ from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                  flash_attention_ref)
 from repro_torch.kernels.ssm_scan import (selective_scan_kernel,
                                           selective_scan_ref)
-from torch_cases import (PHASE_EDGES, REGRID_EDGES, WRAP_26,
-                         _attention_case, _counter_rows, _fleet_rows,
-                         _phase_edge_case, _phase_partition, _phase_table,
-                         _power_rows, _regrid_case, _regrid_edge_case,
+from repro_torch.kernels import build
+from torch_cases import (FA_EDGES, PHASE_EDGES, PR_EDGES, REGRID_EDGES,
+                         WRAP_26, _attention_case, _counter_rows,
+                         _fa_edge_case, _fleet_rows, _phase_edge_case,
+                         _phase_partition, _phase_table, _power_rows,
+                         _pr_edge_case, _regrid_case, _regrid_edge_case,
                          _scan_case, _t, _xcorr_case)
 
 
@@ -269,6 +271,113 @@ def test_cuda_phase_integrate_rows_ignore_row_count(r):
     part = phase_integrate_kernel(t[:r].contiguous(), w[:r].contiguous(),
                                   ph)
     assert torch.equal(part, whole[:r])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", FA_EDGES)
+def test_cuda_fleet_attribute_edges_match_plain(kind):
+    """Each edge case of ``torch_cases._fa_edge_case``: NaN and inf reads
+    (the NaN-propagating branch), the carry column of ``FleetStream``'s
+    first update and a -inf one, wraps inside every slice, counters
+    stepping back by less than half the wrap (negative power, so skipped
+    terms are -0), duplicate runs, 32 overlapping unsorted windows, empty
+    windows between real ones, P = 39."""
+    dev = _cuda()
+    t, e, w, ph = (_t(a).to(dev) for a in _fa_edge_case(kind))
+    n0 = fleet_attribute_kernel.launches
+    got = fleet_attribute_kernel(t, e, w, ph)
+    want = fleet_attribute_ref(t, e, w, ph)
+    torch.cuda.synchronize()
+    assert fleet_attribute_kernel.launches == n0 + 1
+    _energies_match(got, want)
+    bad = (~torch.isfinite(got).all(1)).nonzero().flatten().tolist()
+    if kind == "nonfinite":
+        assert bad == [2, 5, 9]
+    else:
+        assert bad == [] and (got > 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [1, 2, 3, 129, 130, 4097])
+def test_cuda_fleet_attribute_short_and_long_rows(s):
+    """Rows of one read (column 0's term alone), two, three, one interval
+    past a warp's slice, and the 4097-column chunk (four slices a warp)."""
+    dev = _cuda()
+    e, t, w = (_t(a).to(dev) for a in _counter_rows(7, f=24, s=s))
+    t_hi = t[torch.isfinite(t)].max().item()
+    ph = _t(_phase_partition(max(t_hi, 1e-3)).astype("float32")).to(dev)
+    ph[3] = float("nan")                 # a NaN edge: NaN in every row
+    got = fleet_attribute_kernel(t, e, w, ph)
+    _energies_match(got, fleet_attribute_ref(t, e, w, ph))
+    assert torch.isnan(got[:, 3]).all()
+    assert not torch.isnan(got[:, [0, 1, 2, 4, 5]]).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [1, 8, 512])
+def test_cuda_fleet_attribute_rows_ignore_row_count(r):
+    """At the streaming chunk's width (1025 columns, 6 phases padded to
+    32) a row's energies are bit-identical whether R = 1, 8 or 512 rows
+    are passed or 600."""
+    dev = _cuda()
+    e, t, w = (_t(a).to(dev) for a in _counter_rows(8, f=600, s=1025))
+    t_hi = t[torch.isfinite(t)].max().item()
+    ph = _t(_phase_partition(t_hi).astype("float32")).to(dev)
+    whole = fleet_attribute_kernel(t, e, w, ph)
+    _energies_match(whole, fleet_attribute_ref(t, e, w, ph))
+    part = fleet_attribute_kernel(t[:r].contiguous(), e[:r].contiguous(),
+                                  w[:r].contiguous(), ph)
+    assert torch.equal(part, whole[:r])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", PR_EDGES)
+def test_cuda_power_fleet_edges_match_plain(kind):
+    """Each edge case of ``torch_cases._pr_edge_case`` (rows with no read
+    or one, n at every residue mod 4, reads out of order inside and past
+    n, duplicate runs, wraps, S = 300 .. 303, S = 3 and 1): power, valid
+    and reordered ``torch.equal`` to the plain version."""
+    dev = _cuda()
+    args = tuple(_t(a).to(dev) for a in _pr_edge_case(kind))
+    n0 = power_reconstruct_fleet_kernel.launches
+    got = power_reconstruct_fleet_kernel(*args)
+    want = reconstruct_power_fleet_ref(*args)
+    torch.cuda.synchronize()
+    assert power_reconstruct_fleet_kernel.launches == n0 + 1
+    for g, x in zip(got, want):
+        assert g.dtype == x.dtype and torch.equal(g, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_cuda_power_fleet_unaligned_views_match_plain(offset):
+    """Inputs that start off a 16-byte boundary (contiguous views at an
+    offset of 1-3 floats) take the scalar kernel: still equal."""
+    dev = _cuda()
+    e, t, w, n = (_t(a).to(dev) for a in _pr_edge_case("mod1"))
+    f, s = e.shape
+    views = []
+    for x in (e, t):
+        buf = torch.zeros(f * s + offset, dtype=x.dtype, device=dev)
+        v = buf[offset:].view(f, s)
+        v.copy_(x)
+        assert v.is_contiguous() and v.data_ptr() % 16 != 0
+        views.append(v)
+    got = power_reconstruct_fleet_kernel(views[0], views[1], w, n)
+    for g, x in zip(got, reconstruct_power_fleet_ref(e, t, w, n)):
+        assert torch.equal(g, x)
+
+
+@pytest.mark.gpu
+def test_cuda_empty_launch_runs():
+    """The empty kernel that times a launch's own cost launches at both
+    of ``chip_smoke.py``'s grids and refuses a CPU device."""
+    dev = _cuda()
+    build.empty_launch(dev, 1, 32)
+    build.empty_launch(dev, 512, 256)
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError):
+        build.empty_launch(torch.device("cpu"))
 
 
 # rtol of the square-wave kernel (one rounding per step) against its plain

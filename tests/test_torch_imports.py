@@ -218,7 +218,7 @@ def test_kernel_build_flags_and_path():
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("libreprotorch_")
     srcs = sorted(p.name for p in build.CSRC.glob("*.cu"))
-    assert srcs == ["flash_attention.cu", "fleet_attribute.cu",
+    assert srcs == ["empty.cu", "flash_attention.cu", "fleet_attribute.cu",
                     "grid_resample.cu", "phase_integrate.cu",
                     "power_reconstruct.cu", "power_reconstruct_fleet.cu",
                     "power_reconstruct_rows.cu", "selective_scan.cu",

@@ -32,9 +32,10 @@ from repro.kernels.xcorr_align.ops import make_refbank as jax_make_refbank
 from repro.kernels.xcorr_align.ref import (xcorr_scores_ref as
                                            jax_xcorr_scores_ref)
 from repro_torch.align.delay import estimate_delays, peak_to_delay
-from torch_cases import (PHASE_EDGES, WRAP_26, _attention_case,
-                         _counter_rows, _fleet_rows, _phase_edge_case,
-                         _phase_table, _power_rows, _regrid_case,
+from torch_cases import (FA_EDGES, PHASE_EDGES, PR_EDGES, WRAP_26,
+                         _attention_case, _counter_rows, _fa_edge_case,
+                         _fleet_rows, _phase_edge_case, _phase_table,
+                         _power_rows, _pr_edge_case, _regrid_case,
                          _regrid_edge_case, _scan_case, _t, _xcorr_case)
 
 # the test workers share the machine's cores: keep torch from taking them all
@@ -253,6 +254,30 @@ def test_power_fleet_plain_matches_reference_exactly(seed):
     assert not got[1].numpy().all() and got[1].numpy().any()
 
 
+@pytest.mark.parametrize("kind", PR_EDGES)
+def test_power_fleet_plain_matches_reference_on_edges(kind):
+    """What the CUDA kernel must keep, on the JAX oracle, bit for bit:
+    rows with no read or one, every row cut short (n at every residue mod
+    4), reads out of order inside and past n, duplicate runs, wraps, S =
+    300 .. 303, and S = 3 and 1."""
+    e, t, w, n = _pr_edge_case(kind)
+    got = reconstruct_power_fleet_ref(_t(e), _t(t), _t(w), _t(n))
+    want = jax_reconstruct_fleet_ref(jnp.asarray(e), jnp.asarray(t),
+                                     jnp.asarray(w), jnp.asarray(n))
+    for g, x in zip(got, want):
+        assert g.shape == tuple(x.shape)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(x))
+    valid, reordered = got[1].numpy(), got[2].numpy()[:, 0]
+    assert not valid[:, 0].any()
+    assert not valid[n[:, 0] <= 1].any()
+    if kind == "reordered":
+        assert reordered.tolist() == [r % 4 != 3 for r in range(len(n))]
+    if kind == "s1":
+        assert not valid.any() and not reordered.any()
+    elif kind not in ("n0",):
+        assert valid.any()
+
+
 # ------------------------------------------------------------------ B3
 
 @pytest.mark.parametrize("wrap", [0.0, WRAP_26, 7.5])
@@ -345,6 +370,39 @@ def test_fleet_attribute_duplicates_add_exactly_zero():
     a = fleet_attribute_ref(_t(t), _t(e), _t(w), _t(ph)).numpy()
     b = fleet_attribute_ref(_t(dup_t), _t(dup_e), _t(w), _t(ph)).numpy()
     _energy_close(b, a)
+
+
+@pytest.mark.parametrize("kind", FA_EDGES)
+def test_fleet_attribute_plain_matches_reference_on_edges(kind):
+    """What the CUDA kernel must keep, on the JAX oracle: NaN and inf
+    reads (NaN and inf at the same places), the carry column of
+    ``FleetStream``'s first update and a -inf one, wraps inside every
+    slice, counters stepping back by less than half the wrap (negative
+    power), duplicate runs, 32 overlapping windows, empty windows between
+    real ones, and 39 windows."""
+    t, e, w, ph = _fa_edge_case(kind)
+    got = fleet_attribute(_t(t), _t(e), _t(w), _t(ph)).numpy()
+    want = np.asarray(jax_fleet_attribute_ref(jnp.asarray(t), jnp.asarray(e),
+                                              jnp.asarray(w),
+                                              jnp.asarray(ph)))
+    assert got.shape == (t.shape[0], ph.shape[0])
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    inf = np.isinf(want)
+    np.testing.assert_array_equal(got[inf], want[inf])
+    fin = np.isfinite(want)
+    _energy_close(got[fin], want[fin])
+    bad = ~np.isfinite(got).all(1)
+    if kind == "nonfinite":
+        # an inf time gives its two intervals 0 J (p = dE/inf, and an
+        # overlap of -inf clamped to 0): row 11 stays finite
+        assert bad.nonzero()[0].tolist() == [2, 5, 9]
+    else:
+        assert not bad.any() and (got > 0).any()
+    if kind == "stepback":
+        p = reconstruct_power_rows_ref(_t(e), _t(t), _t(w)).numpy()
+        assert (p < 0).any()
+    if kind == "carry":
+        assert (t[:, 0] == t[:, 1]).all() and (got[6] == 0).all()
 
 
 # ------------------------------------------- the wrappers on the CPU

@@ -199,14 +199,22 @@ def _phase_edge_case(kind, seed=0, f=16, s=1500):
     t, w = _power_rows(seed, f=f, s=s)
     rng = np.random.default_rng(seed + 700)
     t_hi = float(t[np.isfinite(t)].max())
-    ph = _phase_partition(t_hi)
     if kind == "nonfinite":
         w[2, s // 3] = np.nan
         w[5, s // 2] = np.inf
         t[9, 2 * s // 3] = np.nan
     elif kind == "carry":
         t[:, 0] = -np.inf
-    elif kind in ("overlap32", "p39"):
+    return t, w, _edge_phases(kind, t_hi, rng)
+
+
+def _edge_phases(kind, t_hi, rng):
+    """The phase table of an edge case over a run ending near ``t_hi``:
+    ``overlap32``/``p39``: 32/39 overlapping unsorted windows;
+    ``zero_width``: the six real phases with empty windows between them;
+    otherwise the six real phases padded to 32."""
+    ph = _phase_partition(t_hi)
+    if kind in ("overlap32", "p39"):
         p = 32 if kind == "overlap32" else 39
         a = rng.uniform(-0.1 * t_hi, 0.6 * t_hi, p)
         ph = np.stack([a, a + rng.uniform(0.2 * t_hi, 0.8 * t_hi, p)], 1)
@@ -219,4 +227,126 @@ def _phase_edge_case(kind, seed=0, f=16, s=1500):
         ph = np.zeros((32, 2))
         ph[:len(real) + len(empty)] = np.concatenate([real, empty])[
             rng.permutation(len(real) + len(empty))]
-    return t, w, ph.astype(np.float32)
+    return ph.astype(np.float32)
+
+
+# Edge cases of the fused counter attribution (B7): per kind, (t, e,
+# wrap_row, phases).
+FA_EDGES = ("nonfinite", "carry", "ninf_carry", "wrap", "stepback",
+            "duplicates", "overlap32", "zero_width", "p39")
+
+
+def _first_window(t, e, valid):
+    """What ``FleetStream``'s first ``update`` hands the fused kernel: the
+    sanitizing ingest's first closed window, whose column 0 is the carry
+    each row was seeded with (its first valid read; the row's first slot
+    where no read is valid), ahead of the chunk's repaired reads."""
+    from repro_torch.fleet.pipeline import IngestStage
+    ingest = IngestStage(t.shape[0], mode="sanitize", device="cpu")
+    win = ingest.update(torch.from_numpy(t), torch.from_numpy(e),
+                        torch.from_numpy(valid))
+    return win.times.numpy().copy(), win.values.numpy().copy()
+
+
+def _fa_edge_case(kind, seed=0, f=16, s=1025):
+    """Counter chunks of ``s`` columns (the streaming chunk of 1024 reads
+    and its carry column) from ``_counter_rows`` (wraps at 2^26 uJ and at
+    7.5 J, zero-width intervals with dE != 0), then per kind:
+    ``nonfinite``: a NaN energy in row 2, an inf energy in row 5, a NaN
+    time in row 9, an inf time in row 11; ``carry``: the window
+    ``FleetStream``'s first update passes (``_first_window``: invalid
+    leading slots in rows 0-3, row 6 never valid, a read out of order in
+    row 8); ``ninf_carry``: a -inf carry time in every row; ``wrap``:
+    every row wrapping at 7.5 J several times inside each 128-read slice;
+    ``stepback``: counters stepping back by less than half the wrap (and
+    on rows that do not wrap), so some intervals have negative power;
+    ``duplicates``: runs of repeated (t, E) reads; ``overlap32``,
+    ``zero_width``, ``p39``: the phase tables of ``_edge_phases``."""
+    e, t, w = _counter_rows(seed, f=f, s=s)
+    rng = np.random.default_rng(seed + 800)
+    if kind == "nonfinite":
+        e[2, s // 3] = np.nan
+        e[5, s // 2] = np.inf
+        t[9, 2 * s // 3] = np.nan
+        t[11, s // 4] = np.inf
+    elif kind == "carry":
+        valid = np.ones((f, s - 1), bool)
+        for r in range(4):
+            valid[r, :rng.integers(1, 40)] = False
+        valid[6] = False
+        t_in, e_in = t[:, 1:].copy(), e[:, 1:].copy()
+        t_in[8, 300] = t_in[8, 290]
+        t, e = _first_window(t_in, e_in, valid)
+    elif kind == "ninf_carry":
+        t[:, 0] = -np.inf
+    elif kind == "wrap":
+        w[:] = 7.5
+        e = np.mod(np.cumsum(rng.uniform(0.0, 0.4, (f, s)), axis=1),
+                   7.5).astype(np.float32)
+    elif kind == "stepback":
+        w[::2] = 7.5
+        w[1::2] = 0.0
+        e = np.cumsum(rng.uniform(0.0, 0.4, (f, s)), axis=1)
+        back = rng.random((f, s)) < 0.2
+        e = np.where(back, e - rng.uniform(0.01, 3.0, (f, s)), e)
+        e = np.where(w > 0, np.mod(e, 7.5), e).astype(np.float32)
+    elif kind == "duplicates":
+        for r in range(f):
+            for j in rng.choice(np.arange(1, s - 8), 40, replace=False):
+                k = int(rng.integers(1, 8))
+                t[r, j:j + k] = t[r, j - 1]
+                e[r, j:j + k] = e[r, j - 1]
+    t_hi = float(t[np.isfinite(t)].max())
+    return t, e, w, _edge_phases(kind, t_hi, rng)
+
+
+# Edge cases of the fused fleet front end (B2): per kind, (e, t, wrap_row,
+# n_row).
+PR_EDGES = ("n0", "n1", "short", "reordered", "duplicates", "wrap",
+            "mod0", "mod1", "mod2", "mod3", "s3", "s1")
+
+
+def _pr_edge_case(kind, seed=0, f=16, s=300):
+    """``_fleet_rows`` (short rows, reads out of order in rows 2 and 9,
+    wraps), then per kind: ``n0``/``n1``: rows with no read or one;
+    ``short``: every row cut at its own n < S, from 2 to S - 1, at every
+    residue mod 4; ``reordered``: reads out of order in every row, some
+    at n - 1 and n and past n (which must not count); ``duplicates``:
+    runs of repeated (t, E) reads; ``wrap``: every row wrapping at 7.5 J
+    many times; ``mod0`` .. ``mod3``: S = 300 .. 303 (rows start 16-byte
+    aligned only for S % 4 == 0); ``s3``, ``s1``: S = 3 and 1, shorter
+    than one thread's run of 4 columns."""
+    if kind.startswith("mod"):
+        s = 300 + int(kind[3:])
+    elif kind in ("s3", "s1"):
+        s = int(kind[1:])
+    e, t, w, n = _fleet_rows(seed, f=f, s=max(s, 40))
+    e, t = e[:, :s].copy(), t[:, :s].copy()
+    n = np.minimum(n, s).astype(np.int32)
+    rng = np.random.default_rng(seed + 900)
+    if kind == "n0":
+        n[::3] = 0
+    elif kind == "n1":
+        n[::3] = 1
+        n[1::3] = 2
+    elif kind == "short":
+        n[:, 0] = np.linspace(2, s - 1, f).astype(np.int32)
+    elif kind == "reordered":
+        n[:, 0] = rng.integers(s // 2, s, f)
+        for r in range(f):
+            nr = int(n[r, 0])
+            for j in (int(rng.integers(2, nr - 1)), nr - 1, nr,
+                      min(nr + 3, s - 1)):
+                if r % 4 != 3 or j >= nr:
+                    t[r, j] = t[r, j - 1] - 1e-4
+    elif kind == "duplicates":
+        for r in range(f):
+            for j in rng.choice(np.arange(1, s - 8), 20, replace=False):
+                k = int(rng.integers(1, 8))
+                t[r, j:j + k] = t[r, j - 1]
+                e[r, j:j + k] = e[r, j - 1]
+    elif kind == "wrap":
+        w[:] = 7.5
+        e = np.mod(np.cumsum(rng.uniform(0.0, 0.4, (f, s)), axis=1),
+                   7.5).astype(np.float32)
+    return e, t, w, n
