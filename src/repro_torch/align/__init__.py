@@ -12,6 +12,7 @@ from repro_torch.align.regrid import (SeriesRows, make_grid,  # noqa: F401
 from repro_torch.align.fusion import (DeviceValidation,  # noqa: F401
                                       FusedStream, StreamValidation,
                                       ValidationReport, align_and_fuse,
+                                      align_fuse_host,
                                       attribute_energy_fused, default_grid,
                                       fuse_gridded, fuse_gridded_host,
                                       group_traces_by_device,

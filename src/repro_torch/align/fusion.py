@@ -10,10 +10,10 @@ per device on the host.  ``validate_streams`` reproduces the paper's
 cross-sensor comparison; ``attribute_energy_fused`` integrates the fused
 streams per phase through ``StreamingPhaseAccumulator``
 (``phase_integrate``) without bringing them to the host.
-``fuse_gridded_host`` is the float64 numpy mirror of the fusion.
-
-Not ported yet: ``align_fuse_host``, the per-trace numpy loop that is the
-reference benchmark's baseline (it needs ``core.calibration``).
+``fuse_gridded_host`` is the float64 numpy mirror of the fusion, and
+``align_fuse_host`` the per-trace float64 host loop (reconstruct,
+resample, correlate, shift and fuse one trace at a time): the
+independent cross-check of the batched path.
 """
 from __future__ import annotations
 
@@ -23,11 +23,15 @@ import re
 import numpy as np
 import torch
 
-from repro_torch.align.delay import (estimate_delays, schedule_reference,
-                                     stream_reference)
+from repro_torch.align.delay import (estimate_delays, peak_to_delay,
+                                     schedule_reference, stream_reference)
 from repro_torch.align.regrid import (SeriesRows, make_grid, regrid_rows,
                                       series_rows_from_traces)
-from repro_torch.core.reconstruction import PowerSeries
+from repro_torch.core.calibration import apply_corrections
+from repro_torch.core.power_model import PiecewisePower
+from repro_torch.core.reconstruction import (PowerSeries,
+                                             delta_e_over_delta_t,
+                                             power_trace_series)
 from repro_torch.device import refuse_unported, resolve_device
 
 DEFAULT_MAX_LAG = 512          # grid steps; ~256 ms at a 0.5 ms grid
@@ -456,3 +460,74 @@ def group_traces_by_device(traces: dict, *, include_node: bool = False):
     for key, trs in groups.items():
         trs.sort(key=lambda tr: (not tr.spec.is_cumulative, tr.name))
     return dict(sorted(groups.items()))
+
+
+# ---------------------------------------------------------------------------
+# Independent per-trace float64 host loop (cross-check of the batched path)
+# ---------------------------------------------------------------------------
+
+def _xcorr_np(xc, refc, max_lag):
+    """Per-trace normalized xcorr scores, one np.dot per candidate lag
+    over the bounded lag window."""
+    g = len(refc)
+    lags = np.arange(-max_lag, max_lag + 1)
+    num = np.empty(len(lags))
+    den_r = np.empty(len(lags))
+    for i, lag in enumerate(lags):
+        a, b = (xc[lag:], refc[:g - lag]) if lag >= 0 \
+            else (xc[:g + lag], refc[-lag:])
+        num[i] = a @ b
+        den_r[i] = b @ b
+    den_x = np.sqrt((xc * xc).sum())
+    return num / (den_x * np.sqrt(den_r) + 1e-12)
+
+
+def align_fuse_host(groups, grid, *, reference=None, max_lag: int = 256,
+                    corrections=None, var_floor=VAR_FLOOR_W2):
+    """Per-trace float64 numpy pipeline on the host: reconstruct /
+    resample / correlate / shift / fuse one trace at a time (the
+    looser, compaction-based rather than padded, semantic cross-check).
+    Returns (fused (D, G), delays (D, Kmax), masks (D, G)) as numpy.
+    """
+    grid = np.asarray(grid, np.float64)
+    step = float(np.median(np.diff(grid)))
+    g_n = len(grid)
+    d_n = len(groups)
+    k_max = max(len(g) for g in groups)
+    fused = np.zeros((d_n, g_n))
+    delays = np.zeros((d_n, k_max))
+    masks = np.zeros((d_n, g_n), bool)
+    for di, group in enumerate(groups):
+        series = []
+        for tr in group:
+            tr = apply_corrections(tr, corrections)
+            series.append(delta_e_over_delta_t(tr)
+                          if tr.spec.is_cumulative
+                          else power_trace_series(tr))
+        if isinstance(reference, PiecewisePower):
+            ref = reference.power_at(grid)
+        elif reference is not None:
+            ref = np.asarray(reference, np.float64)
+        else:
+            s0 = series[0]
+            ref = s0.resample(grid).watts
+            rm = (grid >= s0.t[0]) & (grid <= s0.t[-1])
+            ref = np.where(rm, ref - ref[rm].mean(), 0.0)
+        refc = ref - ref.mean()
+        vals = np.zeros((len(group), g_n))
+        m = np.zeros((len(group), g_n), bool)
+        for k, s in enumerate(series):
+            x = s.resample(grid).watts
+            xm = (grid >= s.t[0]) & (grid <= s.t[-1])
+            xc = np.where(xm, x - x[xm].mean(), 0.0)
+            scores = _xcorr_np(xc, refc, max_lag)
+            est = peak_to_delay(torch.from_numpy(scores[None, :]), step,
+                                max_lag)
+            delays[di, k] = float(est.delay_s[0])
+            sh = grid + delays[di, k]
+            vals[k] = s.resample(sh).watts
+            m[k] = (sh >= s.t[0]) & (sh <= s.t[-1])
+        f, _, _, _, om = fuse_gridded_host(vals[None], m[None], var_floor)
+        fused[di] = f[0]
+        masks[di] = om[0]
+    return fused, delays, masks

@@ -1,18 +1,20 @@
-"""Phase-level power/energy attribution (port of ``PhaseEnergy``,
-``attribute_energy``, ``attribute_energy_many`` and
-``split_energy_savings`` from ``repro/core/attribution.py``).
+"""Phase-level power/energy attribution (port of
+``repro/core/attribution.py``).
 
   * energy counters: exact dE between phase boundaries (interpolated on
     the unwrapped cumulative counter);
-  * power sensors: sample-and-hold integration of the reported series;
+  * power sensors: sample-and-hold integration of the reported series,
+    with steady-state stats inside each phase's confidence window
+    (``resp=``, Eq. 1);
   * offsets (NIC rail) removed via ``core.calibration`` before
     attribution.
 
 ``attribute_energy`` is the per-trace host path (numpy), the parity
-oracle of the batched device path that ``attribute_energy_many`` takes
-for counters (``fleet.attribute_energy_fleet``).  The reference's
-steady-state confidence windows (``resp=``, from ``characterization`` and
-``confidence``) are not ported.
+oracle of the batched device paths that ``attribute_energy_many`` and
+``stacked_node_power`` take for counters (``fleet.api``).
+
+Invariant: phase energies + gap energies == total counter delta
+(``energy_conservation_residual``).
 """
 from __future__ import annotations
 
@@ -21,7 +23,10 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core.calibration import apply_corrections
-from repro_torch.core.reconstruction import (power_trace_series,
+from repro_torch.core.characterization import StepResponse
+from repro_torch.core.confidence import SteadyStateStats, steady_state
+from repro_torch.core.reconstruction import (delta_e_over_delta_t,
+                                             power_trace_series,
                                              unwrap_counter)
 from repro_torch.core.sensors import SensorTrace
 
@@ -33,7 +38,7 @@ class PhaseEnergy:
     t_end: float
     energy_j: float
     mean_power_w: float
-    steady: object = None     # steady-state stats (not produced by the port)
+    steady: SteadyStateStats = None
 
 
 def _cum_energy_at(trace: SensorTrace, times):
@@ -45,16 +50,14 @@ def _cum_energy_at(trace: SensorTrace, times):
     return np.interp(times, t[keep], e[keep])
 
 
-def attribute_energy(trace: SensorTrace, phases, *, resp=None,
-                     corrections=None) -> list:
+def attribute_energy(trace: SensorTrace, phases, *,
+                     resp: StepResponse = None, corrections=None) -> list:
     """Per-phase energy from one sensor (host numpy).
 
     phases: [(name, t_start, t_end)] in the unified timebase.
+    resp: the sensor's step response; power sensors then carry each
+    phase's steady-state stats over its confidence window.
     """
-    if resp is not None:
-        raise NotImplementedError(
-            "repro_torch's attribute_energy does not support resp= "
-            "(steady-state confidence windows) yet")
     trace = apply_corrections(trace, corrections)
     out = []
     if trace.spec.is_cumulative:
@@ -70,7 +73,8 @@ def attribute_energy(trace: SensorTrace, phases, *, resp=None,
     series = power_trace_series(trace)
     for name, a, b in phases:
         e = float(series.energy_between(a, b))
-        out.append(PhaseEnergy(name, a, b, e, e / max(b - a, 1e-12)))
+        st = steady_state(series, a, b, resp) if resp is not None else None
+        out.append(PhaseEnergy(name, a, b, e, e / max(b - a, 1e-12), st))
     return out
 
 
@@ -101,6 +105,74 @@ def attribute_energy_many(traces, phases, *, corrections=None,
         if out[i] is None:
             out[i] = attribute_energy(tr, phases, corrections=corrections)
     return out
+
+
+def attribute_power_series(trace: SensorTrace, phases,
+                           *, corrections=None) -> dict:
+    """Reconstructed (ΔE/Δt) power per phase — stacked plots
+    (Fig. 7/8)."""
+    trace = apply_corrections(trace, corrections)
+    series = (delta_e_over_delta_t(trace) if trace.spec.is_cumulative
+              else power_trace_series(trace))
+    per_phase = {}
+    for name, a, b in phases:
+        m = (series.t >= a) & (series.t <= b)
+        per_phase.setdefault(name, []).append(
+            (series.t[m], series.watts[m]))
+    return per_phase
+
+
+def energy_conservation_residual(trace: SensorTrace, phases) -> float:
+    """|Σ phase ΔE + Σ gap ΔE − total ΔE| / total ΔE over the phase
+    span."""
+    spans = sorted([(a, b) for _, a, b in phases])
+    t_lo, t_hi = spans[0][0], max(b for _, b in spans)
+    segs = []
+    cursor = t_lo
+    for a, b in spans:
+        if a > cursor:
+            segs.append((cursor, a))
+        segs.append((a, max(b, cursor)))
+        cursor = max(cursor, b)
+    ts = np.asarray([s[0] for s in segs])
+    te = np.asarray([s[1] for s in segs])
+    parts = _cum_energy_at(trace, te) - _cum_energy_at(trace, ts)
+    total = _cum_energy_at(trace, np.asarray([t_hi]))[0] \
+        - _cum_energy_at(trace, np.asarray([t_lo]))[0]
+    return abs(float(np.sum(parts) - total)) / max(abs(total), 1e-12)
+
+
+def stacked_node_power(traces: dict, grid, *, corrections=None,
+                       use_fleet: bool = True, device=None) -> dict:
+    """Per-component power matrix on a common grid (Fig. 7/8 stacked view).
+
+    Returns {"grid": grid, components: {name: watts}} with chips from
+    ΔE/Δt-reconstructed on-chip counters and CPU/memory from PM sensors.
+    All chip counters reconstruct in one batched ``fleet_power_series``
+    call on ``device`` (None means CUDA); pass ``use_fleet=False`` for
+    the per-trace host path (parity oracle).
+    """
+    comps = {}
+    chip_traces = []
+    for name, tr in traces.items():
+        if tr.spec.is_cumulative and tr.name.startswith("chip"):
+            if use_fleet:
+                chip_traces.append(tr)
+                continue
+            s = delta_e_over_delta_t(apply_corrections(tr, corrections))
+        elif tr.name in ("pm_cpu_power", "pm_memory_power"):
+            s = power_trace_series(apply_corrections(tr, corrections))
+        else:
+            continue
+        comps[name] = s.resample(grid).watts
+    if chip_traces:
+        from repro_torch.fleet.api import fleet_power_series
+        for tr, s in zip(chip_traces,
+                         fleet_power_series(chip_traces,
+                                            corrections=corrections,
+                                            device=device)):
+            comps[tr.name] = s.resample(grid).watts
+    return {"grid": np.asarray(grid), "components": comps}
 
 
 def split_energy_savings(full: list, mixed: list) -> dict:

@@ -1,8 +1,7 @@
 """Reconstructed power series, counter unwrapping and the per-trace
-dE/dt (port of ``PowerSeries``, ``unwrap_counter``,
-``delta_e_over_delta_t`` and ``power_trace_series`` from
-``repro/core/reconstruction.py``): host-side numpy, the per-trace oracle
-of the batched device path (``fleet.fleet_reconstruct``)."""
+dE/dt (port of ``repro/core/reconstruction.py``): host-side numpy, the
+per-trace oracle of the batched device path (``fleet.fleet_reconstruct``),
+plus the boxcar inversion and the many-series resample."""
 from __future__ import annotations
 
 import dataclasses
@@ -89,3 +88,34 @@ def power_trace_series(trace: SensorTrace, *, use_t_measured=True,
     t = (trace.t_measured if use_t_measured else trace.t_read)[ch]
     keep = np.concatenate([[True], np.diff(t) > 0])
     return PowerSeries(t[keep], trace.value[ch][keep], source=trace.name)
+
+
+def invert_moving_average(series: PowerSeries, window_s) -> PowerSeries:
+    """Exact inversion of a boxcar moving average on a uniform grid.
+
+    If y_t = mean(x over [t-w, t]) on a grid of step h with k = w/h
+    samples, then x_t = k·y_t − k·y_{t−1} + x_{t−k}: this undoes vendor
+    filtering when only the averaged power field is exposed.
+    """
+    h = np.median(np.diff(series.t))
+    k = max(int(round(window_s / h)), 1)
+    if k == 1:
+        return series
+    grid = series.t[0] + h * np.arange(len(series.t))
+    y = series.resample(grid).watts
+    x = np.copy(y)
+    # bootstrap assuming a zero-initialized (cold) filter: for t < k,
+    # k*y_t = sum_{0..t} x  =>  x_t = k*(y_t - y_{t-1})
+    x[0] = k * y[0]
+    for i in range(1, min(k, len(y))):
+        x[i] = k * (y[i] - y[i - 1])
+    for i in range(k, len(y)):
+        x[i] = k * y[i] - k * y[i - 1] + x[i - k]
+    return PowerSeries(grid, x, source=series.source + ":deconv")
+
+
+def align_series(series_list, grid):
+    """Resample many PowerSeries onto one grid -> (names, matrix)."""
+    names = [s.source for s in series_list]
+    mat = np.stack([s.resample(grid).watts for s in series_list])
+    return names, mat

@@ -1,5 +1,6 @@
 """Sensor-fabric simulator (port of ``repro/core/sensors.py``: the three
-stages, ``simulate_sensor`` and the per-node ``NodeFabric``).
+stages, ``simulate_sensor``, fault injection and the per-node
+``NodeFabric``).
 
 The randomness is numpy ``default_rng`` seeded exactly as the reference
 seeds it, so both packages produce bit-identical traces from one seed.
@@ -127,6 +128,60 @@ def simulate_sensor(spec: SensorSpec, tool: ToolSpec,
     tm, val = produce(spec, truth, rng)
     tp, tmp, vp = publish(spec, tm, val, truth.t0, truth.t1, rng)
     return sample(spec, tool, tp, tmp, vp, truth.t0, truth.t1, rng)
+
+
+# ---------------------------------------------------------------------------
+# Fault injection: deterministic post-hoc trace corruption for the
+# fleet-health tests (stuck counters, dropout bursts, step drift).
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FaultSpec:
+    """One injected sensor fault over [t_start, t_end).
+
+    kind: ``"stuck"`` freezes the published VALUE at the last pre-fault
+    sample while timestamps keep refreshing — a hung counter behind a
+    live driver; ``"dropout"`` removes every tool read in the window —
+    a dead endpoint (the downstream hold-resample then serves stale
+    data, which the health stage sees as a zero-refresh window);
+    ``"step_drift"`` adds ``magnitude_w`` watts (instant-power sensors)
+    or the equivalent accumulated joules (cumulative counters) from
+    ``t_start`` on — a calibration step.  Injection is a pure function
+    of the clean trace, so a multi-host fleet re-simulating the same
+    (spec, seed, fault) gets bit-identical faulty rows on every host.
+    """
+    kind: str                  # "stuck" | "dropout" | "step_drift"
+    t_start: float
+    t_end: float = float("inf")
+    magnitude_w: float = 0.0
+
+
+def inject_fault(trace: SensorTrace, fault: FaultSpec) -> SensorTrace:
+    """Return a new ``SensorTrace`` with the fault applied."""
+    tm = np.asarray(trace.t_measured, np.float64)
+    if fault.kind == "dropout":
+        tr = np.asarray(trace.t_read, np.float64)
+        keep = (tr < fault.t_start) | (tr >= fault.t_end)
+        return SensorTrace(trace.name, trace.spec,
+                           trace.t_read[keep], trace.t_measured[keep],
+                           trace.value[keep])
+    tm = tm.copy()
+    val = np.asarray(trace.value).astype(np.float64, copy=True)
+    in_f = (tm >= fault.t_start) & (tm < fault.t_end)
+    if fault.kind == "stuck":
+        if in_f.any():
+            j = int(np.argmax(in_f))   # first in-fault sample
+            val[in_f] = val[max(j - 1, 0)]
+    elif fault.kind == "step_drift":
+        if trace.spec.is_cumulative:
+            dt = np.clip(np.minimum(tm, fault.t_end) - fault.t_start,
+                         0.0, None)
+            val = val + fault.magnitude_w * dt
+        else:
+            val = val + fault.magnitude_w * in_f
+    else:
+        raise ValueError(f"unknown fault kind: {fault.kind!r}")
+    return SensorTrace(trace.name, trace.spec, trace.t_read, tm, val)
 
 
 # ---------------------------------------------------------------------------

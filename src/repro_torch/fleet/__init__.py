@@ -12,10 +12,14 @@ from repro_torch.fleet.streaming import (FleetStream,  # noqa: F401
                                          StreamingPhaseAccumulator)
 from repro_torch.fleet.pipeline import (AlignTrackStage,  # noqa: F401
                                         CounterAttributeStage,
+                                        DataQualityError,
+                                        DataQualityPolicy,
                                         FusedPhaseAttributeStage,
-                                        IngestStage, PhaseIntegrateStage,
+                                        IngestStage, MeteringStage,
+                                        PhaseIntegrateStage,
                                         ReconstructStage,
-                                        RegridFuseStage, StreamPipeline,
+                                        RegridFuseStage, SlotSegment,
+                                        StreamPipeline,
                                         StreamingFusedPipeline,
                                         attribute_energy_fused_streaming,
                                         pack_stream_rows,

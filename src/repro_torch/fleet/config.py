@@ -19,8 +19,8 @@ is an error: there is exactly one source of truth per call.
 
 The port's copy of ``repro/fleet/config.py``.  The port's entry point
 reads every field and raises ``NotImplementedError`` for the options
-it does not run yet (scan engine, checkpoints, health, dq policies,
-the Pallas-specific ``interpret``/``use_kernel``/``host`` knobs).
+it does not run yet (scan engine, checkpoints, the Pallas-specific
+``interpret``/``use_kernel``/``host`` knobs).
 """
 from __future__ import annotations
 

@@ -25,15 +25,26 @@ The two-stage fleet streams (``fleet.streaming``) chain Ingest with
 ``PhaseIntegrateStage`` (``phase_integrate``) or ``CounterAttributeStage``
 (``fleet_attribute``).
 
+Optional stages and policies, as in the reference:
+  Health       ``health.SensorHealthStage`` between Regrid/Fuse and
+               PhaseAttr: per-window sensor statistics on the device,
+               folded on the host once per update; its quarantine mask
+               gates the fusion statistics and the attribution masks.
+  Metering     ``MeteringStage``: the fused accumulator over a serve
+               engine's ``SlotSegment`` schedule, split per request.
+  Data quality ``DataQualityPolicy``: ingest late/dropped raise modes and
+               the emitted-window coverage flag or raise.
+
 Host round trips per window: the two emit/fill frontiers (one scalar
-each) and the two tail-reach checks (one bool each).  Float64 sums fold
-over fixed axes: no atomics, so results are deterministic.
+each) and the two tail-reach checks (one bool each); with health, one
+(N_STATS, n) block at the fold; a raising data-quality policy reads one
+bool per condition it checks.  Float64 sums fold over fixed axes: no
+atomics, so results are deterministic.
 
 Not ported yet (the entry point raises ``NotImplementedError``): the
-scan engine, multi-host collectives, checkpoints, health and metering
-stages and data-quality raise policies.  The metering schedule's
-``SlotSegment`` is here; its stage is not.  Calibration ``corrections``
-apply per trace on the host before packing (``pack_stream_rows``).
+scan engine (ROADMAP A8), multi-host collectives (A9) and checkpoints
+(A6).  Calibration ``corrections`` apply per trace on the host before
+packing (``pack_stream_rows``).
 """
 from __future__ import annotations
 
@@ -74,6 +85,44 @@ def pad_phases(phases, dtype=np.float32):
     if pad:
         ph = np.concatenate([ph, np.zeros((pad, 2), dtype)])
     return ph
+
+
+class DataQualityError(ValueError):
+    """A per-stage data-quality policy rejected this window."""
+
+
+@dataclasses.dataclass(frozen=True)
+class DataQualityPolicy:
+    """Per-stage late/reordered/dropped-sample handling.
+
+    Production sensor streams deliver reordered reads (``late``) and
+    masked/dropped slots (``dropped``); the grid emit can leave streams
+    with thin coverage (``min_coverage``, the per-row covered-slot
+    fraction of an emitted window).  Every policy defaults to repair and
+    keep counting, so a policy-less pipeline is unchanged; ``"raise"``
+    turns the corresponding condition into a :class:`DataQualityError`
+    at the window that violates it.  The counters and per-window flags
+    surface through the ``data_quality`` ``HealthRegistry`` source
+    whether or not a policy is attached.
+    """
+    late: str = "repair"           # "repair" | "raise"
+    dropped: str = "repair"        # "repair" | "raise"
+    min_coverage: float = 0.0      # emitted-window covered-slot floor
+    coverage: str = "flag"         # "flag" | "raise"
+
+    def __post_init__(self):
+        assert self.late in ("repair", "raise"), self.late
+        assert self.dropped in ("repair", "raise"), self.dropped
+        assert self.coverage in ("flag", "raise"), self.coverage
+        assert 0.0 <= self.min_coverage <= 1.0, self.min_coverage
+
+
+def _first_row(flags: torch.Tensor):
+    """Index of the first True of a (rows,) device bool, or None: one
+    bool and, only when one is set, one index come back to the host."""
+    if not bool(flags.any()):
+        return None
+    return int(torch.argmax(flags.to(torch.uint8)))
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -203,15 +252,18 @@ class IngestStage:
     defined span opens at the first strict timestamp advance; power rows
     open at their first sample.  None treats every row as a counter.
     The dq counters (``dq_late``/``dq_masked``, cumulative, and
-    ``dq_last``, this window's) are kept whatever the policy: repair and
-    count.  Raise policies are not ported.
+    ``dq_last``, this window's) stay on the device whatever the policy;
+    ``dq_policy`` (a ``DataQualityPolicy``) may turn late or dropped
+    samples into a ``DataQualityError``.
     """
 
     def __init__(self, n_streams: int, *, mode: str = "sanitize",
-                 kind_row=None, device=None):
+                 kind_row=None, dq_policy: DataQualityPolicy = None,
+                 device=None):
         assert mode in ("sanitize", "maskfill")
         self.mode = mode
         self.n_streams = n_streams
+        self.dq_policy = dq_policy
         self.device = resolve_device(device)
         self.kind_row = (None if kind_row is None else torch.as_tensor(
             np.asarray(kind_row, bool).reshape(-1), device=self.device))
@@ -233,6 +285,24 @@ class IngestStage:
         self.dq_late += counts["late"]
         self.dq_masked += counts["masked"]
         self.dq_last = counts
+        p = self.dq_policy
+        if p is None:
+            return
+        n = self.n_streams
+        if p.late == "raise":
+            i = _first_row(counts["late"][:n] > 0)
+            if i is not None:
+                raise DataQualityError(
+                    f"ingest: row {i} delivered "
+                    f"{int(counts['late'][i])} late/reordered sample(s) "
+                    f"this window and the policy says raise")
+        if p.dropped == "raise":
+            i = _first_row(counts["masked"][:n] > 0)
+            if i is not None:
+                raise DataQualityError(
+                    f"ingest: row {i} dropped "
+                    f"{int(counts['masked'][i])} sample slot(s) this "
+                    f"window and the policy says raise")
 
     def _seed_first(self, t, v, valid):
         f = t.shape[0]
@@ -696,11 +766,19 @@ class RegridFuseStage:
     already closed by ALL rows (the emit frontier).  Delays come live
     from an ``AlignTrackStage`` or stay fixed.  ``flush`` emits the rest
     once the run ends.
+
+    ``health`` (a ``SensorHealthStage``, set by the pipeline) folds its
+    pending statistics once per update and in ``flush``, and its
+    quarantine mask gates the fusion statistics from the next window on.
+    The coverage counters (``dq_covered``, ``dq_last_coverage``,
+    ``dq_low_coverage``) stay on the device; ``dq_policy`` with a
+    ``min_coverage`` flags (or raises on) thinly covered rows.
     """
 
     def __init__(self, group_sizes, *, grid_origin: float,
                  grid_step: float, delays=None, align=None,
-                 tail: int = 256, var_floor: float = 0.25, device=None):
+                 tail: int = 256, var_floor: float = 0.25,
+                 dq_policy: DataQualityPolicy = None, device=None):
         self.device = resolve_device(device)
         self.group_sizes = list(group_sizes)
         self.n_streams = int(sum(self.group_sizes))
@@ -714,17 +792,32 @@ class RegridFuseStage:
             dtype=_F64, device=self.device)
         self.var_floor = float(var_floor)
         self._tail = _RowTail(tail)
+        self.health = None
+        self.dq_policy = dq_policy
+        self.last_frontier = None   # telemetry: emit-frontier lag
         self.reset()
 
     def reset(self):
         n = self.n_streams
+        dev = self.device
         self._tail.reset()
         self.carry = FuseCarry(
             next_slot=0,
-            n_k=torch.zeros((n,), dtype=_F64, device=self.device),
-            ssr=torch.zeros((n,), dtype=_F64, device=self.device))
+            n_k=torch.zeros((n,), dtype=_F64, device=dev),
+            ssr=torch.zeros((n,), dtype=_F64, device=dev))
         self._t_first = None
+        # coverage accounting: per-stream covered-slot tallies plus the
+        # latest emitted window's coverage fraction and flag
+        self.dq_covered = torch.zeros((n,), dtype=torch.int64, device=dev)
+        self.dq_slots = 0
+        self.dq_last_coverage = torch.ones((n,), dtype=_F64, device=dev)
+        self.dq_low_coverage = torch.zeros((n,), dtype=torch.bool,
+                                           device=dev)
         return self
+
+    def _fold_health(self):
+        if self.health is not None:
+            self.health.fold(self.health.take_pending())
 
     def _delays(self, f: int) -> torch.Tensor:
         d = torch.zeros((f,), dtype=_F64, device=self.device)
@@ -740,10 +833,36 @@ class RegridFuseStage:
         vals, mask = _query_grid(rows_t, rows_v, grid64, delays, t_first)
         n = self.n_streams
         vals, mask = vals[:n], mask[:n]
+        self.dq_covered += mask.sum(dim=1)
+        self.dq_slots += mask.shape[1]
+        cov = mask.to(_F64).mean(dim=1)
+        self.dq_last_coverage = cov
+        p = self.dq_policy
+        if p is not None and p.min_coverage > 0.0:
+            low = cov < p.min_coverage
+            self.dq_low_coverage = low
+            if p.coverage == "raise":
+                i = _first_row(low)
+                if i is not None:
+                    raise DataQualityError(
+                        f"regrid/fuse: row {i} covered only "
+                        f"{float(cov[i]):.3f} of the emitted window "
+                        f"(< min_coverage={p.min_coverage}) and the "
+                        f"policy says raise")
+        # quarantine feedback: QUARANTINED/RECOVERING rows leave the
+        # fusion statistics (the emitted window keeps the RAW mask so the
+        # health stage can keep scoring them).  All-healthy fleets skip
+        # the masking: the arithmetic below is then the plain chain's.
+        stat_mask = mask
+        if self.health is not None:
+            hm = self.health.local_mask()
+            if not hm.all():
+                stat_mask = mask & torch.as_tensor(
+                    hm, device=mask.device)[:, None]
         # fusion statistics: per-slot cross-sensor mean within each
         # device group, all groups at once over the padded layout
         lay = self.layout
-        m = lay.gather(mask)                            # (D, K, G)
+        m = lay.gather(stat_mask)                       # (D, K, G)
         v = lay.gather(vals.to(_F64))
         mf = m.to(_F64)
         cnt = mf.sum(dim=1)                             # (D, G)
@@ -761,6 +880,10 @@ class RegridFuseStage:
         delays = self._delays(rows_t.shape[0])
         frontier = float((chunk.times[:n, -1].to(_F64)
                           - delays[:n]).min())
+        # fold at the multi-host cadence (once per update), so window
+        # w's stats gate the masks from window w+1 on
+        self._fold_health()
+        self.last_frontier = frontier
         # 1% of a step keeps float32-rounded queries strictly inside
         # every row's closed span (flush re-emits with the final bound)
         hi = int(np.floor((frontier - self.origin) / self.step - 0.01))
@@ -785,6 +908,7 @@ class RegridFuseStage:
         delays = self._delays(f)
         if t_end is None:
             t_end = float((tc.t[:n, -1].to(_F64) - delays[:n]).max())
+        self._fold_health()
         hi = int(np.floor((t_end - self.origin) / self.step + 1e-9))
         if hi < self.carry.next_slot:
             return None
@@ -929,6 +1053,92 @@ class FusedPhaseAttributeStage:
 
 
 # ---------------------------------------------------------------------------
+# Stage 5b: per-request metering (token-weighted occupancy split)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SlotSegment:
+    """One constant-occupancy interval of a serve engine's timeline.
+
+    ``rids``/``tokens`` list the requests concurrently active in
+    ``[t_lo, t_hi)`` and the token weight each contributed (prompt
+    length for prefill segments, decoded steps for decode segments).
+    Segment boundaries fall on every admission/eviction, so occupancy
+    is constant inside a segment and the union of segments tiles the
+    engine's depth-0 phases exactly.
+    """
+    t_lo: float
+    t_hi: float
+    rids: tuple
+    tokens: tuple
+    kind: str = "decode"
+
+    def shifted(self, dt: float) -> "SlotSegment":
+        return dataclasses.replace(self, t_lo=self.t_lo + dt,
+                                   t_hi=self.t_hi + dt)
+
+
+class MeteringStage(FusedPhaseAttributeStage):
+    """Fused window energies -> per-REQUEST energies.
+
+    A pass-through sibling of ``FusedPhaseAttributeStage``: the phase
+    table is the engine's slot-segment schedule (one row per constant-
+    occupancy interval), accumulated in the same dense per-(device,
+    coverage pattern, segment, stream) float64 integrals on the device
+    and finalized with the same deferred inverse-variance weights.  Each
+    segment's energy is then split across the requests active in it by
+    token-weighted occupancy, on the host.
+
+    Determinism: segments are sorted before they become phases, shares
+    within a segment fold in ascending request-id order, and every
+    accumulation of the split is an exact float64 left fold, so
+    per-request energies are bit-identical under any slot-assignment
+    permutation.  Shares sum to 1 per segment, so per-request energies
+    sum to the segment (= phase) totals to float64 round-off.
+    """
+
+    def __init__(self, segments, group_sizes, fuse: RegridFuseStage, *,
+                 device=None):
+        segs = sorted(segments,
+                      key=lambda s: (s.t_lo, s.t_hi, tuple(sorted(s.rids))))
+        self.segments = segs
+        super().__init__([(s.t_lo, s.t_hi) for s in segs], group_sizes,
+                         fuse, device=device)
+
+    def update(self, gw: GriddedWindow):
+        super().update(gw)
+        return gw              # pass-through: PhaseAttribute still runs
+
+    def segment_totals(self) -> np.ndarray:
+        """(n_devices, n_segments) fused joules per slot segment (host
+        float64)."""
+        return self.totals().cpu().numpy()
+
+    def request_energies(self) -> dict:
+        """{rid: (n_devices,) float64 joules}, token-weighted split."""
+        seg_e = self.segment_totals()
+        d = seg_e.shape[0]
+        out: dict = {}
+        for j, s in enumerate(self.segments):
+            if not s.rids:
+                continue               # idle interval: nobody to bill
+            # canonicalize to ascending-rid order FIRST so both the
+            # weight-sum fold and the share folds are permutation-proof
+            order = np.argsort(np.asarray(s.rids, np.int64),
+                               kind="stable")
+            w = np.asarray(s.tokens, np.float64)[order]
+            tot = float(w.sum())
+            if tot <= 0.0:             # degenerate: equal split
+                w = np.ones((len(s.rids),), np.float64)
+                tot = float(len(s.rids))
+            for k, idx in enumerate(order):
+                rid = int(s.rids[idx])
+                acc = out.setdefault(rid, np.zeros((d,), np.float64))
+                acc += (w[k] / tot) * seg_e[:, j]
+        return out
+
+
+# ---------------------------------------------------------------------------
 # Two-stage fleet streams: per-phase integration of closed windows
 # ---------------------------------------------------------------------------
 
@@ -1037,6 +1247,20 @@ class StreamPipeline:
                     break
                 out = self._timed(st2, st2.update, out)
         return self
+
+    def attach_registry(self, registry) -> None:
+        """Expose ``stage_wall_s`` and the window count through a
+        ``health.HealthRegistry`` (the ``pipeline`` source)."""
+        from repro_torch.health.registry import Metric
+
+        def _fn():
+            return [
+                Metric("stage_wall_seconds", dict(self.stage_wall_s),
+                       kind="counter", label="stage"),
+                Metric("pipeline_windows_total", float(self.windows),
+                       kind="counter"),
+            ]
+        registry.register_source("pipeline", _fn)
 
     def reset(self):
         for st in self.stages:
@@ -1202,8 +1426,14 @@ class StreamingFusedPipeline:
     group_sizes: sensors per device, in row order (trailing padding rows
     up to a ROW_ALIGN multiple are ignored).  phases: [(a, b)] in pipeline
     time.  reference: callable(times)->watts in pipeline time for delay
-    tracking; ``track=False`` freezes ``delays``.  ``device=None`` means
-    CUDA.
+    tracking; ``track=False`` freezes ``delays``.  health: True or a
+    ``health.HealthConfig`` composes a ``SensorHealthStage`` between
+    Regrid/Fuse and PhaseAttr (``health_names`` names its sensors);
+    meter: ``SlotSegment``s in pipeline time compose a ``MeteringStage``
+    (``request_energies``); registry: a ``health.HealthRegistry`` gets
+    the ``pipeline``, ``fuse`` and ``data_quality`` sources (and
+    ``health``); dq_policy: a ``DataQualityPolicy`` for Ingest and
+    Regrid/Fuse.  ``device=None`` means CUDA.
     """
 
     def __init__(self, group_sizes, phases, *, grid_origin: float,
@@ -1211,7 +1441,9 @@ class StreamingFusedPipeline:
                  delays=None, reference=None, track: bool = None,
                  window: int = 2048, hop: int = 512, max_lag: int = 64,
                  ema: float = 0.5, min_corr: float = 0.2, tail: int = 256,
-                 var_floor: float = 0.25, dtype=np.float32, device=None):
+                 var_floor: float = 0.25, dtype=np.float32, health=None,
+                 registry=None, health_names=None, meter=None,
+                 dq_policy: DataQualityPolicy = None, device=None):
         self.device = dev = resolve_device(device)
         self.group_sizes = list(group_sizes)
         n = int(sum(self.group_sizes))
@@ -1228,7 +1460,7 @@ class StreamingFusedPipeline:
         if track is None:
             track = delays is None
         self.ingest = IngestStage(n, mode="sanitize", kind_row=kr,
-                                  device=dev)
+                                  dq_policy=dq_policy, device=dev)
         self.reconstruct = ReconstructStage(kr, wp, device=dev)
         self.align = None
         if track:
@@ -1240,15 +1472,100 @@ class StreamingFusedPipeline:
         self.fuse = RegridFuseStage(
             self.group_sizes, grid_origin=grid_origin,
             grid_step=grid_step, delays=delays, align=self.align,
-            tail=tail, var_floor=var_floor, device=dev)
+            tail=tail, var_floor=var_floor, dq_policy=dq_policy,
+            device=dev)
         self.attr = FusedPhaseAttributeStage(phases, self.group_sizes,
+                                             self.fuse, device=dev)
+        self.health_stage = None
+        if health is not None and health is not False:
+            from repro_torch.health.stage import (HealthConfig,
+                                                  SensorHealthStage)
+            hcfg = health if isinstance(health, HealthConfig) else None
+            self.health_stage = SensorHealthStage(
+                self.group_sizes, hcfg, grid_step=grid_step,
+                names=health_names, align=self.align, registry=registry,
+                device=dev)
+            self.fuse.health = self.health_stage
+        self.meter_stage = None
+        if meter:
+            self.meter_stage = MeteringStage(list(meter), self.group_sizes,
                                              self.fuse, device=dev)
         stages = [self.ingest, self.reconstruct]
         if self.align is not None:
             stages.append(self.align)
-        stages += [self.fuse, self.attr]
+        stages += [self.fuse]
+        if self.health_stage is not None:
+            stages.append(self.health_stage)
+        if self.meter_stage is not None:
+            stages.append(self.meter_stage)
+        stages += [self.attr]
         self.pipeline = StreamPipeline(*stages)
+        if registry is not None:
+            self.pipeline.attach_registry(registry)
+            self._attach_fuse_metrics(registry)
+            self._attach_dq_metrics(registry)
         self._dtype = _torch_dtype(dtype)
+
+    def _attach_fuse_metrics(self, registry) -> None:
+        from repro_torch.health.registry import Metric
+        fuse = self.fuse
+
+        def _fn():
+            lag = 0.0
+            if fuse.last_frontier is not None:
+                lag = (fuse.last_frontier
+                       - (fuse.origin + fuse.step
+                          * fuse.carry.next_slot))
+            return [
+                Metric("emit_frontier_lag_s", float(lag),
+                       help="closed stream not yet emitted (s)"),
+                Metric("emitted_slots_total",
+                       float(fuse.carry.next_slot), kind="counter"),
+            ]
+        registry.register_source("fuse", _fn)
+
+    def _attach_dq_metrics(self, registry) -> None:
+        """The ``data_quality`` registry source: ingest repair counters,
+        emitted-window coverage, and the per-window flags (read from the
+        device when the registry is exported, not per window)."""
+        from repro_torch.health.registry import Metric
+        ing, fuse, n = self.ingest, self.fuse, self.n_streams
+
+        def host(t):
+            return np.zeros((n,), np.int64) if t is None \
+                else t[:n].cpu().numpy()
+
+        def per(arr):
+            return {f"r{i}": float(arr[i]) for i in range(n)}
+
+        def _fn():
+            w_late = ing.dq_last.get("late")
+            w_masked = ing.dq_last.get("masked")
+            flags = {
+                "late": float(bool(w_late is not None
+                                   and host(w_late).any())),
+                "dropped": float(bool(w_masked is not None
+                                      and host(w_masked).any())),
+                "low_coverage": float(bool(
+                    host(fuse.dq_low_coverage).any())),
+            }
+            return [
+                Metric("ingest_late_samples_total", per(host(ing.dq_late)),
+                       kind="counter", label="row",
+                       help="reordered/late samples repaired at ingest"),
+                Metric("ingest_dropped_samples_total",
+                       per(host(ing.dq_masked)), kind="counter",
+                       label="row",
+                       help="masked/dropped sample slots at ingest"),
+                Metric("window_coverage_frac",
+                       per(host(fuse.dq_last_coverage)), label="row",
+                       help="last emitted window's covered-slot "
+                            "fraction per stream"),
+                Metric("dq_flag", flags, label="flag",
+                       help="per-window data-quality flags (1 = seen "
+                            "in the latest window)"),
+            ]
+        registry.register_source("data_quality", _fn)
 
     def update(self, times, values, valid=None):
         """Feed one (rows, C) window (numpy or tensors); rows short of the
@@ -1279,6 +1596,14 @@ class StreamingFusedPipeline:
     def weights(self) -> list:
         return self.attr.weights()
 
+    def request_energies(self) -> dict:
+        """{rid: (n_devices,) float64 joules} from the metering stage
+        (needs ``meter=`` slot segments at construction)."""
+        if self.meter_stage is None:
+            raise ValueError("request_energies() needs meter= slot "
+                             "segments")
+        return self.meter_stage.request_energies()
+
     def delays(self) -> torch.Tensor:
         """(n_streams,) per-stream delay in use (tracked or fixed)."""
         if self.align is not None and self.align.carry is not None:
@@ -1294,33 +1619,7 @@ class StreamingFusedPipeline:
         return self
 
 
-# ---------------------------------------------------------------------------
-# Per-request metering schedule (the ``MeteringStage`` itself is not ported)
-# ---------------------------------------------------------------------------
-
-@dataclasses.dataclass(frozen=True)
-class SlotSegment:
-    """One constant-occupancy interval of a serve engine's timeline.
-
-    ``rids``/``tokens`` list the requests concurrently active in
-    ``[t_lo, t_hi)`` and the token weight each contributed (prompt
-    length for prefill segments, decoded steps for decode segments).
-    Segment boundaries fall on every admission/eviction, so occupancy
-    is constant inside a segment and the union of segments tiles the
-    engine's depth-0 phases exactly.
-    """
-    t_lo: float
-    t_hi: float
-    rids: tuple
-    tokens: tuple
-    kind: str = "decode"
-
-    def shifted(self, dt: float) -> "SlotSegment":
-        return dataclasses.replace(self, t_lo=self.t_lo + dt,
-                                   t_hi=self.t_hi + dt)
-
-
-def _unsupported(cfg, registry, meter):
+def _unsupported(cfg):
     """Name the options this port does not run yet (queue A of the
     roadmap), instead of ignoring them."""
     todo = []
@@ -1329,20 +1628,12 @@ def _unsupported(cfg, registry, meter):
     if cfg.checkpoint.dir is not None or cfg.checkpoint.every \
             or cfg.checkpoint.resume:
         todo.append("checkpoint")
-    if cfg.health:
-        todo.append("health")
-    if cfg.dq is not None:
-        todo.append("dq")
     if cfg.stream.host:
         todo.append("host=True")
     if cfg.stream.interpret:
         todo.append("interpret=True")
     if cfg.stream.use_kernel is False:
         todo.append("use_kernel=False")
-    if registry is not None:
-        todo.append("registry")
-    if meter:
-        todo.append("meter")
     if todo:
         raise NotImplementedError(
             "repro_torch's attribute_energy_fused_streaming does not "
@@ -1371,14 +1662,20 @@ def attribute_energy_fused_streaming(trace_groups, phases, *,
     (absolute) pins the output grid.  reference: a ``PiecewisePower``
     (anything with ``power_at``, absolute seconds) or a callable in
     pipeline time.  corrections: a ``core.calibration.Corrections``,
-    applied per trace before packing.  ``on_window(pipe, w)`` fires
-    after window ``w``.  device: None means CUDA (raises without a
-    card); pass "cpu" for the plain PyTorch versions of the kernels.
+    applied per trace before packing.  ``PipelineConfig.health`` (True
+    or a ``health.HealthConfig``) composes the health stage and
+    ``PipelineConfig.dq`` (a ``DataQualityPolicy``) the data-quality
+    policy; registry: a ``health.HealthRegistry`` for telemetry export;
+    meter: ``SlotSegment``s (absolute seconds, like phases) compose a
+    ``MeteringStage`` (``pipe.request_energies()`` with
+    ``return_pipe=True``).  ``on_window(pipe, w)`` fires after window
+    ``w``.  device: None means CUDA (raises without a card); pass "cpu"
+    for the plain PyTorch versions of the kernels.
     """
     from repro_torch.core.attribution import PhaseEnergy
     cfg = resolve_config(config, legacy,
                          "attribute_energy_fused_streaming")
-    _unsupported(cfg, registry, meter)
+    _unsupported(cfg)
     dev = resolve_device(device)
     chunk = cfg.stream.chunk
     grid, grid_step = cfg.stream.grid, cfg.stream.grid_step
@@ -1417,12 +1714,16 @@ def attribute_energy_fused_streaming(trace_groups, phases, *,
     if not phases:
         return [[] for _ in groups]
     windows = [(a - rows.t0, b - rows.t0) for _, a, b in phases]
+    if meter:
+        meter = [s.shifted(-rows.t0) for s in meter]
     pipe = StreamingFusedPipeline(
         [len(g) for g in groups], windows, grid_origin=origin,
         grid_step=grid_step, kind_row=rows.kind_row, delays=delays,
         reference=ref, track=track, window=cfg.track.window,
         hop=cfg.track.hop, max_lag=cfg.track.max_lag, ema=cfg.track.ema,
-        tail=tail, var_floor=var_floor, dtype=dtype, device=dev)
+        tail=tail, var_floor=var_floor, dtype=dtype, health=cfg.health,
+        registry=registry, health_names=[tr.name for tr in flat],
+        meter=meter, dq_policy=cfg.dq, device=dev)
     for w, (t_blk, v_blk) in enumerate(
             stream_row_windows(rows, chunk, cadence=cadence), start=1):
         pipe.update(t_blk, v_blk)

@@ -13,13 +13,16 @@ regions (admission/prefill/decode, the attribution phases) and
 slot-scoped depth-1 regions carrying the slot id and request id.  The
 engine also records a ``SlotSegment`` schedule, one entry per
 constant-occupancy interval with timestamps identical to the depth-0
-regions.
+regions; ``attribute_requests`` splits fused energy over that schedule
+through the fleet pipeline's ``MeteringStage`` (per-request bills that
+conserve against ``attribute_phases`` totals).  A ``HealthRegistry``
+given as ``registry=`` exports the scheduler gauges and the rolling
+J/request percentiles.
 
 ``FixedBatchEngine`` keeps the serve-to-completion baseline.  On the
 card, each admission's prefill runs the ``flash_attention`` kernel in
 every attention layer and the ``selective_scan`` kernel in every Mamba
-layer.  Per-request metering (``attribute_requests``) needs the
-fleet pipeline's ``MeteringStage`` and is not ported yet (ROADMAP A5).
+layer.
 """
 from __future__ import annotations
 
@@ -36,6 +39,8 @@ from repro_torch.core.tracing import RegionTracer
 from repro_torch.device import refuse_unported, resolve_device, wait
 from repro_torch.fleet.pipeline import SlotSegment
 from repro_torch.models import Model
+from repro_torch.serve.metering import (RequestEnergy, RequestEnergyReport,
+                                        RollingPercentiles)
 
 
 @dataclasses.dataclass
@@ -128,19 +133,19 @@ class _AttributionMixin:
         sensor observing each device and attributes on the fused streams
         (the batch ``align.attribute_energy_fused``, or the windowed
         pipeline with ``streaming=True``); returns {device:
-        [PhaseEnergy]}.  Not ported: ``shard``/``collectives`` (ROADMAP
-        A9) and ``health``/``registry`` (ROADMAP A5).
+        [PhaseEnergy]}.  ``health`` (streaming only) composes the
+        ``health.SensorHealthStage`` into the pipeline (True or a
+        ``HealthConfig``); ``registry`` (a ``HealthRegistry``, defaulting
+        to the engine's own) collects the health and pipeline metrics.
+        Not ported: ``shard``/``collectives`` (ROADMAP A9).
         """
         refuse_unported("attribute_phases", collectives=collectives,
                         shard=shard, item="A9")
-        if registry is not None or health not in (_UNSET, None, False):
-            raise NotImplementedError(
-                "repro_torch's attribute_phases does not support "
-                "health/registry yet (ROADMAP A5)")
+        reg = registry if registry is not None else self.registry
         phases = [(n, a + t_shift, b + t_shift)
                   for n, a, b in self.tracer.phases(depth=depth)]
         legacy = _explicit(chunk=chunk, track=track, delays=delays,
-                           engine=engine)
+                           engine=engine, health=health)
         if fuse:
             if not isinstance(traces, dict):
                 raise TypeError("fuse=True groups by sensor name and needs "
@@ -154,7 +159,7 @@ class _AttributionMixin:
                 rows = attribute_energy_fused_streaming(
                     list(groups.values()), phases, config=config,
                     corrections=corrections, reference=reference,
-                    device=self.device, **legacy)
+                    registry=reg, device=self.device, **legacy)
             else:
                 if config is not None:
                     raise ValueError("config= drives the streaming "
@@ -185,7 +190,9 @@ class ServeEngine(_AttributionMixin):
     transfer per segment; also the admission cadence).
     prefill_bucket: round prompt lengths up to a multiple (left-padded;
     the pad tokens are attended over, as in the reference); 1 keeps
-    exact lengths.  device: None means CUDA; ``params`` must be there.
+    exact lengths.  registry: a ``health.HealthRegistry`` that exports
+    the tracer buffer, the scheduler gauges and the rolling J/request
+    percentiles.  device: None means CUDA; ``params`` must be there.
     """
 
     def __init__(self, model: Model, params, *, batch_slots=4,
@@ -194,10 +201,8 @@ class ServeEngine(_AttributionMixin):
                  prefill_bucket=1, device=None):
         if not greedy:
             raise NotImplementedError("only greedy decoding is supported")
-        if registry is not None:
-            raise NotImplementedError("repro_torch's ServeEngine does not "
-                                      "support registry yet (ROADMAP A5)")
         self.device = _engine_device(params, device)
+        self.registry = registry
         self.model = model
         self.params = params
         self.slots = int(batch_slots)
@@ -219,6 +224,14 @@ class ServeEngine(_AttributionMixin):
         self.requests_served = 0
         self.tokens_emitted = 0
         self.segments: list = []        # SlotSegment metering schedule
+        # gauges / counters (exported via HealthRegistry.track_serve)
+        self.queue_depth = 0
+        self.active_slots = 0
+        self.meter_rolling = RollingPercentiles()
+        self._requests: dict = {}
+        if registry is not None:
+            registry.track_tracer("serve", self.tracer)
+            registry.track_serve("serve", self)
 
     # -- plumbing ---------------------------------------------------------
 
@@ -323,6 +336,7 @@ class ServeEngine(_AttributionMixin):
         for r in reqs:
             r.t_arrival = t_run0 + (r.arrival_s if respect_arrivals
                                     else 0.0)
+            self._requests[r.rid] = r
         if respect_arrivals:
             reqs.sort(key=lambda r: (r.arrival_s, r.rid))
         queue = collections.deque(reqs)
@@ -353,26 +367,93 @@ class ServeEngine(_AttributionMixin):
                 remaining[i] = r.max_new_tokens - 1   # 1 pending token
                 active[i] = True
                 pend_fresh[i] = True
+            self.queue_depth = len(queue)
+            self.active_slots = int(active.sum())
             if not active.any():
                 continue
             k = int(min(self.flush_interval, remaining[active].min()))
             self._decode_segment(k, slot_req, pos, remaining, active,
                                  pend_fresh, results)
+            self.active_slots = int(active.sum())
+        self.queue_depth = 0
+        self.active_slots = 0
         return results
 
-    def attribute_requests(self, traces, **kw):
-        """Per-request energy bills: they split fused energy through the
-        fleet pipeline's ``MeteringStage``, which is not ported yet."""
-        raise NotImplementedError(
-            "repro_torch's ServeEngine.attribute_requests needs the "
-            "metering stage (ROADMAP A5)")
+    def slot_schedule(self) -> list:
+        """The recorded ``SlotSegment`` schedule (metering input)."""
+        return list(self.segments)
+
+    # -- per-request energy ----------------------------------------------
+
+    def attribute_requests(self, traces, *, corrections=None,
+                           t_shift=0.0, config=None, chunk=_UNSET,
+                           reference=None, track=_UNSET,
+                           delays=_UNSET, health=_UNSET,
+                           registry=None) -> RequestEnergyReport:
+        """Split fused phase energy across requests -> energy bills.
+
+        Runs the windowed fused pipeline on the engine's device with the
+        slot-segment schedule composed as a ``MeteringStage``: each
+        segment's energy is divided across its concurrently-active
+        requests by token-weighted occupancy.  Returns a
+        ``RequestEnergyReport`` (J/request, J/token, percentiles,
+        per-user aggregates); the rolling J/request percentiles update
+        the engine's registry gauges, and the report is appended to the
+        ``REPRO_METER_LOG_DIR`` JSONL artifact when that is set.
+        Per-request energies sum to the ``attribute_phases(fuse=True,
+        streaming=True)`` totals within 1e-5 (the segments tile the
+        depth-0 phases exactly).
+        """
+        if not isinstance(traces, dict):
+            raise TypeError("per-request metering fuses by device and "
+                            "needs dict input")
+        from repro_torch.align import group_traces_by_device
+        from repro_torch.fleet.config import resolve_config
+        from repro_torch.fleet.pipeline import (
+            attribute_energy_fused_streaming)
+        reg = registry if registry is not None else self.registry
+        phases = [(n, a + t_shift, b + t_shift)
+                  for n, a, b in self.tracer.phases(depth=0)]
+        segs = [s.shifted(t_shift) for s in self.segments]
+        cfg = resolve_config(config,
+                             _explicit(chunk=chunk, track=track,
+                                       delays=delays, health=health),
+                             "attribute_requests")
+        groups = group_traces_by_device(traces)
+        _, pipe = attribute_energy_fused_streaming(
+            list(groups.values()), phases, corrections=corrections,
+            reference=reference, config=cfg, registry=reg, meter=segs,
+            return_pipe=True, device=self.device)
+        energies = pipe.request_energies()
+        entries = []
+        for rid in sorted(energies):
+            e = energies[rid]
+            ej = float(np.sum(e))
+            r = self._requests.get(rid)
+            tokens = ((len(r.prompt) + len(r.generated))
+                      if r is not None else 0)
+            entries.append(RequestEnergy(
+                rid=rid, energy_j=ej,
+                energy_by_device=[float(x) for x in e], tokens=tokens,
+                j_per_token=ej / max(tokens, 1),
+                user=r.user if r is not None else "",
+                ttft_s=r.ttft_s if r is not None else math.nan,
+                latency_s=r.latency_s if r is not None else math.nan))
+        report = RequestEnergyReport(
+            entries, pipe.meter_stage.segment_totals())
+        for re_ in report.requests:
+            self.meter_rolling.add(re_.energy_j)
+        report.maybe_write_jsonl()
+        return report
 
 
 class FixedBatchEngine(_AttributionMixin):
     """The serve-to-completion baseline: fixed batches, the cache
     re-initialized per batch, dummy padding slots zero-masked, and the
     decoded tokens drained from a device-side buffer once per
-    ``flush_interval`` steps (``host_transfers`` counts the drains)."""
+    ``flush_interval`` steps (``host_transfers`` counts the drains).
+    registry: a ``health.HealthRegistry`` that exports the tracer
+    buffer."""
 
     def __init__(self, model: Model, params, *, batch_slots=4,
                  max_len=512, tracer: Optional[RegionTracer] = None,
@@ -380,17 +461,16 @@ class FixedBatchEngine(_AttributionMixin):
                  device=None):
         if not greedy:
             raise NotImplementedError("only greedy decoding is supported")
-        if registry is not None:
-            raise NotImplementedError("repro_torch's FixedBatchEngine does "
-                                      "not support registry yet (ROADMAP "
-                                      "A5)")
         self.device = _engine_device(params, device)
         self.model = model
         self.params = params
         self.slots = int(batch_slots)
         self.max_len = int(max_len)
         self.tracer = tracer or RegionTracer()
+        self.registry = registry
         self.flush_interval = max(int(flush_interval), 1)
+        if registry is not None:
+            registry.track_tracer("serve", self.tracer)
         self.cache = model.init_cache(self.slots, self.max_len,
                                       device=self.device)
         self.host_transfers = 0

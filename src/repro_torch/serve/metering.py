@@ -4,7 +4,7 @@ port's copy of ``repro/serve/metering.py``; numpy only).
 The fleet pipeline's ``MeteringStage`` splits every fused slot-segment
 energy across the requests concurrently active in it (token-weighted
 occupancy, float64 left folds — see ``fleet.pipeline.MeteringStage``
-for the determinism rule; that stage is not ported yet, ROADMAP A5).
+for the determinism rule).
 This module turns that raw ``{rid: (n_devices,) J}`` map into the
 billing-facing API: J/request, J/token, rolling percentiles, per-user
 aggregates and the JSONL artifact trail (``REPRO_METER_LOG_DIR``,

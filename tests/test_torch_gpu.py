@@ -651,3 +651,114 @@ def test_cuda_attention_refuses_what_has_no_kernel():
     with pytest.raises(NotImplementedError, match="A4b"):
         attention(q, q, q, kv_len_mask=torch.ones((1, 8), dtype=torch.bool,
                                                   device=dev))
+
+
+def _health_groups(n_devices, faults, span_s=2.5):
+    """The repo's test recipe on the port's own simulator (no JAX): per
+    device a wrapping counter and a noisy power sensor, with faults
+    injected by name."""
+    from repro_torch.core import (FaultSpec, SensorSpec, ToolSpec,
+                                  inject_fault, simulate_sensor,
+                                  square_wave)
+    truth = square_wave(span_s / 4.0, 3, lead_s=span_s / 8,
+                        tail_s=span_s / 8)
+    groups, delays = [], []
+    for d in range(n_devices):
+        specs = [SensorSpec(name=f"d{d}_energy", scope="chip",
+                            kind="energy_cum", quantum=1e-6, wrap_bits=26,
+                            delay_s=0.004 * (d % 5)),
+                 SensorSpec(name=f"d{d}_power", scope="chip",
+                            kind="power_inst", noise_w=3.0, quantum=1e-6,
+                            delay_s=0.011 + 0.003 * (d % 3))]
+        trs = [simulate_sensor(sp, ToolSpec(0.9e-3), truth,
+                               seed=31 * d + i) for i, sp in enumerate(specs)]
+        groups.append([inject_fault(tr, FaultSpec(**faults[tr.name]))
+                       if tr.name in faults else tr for tr in trs])
+        delays += [sp.delay_s for sp in specs]
+    return truth, groups, delays
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("faults", [
+    {}, {"d1_power": dict(kind="stuck", t_start=1.0)},
+    {"d2_power": dict(kind="step_drift", t_start=0.7, t_end=1.6,
+                      magnitude_w=40.0)}],
+    ids=["healthy", "stuck", "recovery"])
+def test_cuda_health_matches_cpu(faults):
+    """The health stage on the card (statistics block on the device)
+    against the CPU plain versions: the same state sequences and events,
+    energies within 1e-5; all-healthy totals equal the plain chain's."""
+    import numpy as np
+    from repro_torch.fleet import (PipelineConfig, StreamConfig,
+                                   TrackConfig,
+                                   attribute_energy_fused_streaming)
+    from repro_torch.health import HealthConfig
+    dev = _cuda()
+    truth, groups, delays = _health_groups(3, faults)
+    edges = np.linspace(truth.t0 + 0.05, truth.t1 - 0.05, 7)
+    phases = [(f"p{k}", float(a), float(b))
+              for k, (a, b) in enumerate(zip(edges[:-1], edges[1:]))]
+    hcfg = HealthConfig(suspect_after=1, quarantine_after=1,
+                        recover_after=1, rms_limit_w=60.0)
+    cfg = PipelineConfig(stream=StreamConfig(chunk=257),
+                         track=TrackConfig(track=False, delays=delays),
+                         health=hcfg)
+    res = {}
+    for d in (dev, "cpu"):
+        out, pipe = attribute_energy_fused_streaming(
+            groups, phases, config=cfg, return_pipe=True, device=d)
+        e = np.array([[p.energy_j for p in row] for row in out])
+        res[str(d)] = (e, pipe.health_stage)
+    (e, hs), (ec, hc) = res[str(dev)], res["cpu"]
+    ev = [(x.kind, x.window, x.name, x.state_from, x.state_to, x.flags)
+          for x in hs.events]
+    assert ev == [(x.kind, x.window, x.name, x.state_from, x.state_to,
+                   x.flags) for x in hc.events]
+    assert (hs.state == hc.state).all() and hs.windows == hc.windows
+    assert bool(faults) == bool(ev)
+    assert (np.abs(e - ec) <= 1e-5 * np.maximum(np.abs(ec), 1.0)).all()
+    if not faults:
+        plain = attribute_energy_fused_streaming(
+            groups, phases, config=PipelineConfig(
+                stream=cfg.stream, track=cfg.track), device=dev)
+        assert (e == np.array([[p.energy_j for p in row]
+                               for row in plain])).all()
+
+
+@pytest.mark.gpu
+def test_cuda_metering_conserves_and_ignores_slot_order():
+    """Per-request energies on the card: bit-identical under a
+    permutation of the slot schedule, summing to the segment totals
+    (1e-12) and within 1e-5 of the CPU plain versions'."""
+    import numpy as np
+    from repro_torch.align import group_traces_by_device
+    from repro_torch.core import NodeFabric, ToolSpec, square_wave
+    from repro_torch.fleet import (PipelineConfig, SlotSegment,
+                                   TrackConfig,
+                                   attribute_energy_fused_streaming)
+    dev = _cuda()
+    truth = square_wave(1.0, 2, lead_s=0.5, tail_s=0.5)
+    traces = NodeFabric(chip_truths=[truth] * 2).sample_all(ToolSpec(),
+                                                            seed=0)
+    groups = list(group_traces_by_device(traces).values())
+    phases = [("work", 0.5, 1.2), ("work", 1.2, 2.0)]
+    segs_a = [SlotSegment(0.5, 1.2, (0, 1, 2), (3.0, 1.0, 2.0)),
+              SlotSegment(1.2, 2.0, (1, 2), (2.0, 5.0))]
+    segs_b = [SlotSegment(1.2, 2.0, (2, 1), (5.0, 2.0)),
+              SlotSegment(0.5, 1.2, (2, 0, 1), (2.0, 3.0, 1.0))]
+    cfg = PipelineConfig(track=TrackConfig(track=False))
+    got = {}
+    for key, segs, d in (("a", segs_a, dev), ("b", segs_b, dev),
+                         ("cpu", segs_a, "cpu")):
+        _, pipe = attribute_energy_fused_streaming(
+            groups, phases, config=cfg, meter=segs, return_pipe=True,
+            device=d)
+        got[key] = (pipe.request_energies(),
+                    pipe.meter_stage.segment_totals())
+    (a, seg), (b, _), (c, _) = got["a"], got["b"], got["cpu"]
+    assert sorted(a) == sorted(b) == sorted(c) == [0, 1, 2]
+    for rid in a:
+        assert np.array_equal(a[rid], b[rid]), rid
+        np.testing.assert_allclose(a[rid], c[rid], rtol=1e-5)
+    np.testing.assert_allclose(np.sum([a[r] for r in a], axis=0),
+                               seg.sum(axis=1), rtol=1e-12)

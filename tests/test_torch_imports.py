@@ -129,13 +129,16 @@ def test_serve_module_imports_with_jax_and_repro_blocked(module):
 
 def test_serve_entry_points_default_to_cuda(monkeypatch):
     """The serving path's entry points ask for the card without
-    ``device=``; with no card they raise instead of running on the CPU,
-    and the B9/B10 ops never take their plain version for a tensor that
-    is not on the CPU."""
+    ``device=``; with no card they raise instead of running on the CPU
+    (``attribute_requests`` runs where its engine was put), and the
+    B9/B10 ops never take their plain version for a tensor that is not
+    on the CPU."""
     from repro_torch.configs import get_arch, reduced
+    from repro_torch.fleet import PipelineConfig, SlotSegment, TrackConfig
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssm_scan import selective_scan
     from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.serve import serve_traces
     from repro_torch.models import Model
     from repro_torch.serve import FixedBatchEngine, ServeEngine
     model = Model(reduced(get_arch("llama3.2-3b")))
@@ -148,6 +151,20 @@ def test_serve_entry_points_default_to_cuda(monkeypatch):
                  lambda: serve_main([])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    # attribute_requests takes its engine's device: an engine the caller
+    # put on the CPU meters there, with no card (a fixed 1 s timeline)
+    eng = ServeEngine(model, params, batch_slots=2, max_len=32,
+                      device="cpu")
+    for name, a, b in (("admission", 0.0, 0.01), ("prefill", 0.01, 0.3),
+                       ("decode", 0.3, 1.0)):
+        eng.tracer.add_region(name, a, b)
+    eng.segments = [SlotSegment(0.0, 0.01, (0,), (1.0,), "admission"),
+                    SlotSegment(0.01, 0.3, (0,), (4.0,), "prefill"),
+                    SlotSegment(0.3, 1.0, (0, 1), (3.0, 2.0))]
+    traces, _, _ = serve_traces(eng.tracer.phases(depth=0), n_chips=1)
+    report = eng.attribute_requests(traces, t_shift=0.05, config=(
+        PipelineConfig(track=TrackConfig(track=False))))
+    assert sorted(r.rid for r in report.requests) == [0, 1]
     q = torch.zeros((1, 2, 8, 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention(q, q, q)
@@ -155,6 +172,60 @@ def test_serve_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(ValueError, match="unsupported device"):
         selective_scan(x, x, x[..., :4], x[..., :4], x[0, :, :4],
                        x[:, :, :4])
+
+
+_CORE_HEALTH_MODULES = ("repro_torch.core.characterization",
+                        "repro_torch.core.confidence",
+                        "repro_torch.core.aliasing",
+                        "repro_torch.core.trace_format",
+                        "repro_torch.core.reconstruction",
+                        "repro_torch.core.sensors",
+                        "repro_torch.align.fusion",
+                        "repro_torch.health", "repro_torch.health.events",
+                        "repro_torch.health.registry",
+                        "repro_torch.health.stage")
+
+
+@pytest.mark.parametrize("module", _CORE_HEALTH_MODULES)
+def test_core_and_health_module_imports_with_jax_and_repro_blocked(module):
+    """Each module of the sensor-characterization core and the health
+    package loads on its own with JAX and the reference blocked."""
+    test_case_study_module_imports_with_jax_and_repro_blocked(module)
+
+
+def test_health_and_metering_entry_points_default_to_cuda(monkeypatch):
+    """The new device-taking entry points ask for the card without
+    ``device=``: the stacked node view's chip counters, the health and
+    metering stages, the windowed path with health and meter; with no
+    card each raises.  ``attribute_requests`` runs on its engine's
+    device, and the engine itself refuses to start without a card."""
+    from repro_torch.core import (NodeFabric, ToolSpec, square_wave,
+                                  stacked_node_power)
+    from repro_torch.fleet import (MeteringStage, PipelineConfig,
+                                   RegridFuseStage, SlotSegment,
+                                   attribute_energy_fused_streaming)
+    from repro_torch.health import SensorHealthStage
+    truth = square_wave(0.2, 2, lead_s=0.1, tail_s=0.1)
+    traces = NodeFabric(chip_truths=[truth]).sample_all(ToolSpec(1e-2))
+    grid = np.arange(0.1, 0.5, 0.01)
+    host = stacked_node_power(traces, grid, use_fleet=False)
+    fuse = RegridFuseStage([2], grid_origin=0.0, grid_step=1e-3,
+                           device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert host["components"]
+    seg = SlotSegment(0.0, 0.1, (0,), (1.0,))
+    for call in (
+            lambda: stacked_node_power(traces, grid),
+            lambda: SensorHealthStage([2], grid_step=1e-3),
+            lambda: MeteringStage([seg], [2], fuse),
+            lambda: attribute_energy_fused_streaming(
+                [[traces["chip0_energy"]]], [("p", 0.1, 0.4)],
+                config=PipelineConfig(health=True)),
+            lambda: attribute_energy_fused_streaming(
+                [[traces["chip0_energy"]]], [("p", 0.1, 0.4)],
+                meter=[seg])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_port_sources_name_neither_jax_nor_repro():

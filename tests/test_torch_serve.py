@@ -1,9 +1,11 @@
 """PyTorch port, serving: the continuous-batching ``ServeEngine`` and the
 ``FixedBatchEngine`` against the JAX reference's on the same weights and
 requests (float32, so greedy tokens must be identical), the load
-generator, the phase attribution of a served timeline, the launcher and
-the options that are not ported."""
+generator, the phase attribution of a served timeline (with health and
+the registry), per-request metering, the launcher and the options that
+are not ported."""
 import dataclasses
+import json
 import math
 
 import jax
@@ -244,19 +246,239 @@ def test_attribute_phases_fused_windowed_matches_reference():
 
 def test_unported_serve_options_raise_naming_the_roadmap():
     _, _, eng, port_traces, _ = _served_fabric()
-    with pytest.raises(NotImplementedError, match="A5"):
-        eng.attribute_requests(port_traces)
     with pytest.raises(NotImplementedError, match="A9"):
         eng.attribute_phases(port_traces, fuse=True, streaming=True,
                              shard=object(), collectives=object())
-    with pytest.raises(NotImplementedError, match="A5"):
-        eng.attribute_phases(port_traces, registry=object())
-    with pytest.raises(NotImplementedError, match="A5"):
-        eng.attribute_phases(port_traces, fuse=True, streaming=True,
-                             health=True)
+
+
+# ---------------------------------------------- per-request metering
+
+# seconds per depth-0 region on the fixed timeline (decode: per step)
+_SECONDS = {"admission": 0.004, "prefill": 0.06, "decode": 0.02}
+
+
+def _fixed_timeline(engine):
+    """Replace a reference engine's measured timeline with a fixed one:
+    every boundary of its depth-0 regions is moved so that each region
+    lasts ``_SECONDS`` of its kind (decode: per step of its segment) and
+    each host gap 2 ms, keeping the order, the slot-scoped regions and
+    the slot schedule (which share those boundaries).  The served tokens
+    do not depend on time; the attributed energies then do not depend
+    on how loaded the machine was."""
+    from repro.core.tracing import RegionTracer as JaxTracer
+    ev0 = sorted((e for e in engine.tracer.events if e.depth == 0),
+                 key=lambda e: e.t_start)
+    steps = {(sg.t_lo, sg.t_hi): max(sg.tokens) for sg in engine.segments
+             if sg.kind == "decode"}
+    new, t = {}, 0.1
+    for e in ev0:
+        t = new.setdefault(e.t_start, t + (0.002 if new else 0.0))
+        dur = _SECONDS[e.name] * (steps[(e.t_start, e.t_end)]
+                                  if e.name == "decode" else 1.0)
+        t = new.setdefault(e.t_end, t + dur)
+    tracer = JaxTracer(timebase=lambda: 0.0)
+    tracer.t0 = 0.0
+    for e in engine.tracer.events:
+        tracer.add_region(e.name, new[e.t_start], new[e.t_end],
+                          depth=e.depth, device=e.device, step=e.step,
+                          slot=e.slot)
+    engine.tracer = tracer
+    engine.segments = [dataclasses.replace(sg, t_lo=new[sg.t_lo],
+                                           t_hi=new[sg.t_hi])
+                       for sg in engine.segments]
+
+
+def _metered():
+    """The reference's engine and the port's on the same weights and
+    requests (so the same prompts and tokens), on a fixed timeline; the
+    port's engine holds the reference's timeline and slot schedule, so
+    both meter the same segments, on a two-chip fabric that follows
+    them.  Each engine has its own registry."""
+    if "metered" not in _CACHE:
+        from repro.health import HealthRegistry as JaxRegistry
+        from repro_torch.fleet import SlotSegment
+        from repro_torch.health import HealthRegistry
+        jm, params, tm, tp = _setup()
+        vocab = jm.cfg.vocab_size
+        kw = dict(batch_slots=2, max_len=32, flush_interval=3)
+        jreg, reg = JaxRegistry(), HealthRegistry()
+        ref = JaxServeEngine(jm, params, registry=jreg, **kw)
+        jreqs = _reqs(JaxRequest, vocab, _LENS, _NEW)
+        treqs = _reqs(Request, vocab, _LENS, _NEW)
+        for i, (a, b) in enumerate(zip(jreqs, treqs)):
+            a.user = b.user = f"user{i % 2}"
+        ref.run(jreqs)
+        _fixed_timeline(ref)
+        eng = ServeEngine(tm, tp, registry=reg, device=CPU, **kw)
+        eng.run(treqs)
+        eng.tracer = interop.tracer_from_arrays(ref.tracer.to_arrays())
+        eng.segments = [SlotSegment(**dataclasses.asdict(sg))
+                        for sg in ref.segments]
+        lead = 0.05
+        occ = {"admission": (0.0, 0.05, 0.0), "prefill": (1.0, 0.5, 0.1),
+               "decode": (0.15, 1.0, 0.1)}
+        shifted = [(n, a + lead, b + lead)
+                   for n, a, b in ref.tracer.phases(depth=0)]
+        watts = {n: {"watts": jax_occupancy_power(*occ[n])}
+                 for n, _, _ in shifted}
+        truth = jax_phase_power([("__lead__", 0.0, lead)] + shifted
+                                + [("__tail__", shifted[-1][2],
+                                    shifted[-1][2] + 0.1)],
+                                {**watts, "__lead__": {"watts": 55.0},
+                                 "__tail__": {"watts": 55.0}})
+        traces = JaxNodeFabric(chip_truths=[truth] * 2).sample_all(
+            JaxToolSpec(), seed=0)
+        port_traces = {k: interop.trace_from_fields(
+            tr.name, dataclasses.asdict(tr.spec), tr.t_read, tr.t_measured,
+            tr.value) for k, tr in traces.items()}
+        _CACHE["metered"] = (ref, jreg, traces, eng, reg, port_traces,
+                             lead)
+    return _CACHE["metered"]
+
+
+def test_attribute_requests_matches_reference_and_conserves(tmp_path,
+                                                             monkeypatch):
+    """Every request billed, within 1e-5 of the reference's bill; the
+    bills sum to the port's fused phase totals within 1e-5 and to the
+    metering stage's segment totals within 1e-9; the registry's serve
+    gauges and the JSONL artifact; a second attribution bit-identical."""
+    from repro_torch.serve import METER_LOG_ENV
+    ref, jreg, traces, eng, reg, port_traces, lead = _metered()
+    with pytest.warns(DeprecationWarning):
+        want = ref.attribute_requests(traces, t_shift=lead, track=False)
+    with monkeypatch.context() as m:
+        m.setenv(METER_LOG_ENV, str(tmp_path))
+        with pytest.warns(DeprecationWarning):
+            got = eng.attribute_requests(port_traces, t_shift=lead,
+                                         track=False)
+    assert [r.rid for r in got.requests] == \
+        [r.rid for r in want.requests] == list(range(len(_LENS)))
+    for g, w in zip(got.requests, want.requests):
+        assert g.energy_j > 0.0 and g.tokens == w.tokens
+        assert abs(g.energy_j - w.energy_j) <= 1e-5 * abs(w.energy_j)
+        assert g.user == w.user
+        assert g.j_per_token == pytest.approx(g.energy_j / g.tokens)
+    assert got.segment_totals.shape == want.segment_totals.shape
+    with pytest.warns(DeprecationWarning):
+        fused = eng.attribute_phases(port_traces, t_shift=lead, fuse=True,
+                                     streaming=True, track=False)
+    phase_totals = np.asarray([[p.energy_j for p in row]
+                               for row in fused.values()])
+    assert got.conservation_rel_err(phase_totals) <= 1e-5
+    assert got.conservation_rel_err(got.segment_totals) <= 1e-9
+    assert set(got.per_user()) == {"user0", "user1"}
+    snap, jsnap = reg.json_snapshot(), jreg.json_snapshot()
+    for k in ("serve_requests_total", "serve_tokens_total",
+              "serve_queue_depth", "serve_active_slots"):
+        assert snap[k] == jsnap[k]
+    assert snap["meter_j_per_request"]["p50"] > 0.0
+    assert "repro_meter_j_per_request" in reg.prometheus_text()
+    files = list(tmp_path.glob("request-energies-*.jsonl"))
+    assert len(files) == 1
+    lines = [json.loads(ln) for ln in files[0].read_text().splitlines()]
+    assert [ln["rid"] for ln in lines] == list(range(len(_LENS)))
+    with pytest.warns(DeprecationWarning):
+        again = eng.attribute_requests(port_traces, t_shift=lead,
+                                       track=False)
+    for r1, r2 in zip(got.requests, again.requests):
+        assert r1.energy_by_device == r2.energy_by_device, r1.rid
+
+
+def _permuted_meters(pkg, fleet, stream, traces, device):
+    groups = list(pkg.group_traces_by_device(traces).values())
+    phases = [("work", 0.5, 1.2), ("work", 1.2, 2.0)]
+    segs_a = [fleet.SlotSegment(0.5, 1.2, (0, 1, 2), (3.0, 1.0, 2.0)),
+              fleet.SlotSegment(1.2, 2.0, (1, 2), (2.0, 5.0))]
+    segs_b = [fleet.SlotSegment(1.2, 2.0, (2, 1), (5.0, 2.0)),
+              fleet.SlotSegment(0.5, 1.2, (2, 0, 1), (2.0, 3.0, 1.0))]
+    out = []
+    for segs in (segs_a, segs_b):
+        with pytest.warns(DeprecationWarning):
+            _, pipe = stream(groups, phases, meter=segs, track=False,
+                             return_pipe=True, **device)
+        out.append(pipe.request_energies())
+    return out, pipe
+
+
+def test_metering_deterministic_under_permutation():
+    """Bit-identical per-request energies under slot-assignment
+    permutations (segment order and within-segment rid order), shares
+    that conserve, and bills within 1e-5 of the reference's."""
+    import repro.align as jalign
+    import repro.fleet.pipeline as jfleet
+    import repro_torch.align as talign
+    import repro_torch.fleet.pipeline as tfleet
+    from repro.core import NodeFabric as JFabric
+    from repro.core import ToolSpec as JTool
+    from repro.core import square_wave as jsq
+    truth = jsq(1.0, 2, lead_s=0.5, tail_s=0.5)
+    traces = JFabric(chip_truths=[truth] * 2).sample_all(JTool(), seed=0)
+    port_traces = {k: interop.trace_from_fields(
+        tr.name, dataclasses.asdict(tr.spec), tr.t_read, tr.t_measured,
+        tr.value) for k, tr in traces.items()}
+    (a, b), pipe = _permuted_meters(
+        talign, tfleet, tfleet.attribute_energy_fused_streaming,
+        port_traces, {"device": CPU})
+    (ja, _), _ = _permuted_meters(
+        jalign, jfleet, jfleet.attribute_energy_fused_streaming, traces, {})
+    assert sorted(a) == sorted(b) == sorted(ja) == [0, 1, 2]
+    for rid in a:
+        assert np.array_equal(a[rid], b[rid]), rid
+        np.testing.assert_allclose(a[rid], ja[rid], rtol=1e-5)
+    tot = np.sum([a[r] for r in a], axis=0)
+    seg_tot = pipe.meter_stage.segment_totals().sum(axis=1)
+    np.testing.assert_allclose(tot, seg_tot, rtol=1e-12)
+
+
+def test_attribute_phases_health_and_registry_match_reference():
+    """``health=`` composes the health stage into the windowed path and
+    ``registry=`` collects its metrics; the energies match the
+    reference's and, all sensors healthy, equal the plain run's."""
+    from repro.health import HealthRegistry as JaxRegistry
+    from repro_torch.health import HealthRegistry
+    ref, _, traces, eng, _, port_traces, lead = _metered()
+    jreg, reg = JaxRegistry(), HealthRegistry()
+    kw = dict(t_shift=lead, fuse=True, streaming=True, track=False,
+              health=True)
+    with pytest.warns(DeprecationWarning):
+        want = ref.attribute_phases(traces, registry=jreg, **kw)
+    with pytest.warns(DeprecationWarning):
+        got = eng.attribute_phases(port_traces, registry=reg, **kw)
+    with pytest.warns(DeprecationWarning):
+        plain = eng.attribute_phases(port_traces, t_shift=lead, fuse=True,
+                                     streaming=True, track=False)
+    assert list(got) == list(want)
+    _energy_close(got.values(), want.values())
+    for a, b in zip(got.values(), plain.values()):
+        assert [p.energy_j for p in a] == [p.energy_j for p in b]
+    snap, jsnap = reg.json_snapshot(), jreg.json_snapshot()
+    assert snap["sensor_state"] == jsnap["sensor_state"]
+    assert snap["health_windows_total"] == jsnap["health_windows_total"]
+    assert snap["quarantined_sensors"] == 0.0
+
+
+def test_engines_register_their_sources():
+    from repro_torch.health import HealthRegistry
     _, _, tm, tp = _setup()
-    with pytest.raises(NotImplementedError, match="A5"):
-        ServeEngine(tm, tp, registry=object(), device=CPU)
+    reg = HealthRegistry()
+    fixed = FixedBatchEngine(tm, tp, batch_slots=2, max_len=32,
+                             registry=reg, device=CPU)
+    fixed.run(_reqs(Request, tm.cfg.vocab_size, [4, 5], [2, 3]))
+    snap = reg.json_snapshot()
+    assert snap["tracer_events"] == {"serve": float(len(
+        fixed.tracer.events))} and snap["tracer_events"]["serve"] > 0
+    reg = HealthRegistry()
+    eng = ServeEngine(tm, tp, batch_slots=2, max_len=32, registry=reg,
+                      device=CPU)
+    eng.run(_reqs(Request, tm.cfg.vocab_size, [4, 5, 6], [2, 3, 1]))
+    snap = reg.json_snapshot()
+    assert snap["serve_requests_total"] == 3.0
+    assert snap["serve_tokens_total"] == 6.0
+    assert snap["serve_queue_depth"] == snap["serve_active_slots"] == 0.0
+    assert "meter_j_per_request" not in snap     # nothing metered yet
+    assert len(eng.slot_schedule()) == len(eng.segments) > 0
+    with pytest.raises(TypeError, match="dict input"):
+        eng.attribute_requests([])
 
 
 def test_engine_refuses_parameters_on_another_device():
