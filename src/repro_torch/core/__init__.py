@@ -2,9 +2,10 @@
 specs, the ground-truth power model, the seeded sensor simulator, fault
 injection and node fabric, counter unwrap and dE/dt, blind sensor
 characterization, confidence windows (Eq. 1), aliasing analysis,
-calibration corrections, the region tracer, the columnar trace store and
-per-phase attribution.  Host numpy throughout; the batched device paths
-live in ``repro_torch.fleet`` and ``repro_torch.align``."""
+calibration corrections, the region tracer and live sampler, the
+columnar trace store and per-phase attribution.  Host numpy throughout;
+the batched device paths live in ``repro_torch.fleet`` and
+``repro_torch.align``."""
 from repro_torch.core.measurement_model import (SensorSpec,  # noqa: F401
                                                 ToolSpec,
                                                 default_node_sensors,
@@ -32,7 +33,8 @@ from repro_torch.core.calibration import (Corrections,  # noqa: F401
                                           estimate_static_offsets,
                                           estimate_upstream_slope,
                                           nic_rail_corrections)
-from repro_torch.core.tracing import RegionEvent, RegionTracer  # noqa
+from repro_torch.core.tracing import (LiveSampler, RegionEvent,  # noqa
+                                      RegionTracer)
 from repro_torch.core.trace_format import (load_trace,  # noqa: F401
                                            merge_traces, save_trace)
 from repro_torch.core.attribution import (PhaseEnergy,  # noqa: F401

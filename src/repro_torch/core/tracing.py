@@ -1,11 +1,14 @@
-"""Region tracing — the Score-P analogue (port of ``RegionEvent`` and
-``RegionTracer`` from ``repro/core/tracing.py``).
+"""Region tracing — the Score-P analogue (port of
+``repro/core/tracing.py``).
 
 ``RegionTracer`` records host-timestamped, nested application regions in
-a unified timebase (``time.perf_counter_ns``).  The buffer is bounded for
-long runs: ``max_events`` keeps only the newest entries (a ring — the
-OLDEST entry is dropped and counted in ``.dropped``); drain it with
-``flush()``.
+a unified timebase (``time.perf_counter_ns``).  ``LiveSampler`` is the
+APAPI analogue: a dedicated thread polling a sensor so instrumentation
+never blocks application threads.  Both buffers are bounded for long
+runs: ``max_events`` / ``max_samples`` keep only the newest entries (a
+ring — the OLDEST entry is dropped and counted in ``.dropped``); drain
+them with ``flush()``.  ``health.HealthRegistry.track_tracer`` /
+``track_sampler`` export the depth and drop counters.
 
 Host-only, as in the reference: a region's end is the host clock when
 the ``with`` block exits.  Code that times device work inside a region
@@ -17,6 +20,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import threading
 import time
 from typing import Callable, Optional
 
@@ -115,3 +119,69 @@ class RegionTracer:
             "step": np.asarray([e.step for e in ev], np.int32),
             "slot": np.asarray([e.slot for e in ev], np.int32),
         }
+
+
+class LiveSampler:
+    """Dedicated sampling thread (APAPI analogue): polls ``read_fn`` at a
+    requested cadence, recording (t_read, value) without touching the
+    application thread.
+
+    max_samples: ring capacity; None keeps everything.  A full ring
+    evicts the oldest sample per poll (counted in ``dropped``) so the
+    buffer always holds the newest window; drain with ``flush()``.
+    """
+
+    def __init__(self, read_fn: Callable[[float], float],
+                 interval_s: float = 1e-3,
+                 timebase: Optional[Callable[[], float]] = None,
+                 max_samples: Optional[int] = None):
+        self._read = read_fn
+        self._interval = interval_s
+        self._now = timebase or (lambda: time.perf_counter_ns() * 1e-9)
+        self._stop = threading.Event()
+        self._thread = None
+        self.max_samples = max_samples
+        self.t_read: collections.deque = collections.deque()
+        self.values: collections.deque = collections.deque()
+        self.dropped = 0
+
+    def start(self):
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self):
+        nxt = self._now()
+        while not self._stop.is_set():
+            t = self._now()
+            if (self.max_samples is not None
+                    and len(self.t_read) >= self.max_samples):
+                self.t_read.popleft()
+                self.values.popleft()
+                self.dropped += 1
+            self.t_read.append(t)
+            self.values.append(self._read(t))
+            nxt += self._interval
+            delay = nxt - self._now()
+            if delay > 0:
+                self._stop.wait(delay)
+            else:
+                nxt = self._now()     # fell behind: resync (observed gap)
+
+    def flush(self):
+        """Drain and return (t_read, values) arrays for the buffered
+        samples; the cumulative ``dropped`` counter keeps counting.
+        Safe against the sampler thread: only the front of the deques
+        is consumed while the thread appends at the back."""
+        n = min(len(self.t_read), len(self.values))
+        t = [self.t_read.popleft() for _ in range(n)]
+        v = [self.values.popleft() for _ in range(n)]
+        return (np.asarray(t, np.float64), np.asarray(v, np.float64))
+
+    def stop(self):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2.0)
+        return (np.asarray(self.t_read, np.float64),
+                np.asarray(self.values, np.float64))

@@ -41,15 +41,18 @@ each) and the two tail-reach checks (one bool each); with health, one
 bool per condition it checks.  Float64 sums fold over fixed axes: no
 atomics, so results are deterministic.
 
-Not ported yet (the entry point raises ``NotImplementedError``): the
-scan engine (ROADMAP A8), multi-host collectives (A9) and checkpoints
-(A6).  Calibration ``corrections`` apply per trace on the host before
-packing (``pack_stream_rows``).
+Checkpoints: ``StreamingFusedPipeline.checkpoint``/``restore`` write
+and read the reference's on-disk layout (``train.checkpoint``), so a
+run killed in either package resumes in the other.  Not ported yet (the
+entry point raises ``NotImplementedError``): the scan engine (ROADMAP
+A8) and multi-host collectives (A9).  Calibration ``corrections`` apply
+per trace on the host before packing (``pack_stream_rows``).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -359,7 +362,8 @@ class IngestStage:
         f = t.shape[0]
         if self.carry is None:
             self._seed_first(t, v, valid)
-        else:
+        elif self._unseeded is not None:
+            # None after a restore: the reference saves no seeding state
             self._reseed(t, v, valid)
         zeros = torch.zeros((f,), dtype=torch.int64, device=t.device)
         if self.mode == "sanitize":
@@ -1505,6 +1509,11 @@ class StreamingFusedPipeline:
             self._attach_fuse_metrics(registry)
             self._attach_dq_metrics(registry)
         self._dtype = _torch_dtype(dtype)
+        self._np_dtype = torch.empty((), dtype=self._dtype).numpy().dtype
+        self._window = int(window)
+        self._hop = int(hop)
+        self._tail_width = int(tail)
+        self._var_floor = float(var_floor)
 
     def _attach_fuse_metrics(self, registry) -> None:
         from repro_torch.health.registry import Metric
@@ -1618,6 +1627,371 @@ class StreamingFusedPipeline:
         self.pipeline.reset()
         return self
 
+    # -- checkpoint/restart ----------------------------------------------
+    #
+    # The reference's layout, single host:
+    #
+    #   ckpt_dir/shared/step_W/          state every group shares: the
+    #                                    frontier slots, the tracker's
+    #                                    origin, the health machine
+    #   ckpt_dir/group_{gid:05d}/step_W/ one device group's carry slices
+    #
+    # Every saved array is the exact carry, so a restored run continues
+    # the left folds bit-identically.  Each carry tensor crosses to the
+    # host once per checkpoint and is sliced per group in numpy; restore
+    # assembles each carry in numpy and moves it to the device once.
+    # The dense attribution integrals are saved as the reference's
+    # per-group dicts of patterns.
+
+    @property
+    def _ckpt_group_ids(self) -> list:
+        return list(range(len(self.group_sizes)))
+
+    def _ckpt_config(self) -> dict:
+        """Pipeline-shape fingerprint, the reference's field for field
+        (plain Python values, numpy's dtype spelling): restore refuses
+        a checkpoint written by a differently configured pipeline."""
+        return {
+            "global_group_sizes": [int(s) for s in self.group_sizes],
+            "n_phases": int(self.attr.n_phases),
+            "grid_origin": float(self.fuse.origin),
+            "grid_step": float(self.fuse.step),
+            "track": self.align is not None,
+            "synced": False,
+            "window": int(self._window),
+            "hop": int(self._hop),
+            "tail": int(self._tail_width),
+            "var_floor": float(self._var_floor),
+            "health": self.health_stage is not None,
+            "meter": self.meter_stage is not None,
+            "dtype": str(np.dtype(self._np_dtype)),
+        }
+
+    def _shared_state(self) -> dict:
+        al, hs, fz = self.align, self.health_stage, self.fuse
+        i64 = np.int64
+        tree = {
+            "windows": np.asarray([self.pipeline.windows], i64),
+            "fuse": {
+                "next_slot": np.asarray([fz.carry.next_slot], i64),
+                "last_frontier": np.asarray(
+                    [np.nan if fz.last_frontier is None
+                     else fz.last_frontier], np.float64),
+                "dq_slots": np.asarray([fz.dq_slots], i64),
+            },
+        }
+        if al is not None:
+            tree["align"] = {
+                "origin": np.asarray([np.nan if al.origin is None
+                                      else al.origin], np.float64),
+                "next_slot": np.asarray([al.carry.next_slot], i64),
+                "last_est_slot": np.asarray([al.carry.last_est_slot],
+                                            i64)}
+        if hs is not None:
+            tree["health"] = {
+                "state": np.asarray(hs.state, i64),
+                "flag_streak": np.asarray(hs.flag_streak, i64),
+                "clean_streak": np.asarray(hs.clean_streak, i64),
+                "ema_bias": np.asarray(hs.ema_bias, np.float64),
+                "ema_rms": np.asarray(hs.ema_rms, np.float64),
+                "ema_refresh": np.asarray(hs.ema_refresh, np.float64),
+                "ema_seen": np.asarray(hs._ema_seen, bool),
+                "refresh_seen": np.asarray(hs._refresh_seen, bool),
+                "bias": np.asarray(hs.bias, np.float64),
+                "rms": np.asarray(hs.rms, np.float64),
+                "dropout": np.asarray(hs.dropout, np.float64),
+                "windows": np.asarray([hs.windows], i64),
+            }
+        return tree
+
+    def _shared_skeleton(self) -> dict:
+        """Zeros tree matching ``_shared_state`` leaf for leaf (shape
+        and dtype: ``restore_checkpoint`` validates both)."""
+        al, hs = self.align, self.health_stage
+        i1 = lambda: np.zeros((1,), np.int64)          # noqa: E731
+        f1 = lambda: np.zeros((1,), np.float64)        # noqa: E731
+        tree = {"windows": i1(),
+                "fuse": {"next_slot": i1(), "last_frontier": f1(),
+                         "dq_slots": i1()}}
+        if al is not None:
+            tree["align"] = {"origin": f1(), "next_slot": i1(),
+                             "last_est_slot": i1()}
+        if hs is not None:
+            g = hs.n_global
+            gi = lambda: np.zeros((g,), np.int64)      # noqa: E731
+            gf = lambda: np.zeros((g,), np.float64)    # noqa: E731
+            gb = lambda: np.zeros((g,), bool)          # noqa: E731
+            tree["health"] = {
+                "state": gi(), "flag_streak": gi(), "clean_streak": gi(),
+                "ema_bias": gf(), "ema_rms": gf(), "ema_refresh": gf(),
+                "ema_seen": gb(), "refresh_seen": gb(),
+                "bias": gf(), "rms": gf(), "dropout": gf(),
+                "windows": i1()}
+        return tree
+
+    def _group_skeleton(self, k: int, meta: dict) -> dict:
+        """Zeros tree matching one saved group slice (k streams)."""
+        dt = self._np_dtype
+        T = self._tail_width
+        tree = {
+            "ingest": {"t": np.zeros((k, 1), dt),
+                       "v": np.zeros((k, 1), dt),
+                       "t_first": np.zeros((k,), np.float64),
+                       "dq_late": np.zeros((k,), np.int64),
+                       "dq_masked": np.zeros((k,), np.int64)},
+            "fuse": {"tail_t": np.zeros((k, T), dt),
+                     "tail_v": np.zeros((k, T), dt),
+                     "tail_dropped": np.zeros((k,), np.float64),
+                     "n_k": np.zeros((k,), np.float64),
+                     "ssr": np.zeros((k,), np.float64),
+                     "t_first": np.zeros((k,), np.float64),
+                     "dq_covered": np.zeros((k,), np.int64)},
+            "attr": {"t_prev": np.zeros((1,), np.float64),
+                     "integrals": {
+                         str(p): np.zeros((self.attr.n_phases, k))
+                         for p in meta["attr_patterns"]}},
+        }
+        if self.align is not None:
+            tree["align"] = {
+                "ring_v": np.zeros((k, self._window), dt),
+                "ring_m": np.zeros((k, self._window), bool),
+                "delay": np.zeros((k,), np.float64),
+                "seen": np.zeros((k,), bool),
+                "tail_t": np.zeros((k, T), dt),
+                "tail_v": np.zeros((k, T), dt),
+                "tail_dropped": np.zeros((k,), np.float64)}
+        if self.meter_stage is not None:
+            tree["meter"] = {
+                "t_prev": np.zeros((1,), np.float64),
+                "integrals": {
+                    str(p): np.zeros((self.meter_stage.n_phases, k))
+                    for p in meta["meter_patterns"]}}
+        if self.health_stage is not None:
+            from repro_torch.health.stage import N_STATS
+            tree["health"] = {"pending": np.zeros((N_STATS, k))}
+        return tree
+
+    def _row_carries(self) -> dict:
+        """The per-row carries as the saved group trees name them, on
+        the host: one copy per tensor."""
+        ing, fz = self.ingest, self.fuse
+        tree = {
+            "ingest": {"t": ing.carry.t, "v": ing.carry.v,
+                       "t_first": ing._t_first, "dq_late": ing.dq_late,
+                       "dq_masked": ing.dq_masked},
+            "fuse": {"tail_t": fz._tail.carry.t, "tail_v": fz._tail.carry.v,
+                     "tail_dropped": fz._tail.carry.dropped_t,
+                     "n_k": fz.carry.n_k, "ssr": fz.carry.ssr,
+                     "t_first": fz._t_first, "dq_covered": fz.dq_covered},
+        }
+        if self.align is not None:
+            ac, tc = self.align.carry, self.align._tail.carry
+            tree["align"] = {"ring_v": ac.ring_v, "ring_m": ac.ring_m,
+                             "delay": ac.delay, "seen": ac.seen,
+                             "tail_t": tc.t, "tail_v": tc.v,
+                             "tail_dropped": tc.dropped_t}
+        return {sec: {k: x.detach().cpu().numpy() for k, x in d.items()}
+                for sec, d in tree.items()}
+
+    def _phase_stages(self) -> dict:
+        """{saved section: stage} of the dense per-pattern integrals."""
+        out = {"attr": self.attr}
+        if self.meter_stage is not None:
+            out["meter"] = self.meter_stage
+        return out
+
+    def checkpoint(self, ckpt_dir, *, keep: int = 3) -> int:
+        """Write one checkpoint at the current window boundary (between
+        ``update`` calls); returns its step, the windows processed."""
+        from repro_torch.train.checkpoint import save_checkpoint
+        assert self.pipeline.windows > 0, \
+            "checkpoint() before the first update has nothing to save"
+        step = int(self.pipeline.windows)
+        root = Path(ckpt_dir)
+        cfg = self._ckpt_config()
+        rows = self._row_carries()
+        dense = {sec: (st.carry.t_prev.cpu().numpy(),
+                       st.carry.integrals.cpu().numpy())
+                 for sec, st in self._phase_stages().items()}
+        hs = self.health_stage
+        if hs is not None:
+            from repro_torch.health.stage import N_STATS
+            pend = np.zeros((N_STATS, hs.n_global))
+            if hs._pending is not None:
+                pend[:, hs.row_ids] = hs._pending.cpu().numpy()[:N_STATS]
+        lo = 0
+        for j, (gid, k) in enumerate(zip(self._ckpt_group_ids,
+                                         self.group_sizes)):
+            sl = slice(lo, lo + k)
+            tree = {sec: {name: a[sl] for name, a in d.items()}
+                    for sec, d in rows.items()}
+            meta = {"config": cfg, "gid": gid}
+            for sec, (t_prev, ints) in dense.items():
+                # the patterns that integrated anything: a pattern seen
+                # but integrating exactly 0 adds 0 to every total
+                pats = [p for p in range(1, ints.shape[1])
+                        if ints[j, p].any()]
+                tree[sec] = {"t_prev": t_prev[j:j + 1], "integrals": {
+                    str(p): np.ascontiguousarray(ints[j, p, :, :k])
+                    for p in pats}}
+                meta[f"{sec}_patterns"] = pats
+            if hs is not None:
+                tree["health"] = {"pending": pend[:, hs.row_ids[sl]]}
+            save_checkpoint(root / f"group_{gid:05d}", step, tree,
+                            keep=keep, extra_meta=meta)
+            lo += k
+        save_checkpoint(
+            root / "shared", step, self._shared_state(), keep=keep,
+            extra_meta={"config": cfg,
+                        "suggested": (dict(hs._suggested)
+                                      if hs is not None else {})})
+        return step
+
+    def _resolve_ckpt_step(self, root, step):
+        """Largest step published by ``shared`` and every group dir:
+        a kill that landed mid-checkpoint drops that step."""
+        common = _published_steps(root / "shared")
+        for gid in self._ckpt_group_ids:
+            common &= _published_steps(root / f"group_{gid:05d}")
+        if step is not None:
+            if int(step) not in common:
+                raise FileNotFoundError(
+                    f"checkpoint step {step} is not complete under "
+                    f"{root} (published everywhere: {sorted(common)})")
+            return int(step)
+        if not common:
+            raise FileNotFoundError(
+                f"no complete checkpoint under {root}")
+        return max(common)
+
+    def restore(self, ckpt_dir, *, step: int = None) -> int:
+        """Reload the carries of :meth:`checkpoint` (written by this
+        package or the reference); returns the window count it was
+        taken at (the replay skip count).
+
+        Trailing padding rows replicate the last real row, the state an
+        uninterrupted run holds (``update`` pads its inputs the same
+        way); the tracker's padding rows keep delay 0 and ``seen``
+        False.  The ingest stage's ``_unseeded`` is not saved, as in
+        the reference: a row still dark at the checkpoint is not
+        reseeded after a restore.
+        """
+        from repro_torch.train.checkpoint import (checkpoint_meta,
+                                                  restore_checkpoint)
+        root = Path(ckpt_dir)
+        step = self._resolve_ckpt_step(root, step)
+        shared_meta, _ = checkpoint_meta(root / "shared", step=step)
+        cfg = self._ckpt_config()
+        assert dict(shared_meta["config"]) == cfg, \
+            f"checkpoint config mismatch:\n  saved {shared_meta['config']}" \
+            f"\n  self  {cfg}"
+        shared, _, _ = restore_checkpoint(
+            root / "shared", self._shared_skeleton(), step=step)
+        groups = []
+        for gid, k in zip(self._ckpt_group_ids, self.group_sizes):
+            gdir = root / f"group_{gid:05d}"
+            gmeta, _ = checkpoint_meta(gdir, step=step)
+            assert dict(gmeta["config"]) == cfg, \
+                f"group {gid}: checkpoint config mismatch"
+            assert int(gmeta["gid"]) == gid
+            groups.append(restore_checkpoint(
+                gdir, self._group_skeleton(k, gmeta), step=step)[0])
+
+        n, pad = self.n_streams, self.n_rows - self.n_streams
+        al, hs = self.align, self.health_stage
+        dev = self.device
+
+        def rows(sec, name, fill=None):
+            """One carry: the groups' slices in row order, padding rows
+            replicating the last real row (or ``fill``), on the device."""
+            a = np.concatenate([g[sec][name] for g in groups])
+            if pad:
+                tail = (np.repeat(a[-1:], pad, axis=0) if fill is None
+                        else np.full((pad,) + a.shape[1:], fill, a.dtype))
+                a = np.concatenate([a, tail])
+            return torch.as_tensor(a, device=dev)
+
+        def streams(sec, name):
+            return torch.as_tensor(
+                np.concatenate([g[sec][name] for g in groups]), device=dev)
+
+        ing = self.ingest
+        ing.carry = IngestCarry(t=rows("ingest", "t"), v=rows("ingest", "v"))
+        ing._t_first = rows("ingest", "t_first")
+        ing._unseeded = None
+        ing.dq_late = rows("ingest", "dq_late")
+        ing.dq_masked = rows("ingest", "dq_masked")
+        ing.dq_last = {}
+        fz, sf = self.fuse, shared["fuse"]
+        fz._tail.carry = TailCarry(t=rows("fuse", "tail_t"),
+                                   v=rows("fuse", "tail_v"),
+                                   dropped_t=rows("fuse", "tail_dropped"))
+        fz.carry = FuseCarry(next_slot=int(sf["next_slot"][0]),
+                             n_k=streams("fuse", "n_k"),
+                             ssr=streams("fuse", "ssr"))
+        lf = float(sf["last_frontier"][0])
+        fz.last_frontier = None if np.isnan(lf) else lf
+        fz._t_first = rows("fuse", "t_first")
+        fz.dq_covered = streams("fuse", "dq_covered")
+        fz.dq_slots = int(sf["dq_slots"][0])
+        fz.dq_last_coverage = torch.ones((n,), dtype=_F64, device=dev)
+        fz.dq_low_coverage = torch.zeros((n,), dtype=torch.bool,
+                                         device=dev)
+        if al is not None:
+            sa = shared["align"]
+            origin = float(sa["origin"][0])
+            al.origin = None if np.isnan(origin) else origin
+            al.carry = AlignCarry(
+                ring_v=rows("align", "ring_v"),
+                ring_m=rows("align", "ring_m"),
+                next_slot=int(sa["next_slot"][0]),
+                last_est_slot=int(sa["last_est_slot"][0]),
+                delay=rows("align", "delay", 0.0),
+                seen=rows("align", "seen", False))
+            al._tail.carry = TailCarry(
+                t=rows("align", "tail_t"), v=rows("align", "tail_v"),
+                dropped_t=rows("align", "tail_dropped"))
+        for sec, st in self._phase_stages().items():
+            ints = np.zeros(tuple(st.carry.integrals.shape))
+            for j, (g, k) in enumerate(zip(groups, self.group_sizes)):
+                for p, a in g[sec]["integrals"].items():
+                    ints[j, int(p), :, :k] = a
+            st.carry = FusedAttrCarry(t_prev=streams(sec, "t_prev"),
+                                      integrals=torch.as_tensor(
+                                          ints, device=dev))
+        if hs is not None:
+            sh = shared["health"]
+            for name in ("state", "flag_streak", "clean_streak",
+                         "ema_bias", "ema_rms", "ema_refresh", "bias",
+                         "rms", "dropout"):
+                setattr(hs, name, sh[name])
+            hs._ema_seen = sh["ema_seen"]
+            hs._refresh_seen = sh["refresh_seen"]
+            hs.windows = int(sh["windows"][0])
+            from repro_torch.health.stage import N_STATS
+            pend = np.zeros((N_STATS, hs.n_global))
+            lo = 0
+            for g, k in zip(groups, self.group_sizes):
+                pend[:, hs.row_ids[lo:lo + k]] = g["health"]["pending"]
+                lo += k
+            # a saved all-zeros block folds exactly like no pending
+            # block (a fold of zeros updates nothing)
+            hs._pending = torch.as_tensor(pend[:, hs.row_ids], device=dev)
+            hs._delays = None
+            hs._suggested = dict(shared_meta.get("suggested", {}))
+        self.pipeline.windows = int(shared["windows"][0])
+        return self.pipeline.windows
+
+
+def _published_steps(d) -> set:
+    """Step numbers atomically published under one checkpoint dir."""
+    d = Path(d)
+    if not d.exists():
+        return set()
+    return {int(p.name.split("_")[1]) for p in d.iterdir()
+            if p.is_dir() and p.name.startswith("step_")
+            and not p.name.endswith(".tmp")}
+
 
 def _unsupported(cfg):
     """Name the options this port does not run yet (queue A of the
@@ -1625,9 +1999,6 @@ def _unsupported(cfg):
     todo = []
     if cfg.stream.engine != "windowed":
         todo.append(f"engine={cfg.stream.engine!r}")
-    if cfg.checkpoint.dir is not None or cfg.checkpoint.every \
-            or cfg.checkpoint.resume:
-        todo.append("checkpoint")
     if cfg.stream.host:
         todo.append("host=True")
     if cfg.stream.interpret:
@@ -1668,9 +2039,13 @@ def attribute_energy_fused_streaming(trace_groups, phases, *,
     policy; registry: a ``health.HealthRegistry`` for telemetry export;
     meter: ``SlotSegment``s (absolute seconds, like phases) compose a
     ``MeteringStage`` (``pipe.request_energies()`` with
-    ``return_pipe=True``).  ``on_window(pipe, w)`` fires after window
-    ``w``.  device: None means CUDA (raises without a card); pass "cpu"
-    for the plain PyTorch versions of the kernels.
+    ``return_pipe=True``).  ``CheckpointConfig(dir=, every=K)`` writes a
+    checkpoint every K replay windows; ``resume=True`` reloads the newest
+    complete one (a cold start when none is published) and skips the
+    windows it already folded, bit-identically to an uninterrupted run.
+    ``on_window(pipe, w)`` fires after window ``w`` (1-based).  device:
+    None means CUDA (raises without a card); pass "cpu" for the plain
+    PyTorch versions of the kernels.
     """
     from repro_torch.core.attribution import PhaseEnergy
     cfg = resolve_config(config, legacy,
@@ -1724,9 +2099,21 @@ def attribute_energy_fused_streaming(trace_groups, phases, *,
         tail=tail, var_floor=var_floor, dtype=dtype, health=cfg.health,
         registry=registry, health_names=[tr.name for tr in flat],
         meter=meter, dq_policy=cfg.dq, device=dev)
+    ckpt_dir, every = cfg.checkpoint.dir, cfg.checkpoint.every
+    start_w = 0
+    if cfg.checkpoint.resume:
+        assert ckpt_dir is not None, "resume=True needs checkpoint_dir"
+        try:
+            start_w = pipe.restore(ckpt_dir)
+        except FileNotFoundError:
+            start_w = 0          # cold start: nothing published yet
     for w, (t_blk, v_blk) in enumerate(
             stream_row_windows(rows, chunk, cadence=cadence), start=1):
+        if w <= start_w:
+            continue             # replayed windows: already folded
         pipe.update(t_blk, v_blk)
+        if ckpt_dir is not None and every and w % every == 0:
+            pipe.checkpoint(ckpt_dir)
         if on_window is not None:
             on_window(pipe, w)
     pipe.finalize(t_end)

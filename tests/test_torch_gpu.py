@@ -762,3 +762,110 @@ def test_cuda_metering_conserves_and_ignores_slot_order():
         np.testing.assert_allclose(a[rid], c[rid], rtol=1e-5)
     np.testing.assert_allclose(np.sum([a[r] for r in a], axis=0),
                                seg.sum(axis=1), rtol=1e-12)
+
+
+class _Kill(Exception):
+    pass
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("health", [False, True], ids=["plain", "health"])
+def test_cuda_checkpoint_kill_resume_bit_identical(tmp_path, health):
+    """A tracked run on the card killed at window 7 (a checkpoint every
+    3 windows) and resumed: totals ``torch.equal`` to the uninterrupted
+    run's; and the card's checkpoint finishes on the CPU within 1e-5."""
+    import numpy as np
+    from repro_torch.fleet import (CheckpointConfig, PipelineConfig,
+                                   StreamConfig, TrackConfig,
+                                   attribute_energy_fused_streaming)
+    dev = _cuda()
+    truth, groups, _ = _health_groups(3, {})
+    track = TrackConfig(window=512, hop=128)
+
+    def run(device, on_window=None, **ck):
+        cfg = PipelineConfig(stream=StreamConfig(chunk=257), track=track,
+                             checkpoint=CheckpointConfig(**ck),
+                             health=health or None)
+        _, pipe = attribute_energy_fused_streaming(
+            groups, [("a", 0.1, 1.2), ("b", 1.2, 2.4)], config=cfg,
+            reference=truth, on_window=on_window, return_pipe=True,
+            device=device)
+        return pipe.totals()
+
+    def kill(pipe, w):
+        if w == 7:
+            raise _Kill
+
+    base = run(dev)
+    with pytest.raises(_Kill):
+        run(dev, kill, dir=str(tmp_path), every=3)
+    resumed = run(dev, dir=str(tmp_path), resume=True)
+    assert resumed.device.type == "cuda"
+    assert torch.equal(resumed, base)
+    on_cpu = run("cpu", dir=str(tmp_path), resume=True).numpy()
+    want = base.cpu().numpy()
+    assert np.abs(on_cpu - want).max() <= 1e-5 * max(np.abs(want).max(), 1)
+
+
+@pytest.mark.gpu
+def test_cuda_attribute_live_pump_drives_the_card():
+    """A 1 s live capture on the card over a SimBackend: the pump thread
+    hands its blocks to the card's pipeline, no poll goes unavailable,
+    and the recorded blocks replayed through a fresh card pipeline give
+    ``torch.equal`` totals."""
+    import numpy as np
+    import repro_torch.ingest.live as live
+    from repro_torch.core import SensorSpec, SensorTrace
+    from repro_torch.fleet.pipeline import StreamingFusedPipeline
+    from repro_torch.ingest import AsyncFleetIngest, SimBackend
+    dev = _cuda()
+    blocks = []
+
+    class Recording(AsyncFleetIngest):
+        def __init__(self, readers, stream, *a, **k):
+            class Rec:
+                def update(self, *args):
+                    blocks.append([np.array(x) for x in args])
+                    return stream.update(*args)
+            super().__init__(readers, Rec(), *a, **k)
+
+    traces = {}
+    t = np.arange(0.0, 1.5, 0.002)
+    for d, p_w in enumerate((20.0, 35.0)):
+        traces[f"d{d}.energy"] = SensorTrace(
+            f"d{d}.energy", SensorSpec(name=f"d{d}.energy", scope="chip",
+                                       kind="energy_cum", quantum=1e-6),
+            t, t.copy(), p_w * t)
+        traces[f"d{d}.power"] = SensorTrace(
+            f"d{d}.power", SensorSpec(name=f"d{d}.power", scope="chip",
+                                      kind="power_inst"),
+            t, t.copy(), np.full_like(t, p_w))
+    orig = live.AsyncFleetIngest
+    live.AsyncFleetIngest = Recording
+    try:
+        res = live.attribute_live(
+            [("a", 0.1, 0.5), ("b", 0.5, 0.9)], duration_s=1.0,
+            backends=[SimBackend(traces, speed=1.0)],
+            metrics=sorted(traces), chunk=16, interval_s=2e-3,
+            reference=lambda x: np.ones_like(x), window=128, hop=64,
+            max_lag=8, tail=64, settle_s=2.0)
+    finally:
+        live.AsyncFleetIngest = orig
+    pipe = res.pipe
+    assert pipe.device.type == "cuda" and pipe.align is not None
+    assert sum(r.n_unavailable for r in res.readers) == 0
+    assert res.pump.n_chunks == len(blocks) >= 3
+    replay = StreamingFusedPipeline(
+        pipe.group_sizes, [(0.1, 0.5), (0.5, 0.9)], grid_origin=0.0,
+        grid_step=2e-3, kind_row=[True, False, True, False],
+        wrap_period=[0.0] * 4, reference=lambda x: np.ones_like(x),
+        window=128, hop=64, max_lag=8, tail=64,
+        health_names=list(res.metrics), device=dev)
+    for blk in blocks:
+        replay.update(*blk)
+    replay.finalize()
+    assert torch.equal(replay.totals(), pipe.totals())
+    for name in ("a", "b"):
+        for d, p_w in enumerate((20.0, 35.0)):
+            assert abs(res.energies()[name][f"d{d}"] - 0.4 * p_w) \
+                <= 0.05 * 0.4 * p_w

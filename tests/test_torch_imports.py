@@ -228,6 +228,29 @@ def test_health_and_metering_entry_points_default_to_cuda(monkeypatch):
             call()
 
 
+_CHECKPOINT_INGEST_MODULES = ("repro_torch.train",
+                              "repro_torch.train.checkpoint",
+                              "repro_torch.ingest",
+                              "repro_torch.ingest.backend",
+                              "repro_torch.ingest.sim",
+                              "repro_torch.ingest.priority",
+                              "repro_torch.ingest.async_ingest",
+                              "repro_torch.ingest.rapl",
+                              "repro_torch.ingest.hwmon",
+                              "repro_torch.ingest.rocm",
+                              "repro_torch.ingest.live")
+
+
+@pytest.mark.parametrize("module", _CHECKPOINT_INGEST_MODULES)
+def test_checkpoint_and_ingest_module_imports_with_jax_and_repro_blocked(
+        module):
+    """The checkpoint format and every module of live ingest load on
+    their own with JAX and the reference blocked (``repro.ingest`` and
+    ``repro.train.checkpoint`` load without JAX; the port keeps its own
+    copy all the same)."""
+    test_case_study_module_imports_with_jax_and_repro_blocked(module)
+
+
 def test_port_sources_name_neither_jax_nor_repro():
     pat = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|"
                      r"from\s+(jax|repro)(\.|\s)(?!_))", re.M)

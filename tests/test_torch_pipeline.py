@@ -1,10 +1,10 @@
 """PyTorch port, the windowed fused-attribution pipeline: the port (its
 kernels' plain versions on the CPU) against the JAX windowed engine and
 the JAX batch path on the same seeded traces, state carried across from
-a JAX run, the host-side modules byte for byte, and the options the port
-does not run yet (health, data quality, metering and the registry are
-held against the reference in ``test_torch_health.py`` and
-``test_torch_serve.py``)."""
+a JAX run, the host-side modules byte for byte, the checkpoint option,
+and the options the port does not run yet (health, data quality,
+metering and the registry are held against the reference in
+``test_torch_health.py`` and ``test_torch_serve.py``)."""
 import dataclasses
 import warnings
 
@@ -242,16 +242,37 @@ def test_interop_refuses_a_cast(case):
 
 @pytest.mark.parametrize("option", [
     dict(config=PipelineConfig(stream=StreamConfig(engine="scan"))),
-    dict(config=PipelineConfig(checkpoint=CheckpointConfig(dir="x",
-                                                           every=1))),
     dict(config=PipelineConfig(stream=StreamConfig(host=True))),
     dict(config=PipelineConfig(stream=StreamConfig(use_kernel=False))),
-], ids=["scan", "checkpoint", "host", "no_kernel"])
+], ids=["scan", "host", "no_kernel"])
 def test_unsupported_options_raise(case, option):
     with pytest.raises(NotImplementedError):
         attribute_energy_fused_streaming(case["port_groups"],
                                          case["phases"], device=CPU,
                                          **option)
+
+
+def test_checkpoint_option_runs(case, tmp_path):
+    """``CheckpointConfig`` runs in the port (the kill/resume and
+    cross-package cases are in ``test_torch_checkpoint.py``): a run that
+    checkpoints every window publishes the last three steps and returns
+    what the run without checkpoints does."""
+    track = TrackConfig(track=False, delays=case["delays"])
+    plain = attribute_energy_fused_streaming(
+        case["port_groups"], case["phases"],
+        config=PipelineConfig(track=track), device=CPU)
+    got, pipe = attribute_energy_fused_streaming(
+        case["port_groups"], case["phases"], config=PipelineConfig(
+            track=track, checkpoint=CheckpointConfig(dir=str(tmp_path),
+                                                     every=1)),
+        return_pipe=True, device=CPU)
+    assert [[e.energy_j for e in r] for r in got] == \
+        [[e.energy_j for e in r] for r in plain]
+    w = pipe.pipeline.windows
+    assert w >= 3
+    for d in ["shared"] + [f"group_{g:05d}" for g in range(4)]:
+        assert sorted(p.name for p in (tmp_path / d).iterdir()) == [
+            f"step_{s:08d}" for s in range(w - 2, w + 1)]
 
 
 def test_legacy_kwargs_resolve_like_the_reference():
