@@ -6,13 +6,27 @@ on one CUDA card.
     python3 scripts/kernel_ab.py --against build/ab_old [--only b2,b6,b7]
 
 Builds the other tree's sources of the chosen kernels (``--only``, any of
-b2, b5, b6, b7, b9, b10; all six by default) into a library of their own
-(the same nvcc flags) and calls both libraries through this tree's
-wrappers (the C entries take the same arguments).  Shapes and data:
+b2, b4, b5, b6, b7, b9, b10; all seven by default) into a library of
+their own (the same nvcc flags) and calls both libraries through this
+tree's wrappers (the C entries take the same arguments; B4's entry before
+its redesign did not, see below).  Shapes and data:
 - B2 ``power_reconstruct_fleet`` at ``chip_smoke.py``'s batch shape (the
   512 packed counters, 8773 columns) as run, wrapping, and padded to a
   width of the other 16-byte alignment (``chip_smoke.b2_cases``); gate:
   power, valid and reordered ``torch.equal`` to the plain version;
+- B4 ``xcorr_align`` at ``chip_smoke.py``'s windowed shape (the second
+  replay window regridded: 1024 x 2048 against 129 lags padded to 256)
+  and batch shape (1024 x ~16k against 1025 lags padded to 1152).  The
+  other tree's C entry is read from its source: one with this tree's
+  arguments goes through this tree's wrapper; the 12-argument entry of
+  the kernel before the redesign (28ec99f: the centred streams in a
+  scratch buffer) is called with its own; any other is refused before
+  anything is built.  Each one's largest error against the plain
+  version and against the float64 scores, and the rows whose argmax lag
+  and whose ``peak_to_delay`` estimate differ from the other tree's;
+  gate: this tree's kernel within 1e-5 of both, rows scored alone
+  ``torch.equal`` to the same rows within F
+  (``chip_smoke.xcorr_slices``);
 - B5 ``grid_resample``, hold, at ``chip_smoke.py``'s windowed shape (the
   second replay window, 1024 rows of ~2.3k samples -> 2048 grid points)
   and batch shape (1024 whole-run rows of ~8.8k samples -> 16384), on
@@ -51,12 +65,14 @@ import hashlib
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-SOURCES = {"b2": "power_reconstruct_fleet.cu", "b5": "grid_resample.cu",
+SOURCES = {"b2": "power_reconstruct_fleet.cu", "b4": "xcorr_align.cu",
+           "b5": "grid_resample.cu",
            "b6": "phase_integrate.cu", "b7": "fleet_attribute.cu",
            "b9": "flash_attention.cu", "b10": "selective_scan.cu"}
 
@@ -275,6 +291,125 @@ def flash_edges(cs, other, build, dev) -> dict:
     return edges
 
 
+XCORR_OLD_ARGS = 12    # the entry before the redesign: x, m, bank, xc,
+                       # den_x, den_r, out, F, G, L_out, L_real, stream
+
+
+def xcorr_entry_args(tree: Path) -> int:
+    """The number of arguments of ``xcorr_align_launch`` in ``tree``'s
+    source (0 where the entry is not found)."""
+    path = tree / "src" / "repro_torch" / "csrc" / SOURCES["b4"]
+    src = path.read_text() if path.is_file() else ""
+    hit = re.search(r'extern "C" int xcorr_align_launch\(([^)]*)\)', src)
+    return hit.group(1).count(",") + 1 if hit else 0
+
+
+def old_xcorr(lib, x, m, bank, lags):
+    """The other tree's B4 through the entry of the kernel before the
+    redesign (28ec99f): ``xcorr_align_launch(x, m, bank, xc, den_x,
+    den_r, out, F, G, L_out, L_real, stream)``."""
+    import torch
+    from repro_torch.kernels import build
+    entry = lib.xcorr_align_launch
+    entry.argtypes = (build.PTR,) * 7 + (build.INT,) * 4 + (build.PTR,)
+    entry.restype = ctypes.c_int
+    f, g = x.shape
+    xc = torch.empty_like(x)
+    den_x = torch.empty((f,), dtype=torch.float32, device=x.device)
+    den_r = torch.empty((lags,), dtype=torch.float32, device=x.device)
+    out = torch.empty((f, bank.shape[0]), dtype=torch.float32,
+                      device=x.device)
+    build.check_launch(entry(
+        x.data_ptr(), m.data_ptr(), bank.data_ptr(), xc.data_ptr(),
+        den_x.data_ptr(), den_r.data_ptr(), out.data_ptr(), f, g,
+        bank.shape[0], lags, build.stream_ptr(x.device)), "other B4")
+    return out
+
+
+def xcorr_ab(cs, other, old_entry: bool, seed: int, dev) -> tuple:
+    """B4 at ``chip_smoke.py``'s two shapes, the other tree's kernel
+    beside this tree's (``old_entry``: the other's is called through
+    ``old_xcorr``) -> (result, failed names)."""
+    import torch
+    from repro_torch.align.delay import peak_to_delay
+    from repro_torch.fleet import StreamConfig, TrackConfig
+    from repro_torch.fleet.pipeline import (_min_cadence, default_tail,
+                                            pack_stream_rows)
+    from repro_torch.kernels import build
+    from repro_torch.kernels.grid_resample import grid_resample_kernel
+    from repro_torch.kernels.xcorr_align import (xcorr_align_kernel,
+                                                 xcorr_scores_ref)
+    truth, groups, delays = cs.sim_groups(cs.DEVICES, cs.SPAN_S, seed)
+    rows = pack_stream_rows([tr for g in groups for tr in g])
+    chunk = StreamConfig().chunk
+    step = 0.5 * _min_cadence(rows)
+    tail = default_tail(rows, chunk, max_lag=TrackConfig().max_lag,
+                        grid_step=step)
+    _, b5, (bank_w, lags_w), _ = cs.kernel_inputs(rows, delays, truth, tail,
+                                                  chunk, step, dev)
+    x_w, m_w = grid_resample_kernel(*b5)
+    _, _, b4, _, _ = cs.batch_kernel_inputs(
+        groups, truth, cs.phases_of(truth), delays, dev)
+    shapes = {"windowed": (x_w, m_w.to(torch.float32), bank_w, lags_w),
+              "batch": b4}
+
+    def run_other(x, m, b, n):
+        if old_entry:
+            return old_xcorr(other, x, m, b, n)
+        with using(other, build):
+            return xcorr_align_kernel(x, m, b, n_lags=n)
+
+    sides = {"other": run_other,
+             "this": lambda x, m, b, n: xcorr_align_kernel(x, m, b,
+                                                           n_lags=n)}
+    result, failed = {}, []
+    for label, (x, m, bank, lags) in shapes.items():
+        plain = xcorr_scores_ref(x, m, bank)
+        exact = xcorr_scores_ref(x.double(), m.double(), bank.double())
+        max_lag = (lags - 1) // 2
+        outs = {k: fn(x, m, bank, lags) for k, fn in sides.items()}
+        torch.cuda.synchronize()
+        est = {k: peak_to_delay(o[:, :lags], 1.0, max_lag)
+               for k, o in outs.items()}
+        checks = {k: {"vs_plain": (o - plain).abs().max().item(),
+                      "vs_float64": (o.double() - exact).abs().max().item()}
+                  for k, o in outs.items()}
+        checks["argmax_rows_changed"] = int(
+            (outs["this"][:, :lags].argmax(1)
+             != outs["other"][:, :lags].argmax(1)).sum())
+        checks["delay_rows_changed"] = int(
+            (est["this"].lag_steps != est["other"].lag_steps).sum())
+        checks["delay_worst_change_steps"] = (
+            est["this"].lag_steps - est["other"].lag_steps).abs().max(
+            ).item()
+        checks["plain_vs_float64"] = (plain.double() - exact).abs().max(
+            ).item()
+        alone = {f"[{a}:{b}]": torch.equal(xcorr_align_kernel(
+            x[a:b].contiguous(), m[a:b].contiguous(), bank, n_lags=lags),
+            outs["this"][a:b]) for a, b in cs.xcorr_slices(x.shape[0])}
+        checks["rows_alone_equal"] = alone
+        del plain, exact, outs
+        name = f"B4 {label} ({x.shape[0]}x{x.shape[1]} x {lags} lags)"
+        if not (checks["this"]["vs_plain"] <= cs.KERNEL_TOL
+                and checks["this"]["vs_float64"] <= cs.KERNEL_TOL
+                and all(alone.values())):
+            failed.append(name)
+        before = cs.gpu_clocks()
+        ms = {k: [] for k in sides}
+        for k in ("other", "this", "this", "other"):
+            ms[k].append(cs.timed(lambda k=k: sides[k](x, m, bank, lags),
+                                  reps=10)["device_ms"])
+        after = cs.gpu_clocks()
+        mean = {k: sum(v) / len(v) for k, v in ms.items()}
+        result[name] = dict(ms=ms, ratio=mean["other"] / mean["this"],
+                            checks=checks, clocks_before=before,
+                            clocks_after=after)
+        print(f"{name}: other {ms['other']} ms, this {ms['this']} ms, "
+              f"other/this {result[name]['ratio']:.3f}; {checks}; card "
+              f"before {before}, after {after}")
+    return result, failed
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", type=Path, required=True,
@@ -287,6 +422,12 @@ def main(argv=None) -> int:
     want = [k.strip() for k in args.only.split(",") if k.strip()]
     if not want or set(want) - set(SOURCES):
         ap.error(f"--only takes a list of {', '.join(SOURCES)}")
+    if "b4" in want:
+        n_other = xcorr_entry_args(args.against)
+        if n_other not in (XCORR_OLD_ARGS, xcorr_entry_args(ROOT)):
+            ap.error(f"b4: the other tree's xcorr_align_launch takes "
+                     f"{n_other} arguments, neither this tree's nor the "
+                     f"{XCORR_OLD_ARGS} of the entry before the redesign")
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -310,6 +451,9 @@ def main(argv=None) -> int:
 
     result = {"timing": {}, "edges": {}}
     failed = []
+    if "b4" in want:
+        result["xcorr"], failed = xcorr_ab(
+            cs, other, n_other == XCORR_OLD_ARGS, args.seed, dev)
     for name, (fn, ref, compare, *same_bits) in calls.items():
         want_out = ref()
         checks, outs = {}, {}

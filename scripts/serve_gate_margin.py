@@ -6,9 +6,12 @@ serving-shaped timeline (admission, prefill and decode segments, the
 occupancy model's power) of each given length through the counter path
 (``core.attribute_energy_many``) on the node fabric ``chip_smoke.py``
 builds (``launch.serve.serve_traces``: seed 0, a 0.05 s idle lead-in),
-and prints per length each chip's total error against the truth beside
-how far the chip's simulated read grid ends before the truth does.
-Either package runs it, on the CPU:
+and prints per length each chip's total error against the truth that
+counter read (``chip_smoke.counter_truth``: the phases clipped to the
+span of its reads, shifted by its delay; what the gate holds) and
+against the whole run's truth (the gate before), beside how far the
+chip's simulated read grid ends before the truth does.  Either package
+runs it, on the CPU:
 
     PYTHONPATH=src python scripts/serve_gate_margin.py --package repro
     PYTHONPATH=src python scripts/serve_gate_margin.py --package repro_torch
@@ -16,8 +19,13 @@ Either package runs it, on the CPU:
 import argparse
 import importlib
 import json
+import sys
+from pathlib import Path
 
 import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from chip_smoke import serve_total_errors  # noqa: E402
 
 LEAD_S = 0.05               # chip_smoke.SERVE_LEAD
 # one admission round, seconds: the shape of the 8-layer hybrid's
@@ -64,11 +72,12 @@ def gate_errors(pkg: str, phases) -> dict:
     kw = {"device": "cpu"} if pkg == "repro_torch" else {}
     rows = attribution.attribute_energy_many([traces[n] for n in names],
                                              shifted, **kw)
-    want = sum(truth.energy_between(a, b) for _, a, b in shifted)
-    return {n: {"err": abs(sum(p.energy_j for p in r) - want) / want,
+    seen, run = serve_total_errors(dict(zip(names, rows)), traces, shifted,
+                                   truth)
+    return {n: {"err": seen[n], "err_run": run[n],
                 "grid_short_ms": (truth.t1 - float(traces[n].t_read[-1]))
                 * 1e3}
-            for n, r in zip(names, rows)}
+            for n in names}
 
 
 def main(argv=None):
@@ -83,16 +92,18 @@ def main(argv=None):
         torch.set_num_threads(2)
     lo, hi, step = (float(x) for x in args.spans.split(":"))
     runs = [timeline(s) for s in np.arange(lo, hi + step / 2, step)]
-    worst = []
+    worst = {"err": [], "err_run": []}
     for phases in runs:
         res = gate_errors(args.package, phases)
-        worst.append(max(r["err"] for r in res.values()))
+        for k, w in worst.items():
+            w.append(max(r[k] for r in res.values()))
         print(json.dumps({"span_s": round(phases[-1][2] - phases[0][1], 4),
                           **{n: {k: round(v, 6) for k, v in r.items()}
                              for n, r in res.items()}}))
     print(json.dumps({"package": args.package, "runs": len(runs),
-                      "worst_err": max(worst),
-                      "over_gate": int(sum(w > 0.01 for w in worst))}))
+                      **{f"worst_{k}": max(w) for k, w in worst.items()},
+                      **{f"over_gate_{k}": int(sum(x > 0.01 for x in w))
+                         for k, w in worst.items()}}))
 
 
 if __name__ == "__main__":

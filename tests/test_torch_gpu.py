@@ -24,7 +24,7 @@ from repro_torch.kernels.squarewave import (squarewave_fused_ref,
 from repro_torch.kernels.power_reconstruct.ref import (
     reconstruct_power_fleet_ref, reconstruct_power_ref,
     reconstruct_power_rows_ref)
-from repro_torch.kernels.xcorr_align import (make_refbank,
+from repro_torch.kernels.xcorr_align import (LAG_ALIGN, make_refbank,
                                              xcorr_align_kernel,
                                              xcorr_scores, xcorr_scores_ref)
 from repro_torch.kernels.flash_attention import (flash_attention_kernel,
@@ -37,7 +37,7 @@ from torch_cases import (FA_EDGES, PHASE_EDGES, PR_EDGES, REGRID_EDGES,
                          _fa_edge_case, _fleet_rows, _phase_edge_case,
                          _phase_partition, _phase_table, _power_rows,
                          _pr_edge_case, _regrid_case, _regrid_edge_case,
-                         _scan_case, _t, _xcorr_case)
+                         _scan_case, _t, _xcorr_case, _xcorr_edge_case)
 
 
 def _cuda():
@@ -104,6 +104,33 @@ def test_cuda_xcorr_writes_zero_scores_for_padded_lags():
     assert torch.equal(k[:, lags:], torch.zeros_like(k[:, lags:]))
     torch.testing.assert_close(k, xcorr_scores_ref(x, m, padded), rtol=0,
                                atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lags", [1, 129, 1025])
+@pytest.mark.parametrize("g", [1, 700, 2048, 16384])
+@pytest.mark.parametrize("f", [1, 7, 9, 1024])
+def test_cuda_xcorr_edges(f, g, lags):
+    """Within 1e-5 of the plain version, exact zeros on the padded lags,
+    and rows scored alone bit-identical to the same rows within F (an
+    all-masked row 0 and a row offset by 1e4 W included)."""
+    dev = _cuda()
+    x, m, ref, max_lag = _xcorr_edge_case(f, g, lags)
+    bank = make_refbank(torch.tensor(ref, dtype=torch.float32, device=dev),
+                        max_lag=max_lag)
+    bank = torch.cat([bank, bank.new_zeros(((-lags) % LAG_ALIGN, g))])
+    x, m = _t(x).to(dev), _t(m).to(dev)
+    k = xcorr_align_kernel(x, m, bank, n_lags=lags)
+    torch.cuda.synchronize()
+    assert torch.equal(k[:, lags:], torch.zeros_like(k[:, lags:]))
+    torch.testing.assert_close(k, xcorr_scores_ref(x, m, bank), rtol=0,
+                               atol=1e-5)
+    for a, b in {(0, 1), (1, min(f, 8)), (f // 2, f)}:
+        if a < b:
+            alone = xcorr_align_kernel(x[a:b].contiguous(),
+                                       m[a:b].contiguous(), bank,
+                                       n_lags=lags)
+            assert torch.equal(alone, k[a:b]), (a, b)
 
 
 @pytest.mark.gpu

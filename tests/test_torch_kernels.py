@@ -2,6 +2,8 @@
 on CPU tensors) against the JAX reference's oracles on the same seeded
 inputs, the ops' padding, and — on a card only — each CUDA kernel
 against its plain version."""
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -36,7 +38,8 @@ from torch_cases import (FA_EDGES, PHASE_EDGES, PR_EDGES, WRAP_26,
                          _attention_case, _counter_rows, _fa_edge_case,
                          _fleet_rows, _phase_edge_case, _phase_table,
                          _power_rows, _pr_edge_case, _regrid_case,
-                         _regrid_edge_case, _scan_case, _t, _xcorr_case)
+                         _regrid_edge_case, _scan_case, _t, _xcorr_case,
+                         _xcorr_edge_case)
 
 # the test workers share the machine's cores: keep torch from taking them all
 torch.set_num_threads(2)
@@ -59,6 +62,8 @@ from repro_torch.kernels.power_reconstruct.ref import (
 from repro_torch.kernels.xcorr_align import (make_refbank,
                                              xcorr_align_kernel,
                                              xcorr_scores, xcorr_scores_ref)
+from repro_torch.kernels.xcorr_align.kernel import (MAX_CHUNKS, STAGE,
+                                                    split_plan)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_kernel,
                                                  flash_attention_ref)
@@ -198,6 +203,41 @@ def test_xcorr_plain_matches_reference(seed):
     padded = xcorr_scores(_t(x), _t(m), _t(bank)).numpy()
     assert padded.shape == got.shape
     np.testing.assert_allclose(padded, got, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("g", [1, 700])
+@pytest.mark.parametrize("lags", [1, 129])
+def test_xcorr_plain_matches_reference_on_edges(lags, g):
+    """The plain version against the JAX oracle on the card tests' edge
+    rows: one lag or 129, an all-masked row (scores exactly 0) and a row
+    offset by 1e4 W."""
+    x, m, ref, max_lag = _xcorr_edge_case(9, g, lags)
+    bank = np.asarray(jax_make_refbank(jnp.asarray(ref, jnp.float32),
+                                       max_lag=max_lag))
+    got = xcorr_scores_ref(_t(x), _t(m), _t(bank)).numpy()
+    want = np.asarray(jax_xcorr_scores_ref(jnp.asarray(x), jnp.asarray(m),
+                                           jnp.asarray(bank)))
+    assert got.shape == (9, lags)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    assert not got[0].any() and not want[0].any()
+
+
+@pytest.mark.parametrize("g", [0, 1, 31, 32, 33, 700, 2048, 15912, 16384,
+                               100000])
+def test_xcorr_split_plan_covers_g_in_whole_stages(g):
+    per, chunks = split_plan(g)
+    stages = -(-g // STAGE)
+    assert 1 <= chunks <= MAX_CHUNKS and per >= 1
+    assert (chunks - 1) * per < max(stages, 1) <= chunks * per
+
+
+def test_xcorr_split_plan_is_a_function_of_g_alone():
+    """The split's points depend on G alone (the row count is not an
+    argument), so a row's summation order never depends on F; the main
+    path's shapes get 16 chunks of 4 stages and 2 of 249."""
+    assert list(inspect.signature(split_plan).parameters) == ["g"]
+    assert split_plan(2048) == (4, 16)
+    assert split_plan(15912) == (249, 2)
 
 
 def test_estimate_delays_matches_reference():

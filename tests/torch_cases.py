@@ -58,6 +58,23 @@ def _xcorr_case(seed, f=20, g=512, max_lag=16):
     return x.astype(np.float32), m, ref, lag, max_lag
 
 
+def _xcorr_edge_case(f, g, lags, seed=0):
+    """B4 at an edge: ``f`` streams of ``g`` grid points against ``lags``
+    real lags (max_lag = (lags - 1) // 2) of _xcorr_case's square wave;
+    row 0 (of two or more) all masked, the last row offset by 1e4 W (the
+    centring's precision)."""
+    rng = np.random.default_rng(seed)
+    ref = np.where((np.arange(g) // 64) % 2 == 0, 55.0, 215.0)
+    shift = rng.integers(-8, 9, f)
+    x = np.stack([np.roll(ref, k) for k in shift]) \
+        + rng.normal(0.0, 3.0, (f, g)) + rng.uniform(0, 50, (f, 1))
+    x[-1] += 1e4
+    m = (rng.random((f, g)) > 0.05).astype(np.float32)
+    if f > 1:
+        m[0] = 0.0
+    return x.astype(np.float32), m, ref, (lags - 1) // 2
+
+
 def _fleet_rows(seed, f=16, s=300):
     """Raw padded counter reads for the fused fleet front end: the
     counter rows above plus per-row sample counts (some rows short) and,
