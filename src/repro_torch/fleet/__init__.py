@@ -1,6 +1,6 @@
 """Fleet-scale attribution on the device (port of ``repro.fleet``: typed
 config, packing, whole-fleet reconstruction, the two-stage fleet streams,
-the windowed pipeline and the trace-level API)."""
+the windowed pipeline, the fused-scan engine and the trace-level API)."""
 from repro_torch.fleet.config import (CheckpointConfig,  # noqa: F401
                                       PipelineConfig, StreamConfig,
                                       TrackConfig, resolve_config)
@@ -24,6 +24,8 @@ from repro_torch.fleet.pipeline import (AlignTrackStage,  # noqa: F401
                                         attribute_energy_fused_streaming,
                                         pack_stream_rows,
                                         stream_row_windows)
+from repro_torch.fleet.scan import (ScanResult,  # noqa: F401
+                                    attribute_totals_fused_scan)
 from repro_torch.fleet.api import (attribute_energy_fleet,  # noqa: F401
                                    attribute_energy_fused,
                                    fleet_power_series)

@@ -18,9 +18,8 @@ naming the replacement field.  Mixing ``config=`` with legacy kwargs
 is an error: there is exactly one source of truth per call.
 
 The port's copy of ``repro/fleet/config.py``.  The port's entry point
-reads every field and raises ``NotImplementedError`` for the options
-it does not run yet (scan engine, checkpoints, the Pallas-specific
-``interpret``/``use_kernel``/``host`` knobs).
+reads every field and raises ``NotImplementedError`` for the
+Pallas-specific ``interpret``/``use_kernel`` knobs.
 """
 from __future__ import annotations
 

@@ -43,10 +43,11 @@ atomics, so results are deterministic.
 
 Checkpoints: ``StreamingFusedPipeline.checkpoint``/``restore`` write
 and read the reference's on-disk layout (``train.checkpoint``), so a
-run killed in either package resumes in the other.  Not ported yet (the
-entry point raises ``NotImplementedError``): the scan engine (ROADMAP
-A8) and multi-host collectives (A9).  Calibration ``corrections`` apply
-per trace on the host before packing (``pack_stream_rows``).
+run killed in either package resumes in the other.  ``host=True`` runs
+the reference's float64 mirror on the CPU; the scan engine
+(``engine="scan"``) is ``fleet.scan``.  Not ported yet: multi-host
+collectives (ROADMAP A9).  Calibration ``corrections`` apply per trace
+on the host before packing (``pack_stream_rows``).
 """
 from __future__ import annotations
 
@@ -58,6 +59,7 @@ import numpy as np
 import torch
 
 from repro_torch.align.delay import (RefbankCache, estimate_delays,
+                                     estimate_delays_host,
                                      stream_reference)
 from repro_torch.core.calibration import apply_corrections
 from repro_torch.device import resolve_device
@@ -65,9 +67,12 @@ from repro_torch.fleet.config import resolve_config
 from repro_torch.fleet.packing import ROW_ALIGN, _round_up, pack_traces
 from repro_torch.kernels.fleet_attribute.kernel import fleet_attribute_kernel
 from repro_torch.kernels.grid_resample.ops import grid_resample
+from repro_torch.kernels.grid_resample.ref import grid_resample_ref
 from repro_torch.kernels.phase_integrate.kernel import phase_integrate_kernel
 from repro_torch.kernels.power_reconstruct.kernel import (
     power_reconstruct_rows_kernel)
+from repro_torch.kernels.power_reconstruct.ref import (
+    reconstruct_power_rows_ref)
 
 PHASE_ALIGN = 32
 # the fused accumulator is dense over coverage patterns: 2**k_max slots
@@ -133,6 +138,18 @@ def _torch_dtype(dtype) -> torch.dtype:
         return dtype
     return {np.dtype(np.float32): torch.float32,
             np.dtype(np.float64): torch.float64}[np.dtype(dtype)]
+
+
+def _host_device(device, host: bool) -> torch.device:
+    """The device a stage runs on: ``host=True`` (the float64 mirror) is
+    the caller asking for the host, so None means the CPU there and a
+    CUDA device is refused; otherwise ``resolve_device``."""
+    if not host:
+        return resolve_device(device)
+    if device is not None and torch.device(device).type != "cpu":
+        raise ValueError(f"host=True runs the float64 mirror on the CPU; "
+                         f"got device={device!r}")
+    return torch.device("cpu")
 
 
 def sanitize_chunk(times, energy, valid=None, carry_t=None, carry_e=None,
@@ -404,10 +421,14 @@ class IngestStage:
 class ReconstructStage:
     """Counter rows -> instantaneous power via wrap-corrected dE/dt, on
     the ``power_reconstruct_rows`` kernel; power rows pass through.
-    Stateless given closed windows."""
+    ``host=True``: the float64 mirror (the plain version in float64 on
+    the CPU, rounded back to the row dtype).  Stateless given closed
+    windows."""
 
-    def __init__(self, kind_row, wrap_row=None, *, device=None):
-        self.device = resolve_device(device)
+    def __init__(self, kind_row, wrap_row=None, *, device=None,
+                 host: bool = False):
+        self.device = _host_device(device, host)
+        self.host = host
         kr = np.asarray(kind_row, bool).reshape(-1)
         f = len(kr)
         self.any_counter = bool(kr.any())
@@ -424,8 +445,12 @@ class ReconstructStage:
         t, v = chunk.times, chunk.values
         if not self.any_counter:
             return chunk
-        power = power_reconstruct_rows_kernel(
-            v, t, self.wrap_row.to(t.dtype))
+        if self.host:
+            power = reconstruct_power_rows_ref(v.to(_F64), t.to(_F64),
+                                               self.wrap_row)
+        else:
+            power = power_reconstruct_rows_kernel(
+                v, t, self.wrap_row.to(t.dtype))
         out_v = torch.where(self.kind_row[:, None], power.to(v.dtype), v)
         return ClosedWindow(times=t, values=out_v, t_first=chunk.t_first)
 
@@ -514,11 +539,15 @@ def _slot_grid(origin: float, step: float, lo: int, hi: int, device):
     return origin + step * idx
 
 
-def _query_grid(rows_t, rows_v, grid64, delays64, t_first):
+def _query_grid(rows_t, rows_v, grid64, delays64, t_first,
+                host: bool = False):
     """Hold-resample all rows at ``grid + delay[row]`` -> (vals, mask).
 
     Queries are formed in the row dtype, exactly as the reference does,
     so both compare the SAME float32 values at hold discontinuities.
+    ``host=True``: the reference's float64 mirror — the row-dtype grid
+    and delays promoted to float64 and summed there, the plain version
+    searching float64 rows; values come back in the row dtype.
     """
     f, s = rows_t.shape
     dtype, dev = rows_t.dtype, rows_t.device
@@ -526,12 +555,19 @@ def _query_grid(rows_t, rows_v, grid64, delays64, t_first):
     first_row = torch.zeros((f,), dtype=torch.int32, device=dev)
     g = grid64.to(dtype)
     d = delays64.to(dtype)
-    out, mask = grid_resample(rows_t, rows_v, n_row, first_row, g, d,
-                              mode="hold")
+    if host:
+        g, d = g.to(_F64), d.to(_F64)
+        out, mask = grid_resample_ref(rows_t.to(_F64), rows_v.to(_F64),
+                                      n_row[:, None], first_row[:, None],
+                                      g[:, None], d[:, None], mode="hold")
+        span = t_first.to(dtype).to(_F64)
+    else:
+        out, mask = grid_resample(rows_t, rows_v, n_row, first_row, g, d,
+                                  mode="hold")
+        span = t_first.to(dtype)
     ge = g[None, :] + d[:, None]
-    mask = mask & (ge >= t_first.to(dtype)[:, None])
-    return torch.where(mask, out, torch.zeros((), dtype=dtype,
-                                              device=dev)), mask
+    mask = mask & (ge >= span[:, None])
+    return torch.where(mask, out, 0.0).to(dtype), mask
 
 
 # ---------------------------------------------------------------------------
@@ -581,9 +617,10 @@ class AlignTrackStage:
                  reference=None, groups=None, window: int = 2048,
                  hop: int = 512, max_lag: int = 64, ema: float = 0.5,
                  min_corr: float = 0.2, min_fill: int = None,
-                 tail: int = 256, delay0=None):
+                 tail: int = 256, delay0=None, host: bool = False):
         assert reference is not None or groups is not None, \
             "AlignTrack needs a reference schedule or group structure"
+        self.host = host
         self.n_streams = n_streams
         self.step = float(grid_step)
         self.reference = reference
@@ -648,7 +685,8 @@ class AlignTrackStage:
             vals, mask = _query_grid(
                 rows_t, rows_v, grid64,
                 torch.zeros((rows_t.shape[0],), dtype=_F64,
-                            device=rows_t.device), chunk.t_first)
+                            device=rows_t.device), chunk.t_first,
+                host=self.host)
             k = grid64.shape[0]
             if k >= self.window:
                 c.ring_v = vals[:, -self.window:].contiguous()
@@ -666,41 +704,58 @@ class AlignTrackStage:
 
     def _estimate(self):
         c = self.carry
-        n = self.n_streams
         w_idx = np.arange(c.next_slot - self.window, c.next_slot)
-        times64 = self.origin + self.step * w_idx
-        f = c.ring_v.shape[0]
-        dev = c.ring_v.device
+        c.delay, c.seen, point = _track_estimate(
+            c.ring_v, c.ring_m, self.origin + self.step * w_idx, c.delay,
+            c.seen, n=self.n_streams, reference=self.reference,
+            groups=self.groups, step=self.step, max_lag=self.max_lag,
+            ema=self.ema, min_corr=self.min_corr, banks=self._banks,
+            host=self.host)
+        self.history.append(point)
 
-        def run(vals, mask, ref):
-            return estimate_delays(vals, mask.to(vals.dtype), ref,
-                                   step=self.step, max_lag=self.max_lag,
-                                   bank_cache=self._banks)
 
-        if self.reference is not None:
-            ref = np.asarray(self.reference(times64), np.float64)
-            est = run(c.ring_v, c.ring_m, ref)
-            raw, peak = est.delay_s, est.peak_corr
-        else:
-            raw = torch.zeros((f,), dtype=_F64, device=dev)
-            peak = torch.zeros((f,), dtype=_F64, device=dev)
-            lo = 0
-            for g in self.groups:
-                hi = lo + g
-                ref = stream_reference(c.ring_v[lo], c.ring_m[lo])
-                est = run(c.ring_v[lo:hi], c.ring_m[lo:hi], ref)
-                raw[lo:hi], peak[lo:hi] = est.delay_s, est.peak_corr
-                lo = hi
-        good = peak >= self.min_corr
-        good[n:] = False                      # padding rows never track
-        a = torch.where(c.seen, self.ema, 1.0)  # first estimate: direct
-        c.delay = torch.where(good, (1 - a) * c.delay + a * raw, c.delay)
-        c.seen = c.seen | good
-        self.history.append(DelayTrackPoint(
-            t_lo=float(times64[0]), t_hi=float(times64[-1]),
-            t_center=float(0.5 * (times64[0] + times64[-1])),
-            raw=raw[:n].clone(), ema=c.delay[:n].clone(),
-            peak=peak[:n].clone()))
+def _track_estimate(v_win, m_win, times64, delay, seen, *, n: int,
+                    reference, groups, step: float, max_lag: int,
+                    ema: float, min_corr: float, banks: RefbankCache,
+                    host: bool):
+    """One AlignTrack re-estimate over an (F, window) track window at
+    ``times64``: every row scored against the reference (or its group's
+    first stream, one group a call), the ``min_corr`` gate, then the EMA
+    fold -> (delay, seen, DelayTrackPoint).  ``host=True`` scores in
+    float64 on the host (``estimate_delays_host``)."""
+    f = v_win.shape[0]
+    dev = v_win.device
+
+    def run(vals, mask, ref):
+        if host:
+            return estimate_delays_host(vals.to(_F64), mask, ref,
+                                        step=step, max_lag=max_lag)
+        return estimate_delays(vals, mask.to(vals.dtype), ref, step=step,
+                               max_lag=max_lag, bank_cache=banks)
+
+    if reference is not None:
+        ref = np.asarray(reference(times64), np.float64)
+        est = run(v_win, m_win, ref)
+        raw, peak = est.delay_s, est.peak_corr
+    else:
+        raw = torch.zeros((f,), dtype=_F64, device=dev)
+        peak = torch.zeros((f,), dtype=_F64, device=dev)
+        lo = 0
+        for g in groups:
+            hi = lo + g
+            ref = stream_reference(v_win[lo], m_win[lo])
+            est = run(v_win[lo:hi], m_win[lo:hi], ref)
+            raw[lo:hi], peak[lo:hi] = est.delay_s, est.peak_corr
+            lo = hi
+    good = peak >= min_corr
+    good[n:] = False                      # padding rows never track
+    a = torch.where(seen, ema, 1.0)       # first estimate: direct
+    delay = torch.where(good, (1 - a) * delay + a * raw, delay)
+    seen = seen | good
+    return delay, seen, DelayTrackPoint(
+        t_lo=float(times64[0]), t_hi=float(times64[-1]),
+        t_center=float(0.5 * (times64[0] + times64[-1])),
+        raw=raw[:n].clone(), ema=delay[:n].clone(), peak=peak[:n].clone())
 
 
 # ---------------------------------------------------------------------------
@@ -782,8 +837,10 @@ class RegridFuseStage:
     def __init__(self, group_sizes, *, grid_origin: float,
                  grid_step: float, delays=None, align=None,
                  tail: int = 256, var_floor: float = 0.25,
-                 dq_policy: DataQualityPolicy = None, device=None):
-        self.device = resolve_device(device)
+                 dq_policy: DataQualityPolicy = None, device=None,
+                 host: bool = False):
+        self.device = _host_device(device, host)
+        self.host = host
         self.group_sizes = list(group_sizes)
         self.n_streams = int(sum(self.group_sizes))
         self.layout = _GroupLayout(self.group_sizes, self.device)
@@ -834,7 +891,8 @@ class RegridFuseStage:
     def _emit(self, rows_t, rows_v, t_first, delays, lo: int, hi: int):
         grid64 = _slot_grid(self.origin, self.step, lo, hi, rows_t.device)
         self._tail.check_reach(grid64[0] + delays, "Regrid/Fuse")
-        vals, mask = _query_grid(rows_t, rows_v, grid64, delays, t_first)
+        vals, mask = _query_grid(rows_t, rows_v, grid64, delays, t_first,
+                                 host=self.host)
         n = self.n_streams
         vals, mask = vals[:n], mask[:n]
         self.dq_covered += mask.sum(dim=1)
@@ -1031,18 +1089,8 @@ class FusedPhaseAttributeStage:
     def totals(self) -> torch.Tensor:
         """(n_devices, n_phases) float64 fused joules, finalized with the
         end-of-run inverse-variance weights."""
-        lay = self.layout
-        w = lay.gather(self.fuse.weights())              # (D, K)
-        pats = torch.arange(self.n_patterns, device=w.device)
-        member = ((pats[:, None] >> torch.arange(
-            lay.k_max, device=w.device)[None, :]) & 1).to(_F64)  # (C, K)
-        w_tot = (w[:, None, :] * member[None]).sum(dim=2)        # (D, C)
-        contrib = (self.carry.integrals @ w[:, None, :, None])[..., 0]
-        ok = w_tot > 0
-        part = torch.where(ok[..., None],
-                           contrib / torch.where(ok, w_tot, 1.0)[..., None],
-                           0.0)
-        return part.sum(dim=1)
+        return _pattern_totals(self.carry.integrals,
+                               self.layout.gather(self.fuse.weights()))
 
     def weights(self) -> list:
         """Per-device normalized stream weights (diagnostics)."""
@@ -1054,6 +1102,23 @@ class FusedPhaseAttributeStage:
             out.append(w / torch.clamp_min(w.sum(), 1e-30))
             lo += k
         return out
+
+
+def _pattern_totals(integrals, w) -> torch.Tensor:
+    """(D, 2**K, P, K) pattern integrals and (D, K) stream weights (0 on
+    padding) -> (D, P) fused joules: each coverage pattern's integrals
+    weighted by its streams and normalized by their total weight."""
+    k = w.shape[1]
+    pats = torch.arange(integrals.shape[1], device=w.device)
+    member = ((pats[:, None] >> torch.arange(
+        k, device=w.device)[None, :]) & 1).to(_F64)          # (C, K)
+    w_tot = (w[:, None, :] * member[None]).sum(dim=2)        # (D, C)
+    contrib = (integrals @ w[:, None, :, None])[..., 0]
+    ok = w_tot > 0
+    part = torch.where(ok[..., None],
+                       contrib / torch.where(ok, w_tot, 1.0)[..., None],
+                       0.0)
+    return part.sum(dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -1437,7 +1502,9 @@ class StreamingFusedPipeline:
     (``request_energies``); registry: a ``health.HealthRegistry`` gets
     the ``pipeline``, ``fuse`` and ``data_quality`` sources (and
     ``health``); dq_policy: a ``DataQualityPolicy`` for Ingest and
-    Regrid/Fuse.  ``device=None`` means CUDA.
+    Regrid/Fuse.  ``device=None`` means CUDA.  ``host=True`` is the
+    reference's float64 mirror, on the CPU: dE/dt, the hold lookups and
+    the tracker's scores in float64 through the plain versions.
     """
 
     def __init__(self, group_sizes, phases, *, grid_origin: float,
@@ -1447,8 +1514,9 @@ class StreamingFusedPipeline:
                  ema: float = 0.5, min_corr: float = 0.2, tail: int = 256,
                  var_floor: float = 0.25, dtype=np.float32, health=None,
                  registry=None, health_names=None, meter=None,
-                 dq_policy: DataQualityPolicy = None, device=None):
-        self.device = dev = resolve_device(device)
+                 dq_policy: DataQualityPolicy = None, device=None,
+                 host: bool = False):
+        self.device = dev = _host_device(device, host)
         self.group_sizes = list(group_sizes)
         n = int(sum(self.group_sizes))
         self.n_streams = n
@@ -1465,19 +1533,19 @@ class StreamingFusedPipeline:
             track = delays is None
         self.ingest = IngestStage(n, mode="sanitize", kind_row=kr,
                                   dq_policy=dq_policy, device=dev)
-        self.reconstruct = ReconstructStage(kr, wp, device=dev)
+        self.reconstruct = ReconstructStage(kr, wp, device=dev, host=host)
         self.align = None
         if track:
             self.align = AlignTrackStage(
                 n, grid_step=grid_step, reference=reference,
                 groups=None if reference is not None else self.group_sizes,
                 window=window, hop=hop, max_lag=max_lag, ema=ema,
-                min_corr=min_corr, tail=tail, delay0=delays)
+                min_corr=min_corr, tail=tail, delay0=delays, host=host)
         self.fuse = RegridFuseStage(
             self.group_sizes, grid_origin=grid_origin,
             grid_step=grid_step, delays=delays, align=self.align,
             tail=tail, var_floor=var_floor, dq_policy=dq_policy,
-            device=dev)
+            device=dev, host=host)
         self.attr = FusedPhaseAttributeStage(phases, self.group_sizes,
                                              self.fuse, device=dev)
         self.health_stage = None
@@ -1994,13 +2062,9 @@ def _published_steps(d) -> set:
 
 
 def _unsupported(cfg):
-    """Name the options this port does not run yet (queue A of the
-    roadmap), instead of ignoring them."""
+    """Refuse the Pallas knobs (``interpret=True``, ``use_kernel=False``)
+    instead of ignoring them: the port's CPU path is ``device="cpu"``."""
     todo = []
-    if cfg.stream.engine != "windowed":
-        todo.append(f"engine={cfg.stream.engine!r}")
-    if cfg.stream.host:
-        todo.append("host=True")
     if cfg.stream.interpret:
         todo.append("interpret=True")
     if cfg.stream.use_kernel is False:
@@ -2018,7 +2082,7 @@ def attribute_energy_fused_streaming(trace_groups, phases, *,
                                      return_pipe: bool = False,
                                      on_window=None, device=None,
                                      **legacy) -> list:
-    """The windowed fused-attribution pipeline on the device.
+    """The streaming fused-attribution pipeline on the device.
 
     trace_groups: [[SensorTrace, ...], ...] — all sensors observing one
     device per group.  The traces are packed once on the host and
@@ -2046,12 +2110,20 @@ def attribute_energy_fused_streaming(trace_groups, phases, *,
     ``on_window(pipe, w)`` fires after window ``w`` (1-based).  device:
     None means CUDA (raises without a card); pass "cpu" for the plain
     PyTorch versions of the kernels.
+
+    engine: ``"windowed"`` drives the per-window stage chain (the
+    oracle); ``"scan"`` plans the same replay on the host and runs it as
+    one loop of fixed-size steps on the device
+    (``fleet.scan.attribute_totals_fused_scan``), with no health stage,
+    meter, checkpoints or ``return_pipe``, as in the reference.
+    ``StreamConfig(host=True)``: the reference's float64 mirror, on the
+    CPU (a CUDA ``device`` raises ``ValueError``).
     """
-    from repro_torch.core.attribution import PhaseEnergy
     cfg = resolve_config(config, legacy,
                          "attribute_energy_fused_streaming")
     _unsupported(cfg)
-    dev = resolve_device(device)
+    engine, host = cfg.stream.engine, cfg.stream.host
+    dev = _host_device(device, host)
     chunk = cfg.stream.chunk
     grid, grid_step = cfg.stream.grid, cfg.stream.grid_step
     dtype, var_floor = cfg.stream.dtype, cfg.stream.var_floor
@@ -2075,7 +2147,8 @@ def attribute_energy_fused_streaming(trace_groups, phases, *,
         origin = float(rows.times[:rows.n_streams, 0]
                        .astype(np.float64).min())
         t_end = None
-    if tail is None:
+    if tail is None and engine == "windowed":
+        # the scan engine has no carry tail: no cadence scan for it
         tail = default_tail(rows, chunk, delays=delays,
                             max_lag=cfg.track.max_lag, grid_step=grid_step,
                             cadence=cadence)
@@ -2089,8 +2162,30 @@ def attribute_energy_fused_streaming(trace_groups, phases, *,
     if not phases:
         return [[] for _ in groups]
     windows = [(a - rows.t0, b - rows.t0) for _, a, b in phases]
+    assert engine in ("windowed", "scan"), engine
+    if cfg.health:
+        assert engine == "windowed", \
+            "the health stage composes with the windowed engine only"
     if meter:
+        assert engine == "windowed", \
+            "the metering stage composes with the windowed engine only"
         meter = [s.shifted(-rows.t0) for s in meter]
+    ckpt_dir, every = cfg.checkpoint.dir, cfg.checkpoint.every
+    if ckpt_dir is not None or cfg.checkpoint.resume \
+            or on_window is not None:
+        assert engine == "windowed", \
+            "checkpointing drives the windowed engine only"
+    if engine == "scan":
+        assert not return_pipe, "return_pipe needs the windowed engine"
+        from repro_torch.fleet.scan import attribute_totals_fused_scan
+        totals = attribute_totals_fused_scan(
+            rows, [len(g) for g in groups], windows, grid_origin=origin,
+            grid_step=grid_step, t_end=t_end, chunk=chunk, delays=delays,
+            reference=ref, track=track, window=cfg.track.window,
+            hop=cfg.track.hop, max_lag=cfg.track.max_lag,
+            ema=cfg.track.ema, var_floor=var_floor, host=host,
+            device=dev).totals
+        return _phase_rows(phases, totals)
     pipe = StreamingFusedPipeline(
         [len(g) for g in groups], windows, grid_origin=origin,
         grid_step=grid_step, kind_row=rows.kind_row, delays=delays,
@@ -2098,8 +2193,7 @@ def attribute_energy_fused_streaming(trace_groups, phases, *,
         hop=cfg.track.hop, max_lag=cfg.track.max_lag, ema=cfg.track.ema,
         tail=tail, var_floor=var_floor, dtype=dtype, health=cfg.health,
         registry=registry, health_names=[tr.name for tr in flat],
-        meter=meter, dq_policy=cfg.dq, device=dev)
-    ckpt_dir, every = cfg.checkpoint.dir, cfg.checkpoint.every
+        meter=meter, dq_policy=cfg.dq, device=dev, host=host)
     start_w = 0
     if cfg.checkpoint.resume:
         assert ckpt_dir is not None, "resume=True needs checkpoint_dir"
@@ -2117,12 +2211,18 @@ def attribute_energy_fused_streaming(trace_groups, phases, *,
         if on_window is not None:
             on_window(pipe, w)
     pipe.finalize(t_end)
-    totals = pipe.totals().cpu().numpy()
+    out = _phase_rows(phases, pipe.totals().cpu().numpy())
+    return (out, pipe) if return_pipe else out
+
+
+def _phase_rows(phases, totals) -> list:
+    """(n_devices, n_phases) joules -> one ``[PhaseEnergy]`` per device."""
+    from repro_torch.core.attribution import PhaseEnergy
     out = []
-    for di in range(len(groups)):
+    for row_e in totals:
         row = []
-        for (name, a, b), e in zip(phases, totals[di]):
+        for (name, a, b), e in zip(phases, row_e):
             dur = max(b - a, 1e-12)
             row.append(PhaseEnergy(name, a, b, float(e), float(e / dur)))
         out.append(row)
-    return (out, pipe) if return_pipe else out
+    return out

@@ -4,7 +4,8 @@ the JAX batch path on the same seeded traces, state carried across from
 a JAX run, the host-side modules byte for byte, the checkpoint option,
 and the options the port does not run yet (health, data quality,
 metering and the registry are held against the reference in
-``test_torch_health.py`` and ``test_torch_serve.py``)."""
+``test_torch_health.py`` and ``test_torch_serve.py``, the scan engine
+and the host mirror in ``test_torch_scan.py``)."""
 import dataclasses
 import warnings
 
@@ -241,11 +242,16 @@ def test_interop_refuses_a_cast(case):
 
 
 @pytest.mark.parametrize("option", [
-    dict(config=PipelineConfig(stream=StreamConfig(engine="scan"))),
-    dict(config=PipelineConfig(stream=StreamConfig(host=True))),
+    dict(config=PipelineConfig(stream=StreamConfig(engine="scan",
+                                                   interpret=True))),
+    dict(config=PipelineConfig(stream=StreamConfig(host=True,
+                                                   use_kernel=False))),
     dict(config=PipelineConfig(stream=StreamConfig(use_kernel=False))),
-], ids=["scan", "host", "no_kernel"])
+    dict(config=PipelineConfig(stream=StreamConfig(interpret=True))),
+], ids=["scan", "host", "no_kernel", "interpret"])
 def test_unsupported_options_raise(case, option):
+    """The Pallas knobs stay refused on either engine and with the host
+    mirror (the scan engine and ``host=True`` run: ``test_torch_scan.py``)."""
     with pytest.raises(NotImplementedError):
         attribute_energy_fused_streaming(case["port_groups"],
                                          case["phases"], device=CPU,
