@@ -41,9 +41,9 @@ def _record(run):
     kernel = xops.xcorr_align_kernel
     calls = []
 
-    def keep(x, m, bank, *, n_lags):
+    def keep(x, m, bank, *, n_lags, rows_alone=False):
         calls.append(tuple(t.clone() for t in (x, m, bank)) + (n_lags,))
-        return kernel(x, m, bank, n_lags=n_lags)
+        return kernel(x, m, bank, n_lags=n_lags, rows_alone=rows_alone)
 
     xops.xcorr_align_kernel = keep
     try:

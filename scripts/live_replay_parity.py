@@ -71,7 +71,8 @@ def main(argv=None) -> int:
                                            [ab.SOURCES["b4"]])))
     this_kernel = xops.xcorr_align_kernel
 
-    def other_kernel(x, m, bank, *, n_lags):
+    def other_kernel(x, m, bank, *, n_lags, rows_alone=False):
+        # on the card a row's scores never depend on the rows beside it
         if n_other == ab.XCORR_OLD_ARGS:
             return ab.old_xcorr(other, x, m, bank, n_lags)
         with ab.using(other, build):
@@ -79,9 +80,9 @@ def main(argv=None) -> int:
 
     calls = []
 
-    def recording(x, m, bank, *, n_lags):
+    def recording(x, m, bank, *, n_lags, rows_alone=False):
         calls.append((x.clone(), m.clone(), bank.clone(), n_lags))
-        return this_kernel(x, m, bank, n_lags=n_lags)
+        return this_kernel(x, m, bank, n_lags=n_lags, rows_alone=rows_alone)
 
     truth, groups, _ = cs.sim_groups(cs.DEVICES, cs.SPAN_S, args.seed)
     phases = cs.phases_of(truth)

@@ -91,25 +91,28 @@ class RefbankCache:
 
 
 def delay_scores(values: torch.Tensor, mask: torch.Tensor, ref, *,
-                 max_lag: int, bank_cache: RefbankCache = None
-                 ) -> torch.Tensor:
+                 max_lag: int, bank_cache: RefbankCache = None,
+                 rows_alone: bool = False) -> torch.Tensor:
     """Raw (K, L) lag-bank correlations BEFORE the parabolic refine.
 
     ``ref`` is the (G,) reference on the host (numpy) or the device
-    (tensor).  The xcorr row scores do not depend on how many rows are
-    scored together (the kernel sums each output in one thread, in a
-    fixed order), which the reference secures by pinning ROW_ALIGN.
+    (tensor).  The kernel's row scores do not depend on how many rows
+    are scored together (it sums each output in one thread, in a fixed
+    order); ``rows_alone`` secures the same of the CPU's plain version,
+    as the reference's tracker does by pinning ROW_ALIGN.
     """
     if isinstance(ref, torch.Tensor):
         bank = make_refbank(ref.to(values.dtype), max_lag=max_lag)
     else:
         cache = bank_cache if bank_cache is not None else RefbankCache(1)
         bank = cache.get(ref, max_lag, values.dtype, values.device)
-    return xcorr_scores(values, mask.to(values.dtype), bank)
+    return xcorr_scores(values, mask.to(values.dtype), bank,
+                        rows_alone=rows_alone)
 
 
 def estimate_delays(values, mask, ref, *, step: float, max_lag: int,
-                    bank_cache: RefbankCache = None) -> DelayEstimate:
+                    bank_cache: RefbankCache = None,
+                    rows_alone: bool = False) -> DelayEstimate:
     """Delay of every co-gridded stream against one reference.
 
     values/mask: (K, G) on the device; ref: (G,) reference on the same
@@ -117,7 +120,7 @@ def estimate_delays(values, mask, ref, *, step: float, max_lag: int,
     search window in grid steps.
     """
     scores = delay_scores(values, mask, ref, max_lag=max_lag,
-                          bank_cache=bank_cache)
+                          bank_cache=bank_cache, rows_alone=rows_alone)
     return peak_to_delay(scores, step, max_lag)
 
 

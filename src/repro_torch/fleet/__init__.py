@@ -1,11 +1,14 @@
 """Fleet-scale attribution on the device (port of ``repro.fleet``: typed
-config, packing, whole-fleet reconstruction, the two-stage fleet streams,
+config, packing and the multi-host shard types, whole-fleet
+reconstruction, the two-stage fleet streams,
 the windowed pipeline, the fused-scan engine and the trace-level API)."""
 from repro_torch.fleet.config import (CheckpointConfig,  # noqa: F401
                                       PipelineConfig, StreamConfig,
                                       TrackConfig, resolve_config)
-from repro_torch.fleet.packing import (ROW_ALIGN, PackedFleet,  # noqa: F401
-                                       pack_traces, unpack_series)
+from repro_torch.fleet.packing import (ROW_ALIGN, HostShard,  # noqa: F401
+                                       PackedFleet, assign_groups,
+                                       pack_traces, shard_from_assignment,
+                                       unpack_series)
 from repro_torch.fleet.reconstruct import (fleet_reconstruct,  # noqa: F401
                                            fleet_reconstruct_host)
 from repro_torch.fleet.streaming import (FleetStream,  # noqa: F401

@@ -100,11 +100,24 @@ def attribute_energy_fused(trace_groups, phases, *, streaming=False,
     keywords.  ``streaming=True`` runs the windowed pipeline
     (``fleet.pipeline.attribute_energy_fused_streaming``) with its own
     ``config=``; given the batch run's grid and fixed delays the two agree
-    to <= 1e-5.  Multi-host ``collectives``/``shard`` are not ported.
+    to <= 1e-5.  ``shard`` + ``collectives`` (streaming only) split the
+    fleet over processes: ``trace_groups`` are then this host's groups in
+    ``shard.group_ids`` order and every host returns the same fleet-wide
+    result (``distributed.multihost.attribute_energy_fused_multihost``).
     Returns one ``[PhaseEnergy]`` per group.
     """
-    refuse_unported("attribute_energy_fused", collectives=collectives,
-                    shard=shard)
+    if collectives is not None:
+        if not streaming:
+            raise ValueError("multi-host attribution runs the streaming "
+                             "pipeline (pass streaming=True)")
+        from repro_torch.distributed.multihost import (
+            attribute_energy_fused_multihost)
+        return attribute_energy_fused_multihost(
+            trace_groups, phases, shard=shard, collectives=collectives,
+            config=config, device=device, **kw)
+    if shard is not None:
+        raise ValueError("shard without collectives: a multi-host run "
+                         "needs both")
     if streaming:
         from repro_torch.fleet.pipeline import (
             attribute_energy_fused_streaming)

@@ -1,5 +1,6 @@
-"""Ragged-trace packing (port of ``repro/fleet/packing.py``: single-host
-packing and ``unpack_series``; the multi-host shard types are not ported).
+"""Ragged-trace packing (port of ``repro/fleet/packing.py``: packing,
+``unpack_series`` and the multi-host shard types ``HostShard``,
+``assign_groups`` and ``shard_from_assignment``).
 
 Host-side numpy: a straight memcpy of the traces into padded
 (fleet, samples) arrays, identical to the reference's bytes, so both
@@ -50,6 +51,83 @@ class PackedFleet:
     def valid(self):
         """(F, S) bool: slot j of row i is one of its raw reads."""
         return np.arange(self.shape[1])[None, :] < self.n_samples[:, None]
+
+
+@dataclasses.dataclass(frozen=True)
+class HostShard:
+    """One host's slice of a multi-host fleet, in GLOBAL coordinates.
+
+    The fleet is split by DEVICE GROUP (all sensors observing one device
+    stay together), so every group's fusion statistics, coverage
+    patterns and phase integrals are computed entirely on its owning
+    host and the end-of-run merge is pure placement.  Each host packs
+    ONLY its own sensors; the global ids place its rows back into the
+    fleet-wide result.
+    """
+    host: int                   # this process's index
+    n_hosts: int
+    global_group_sizes: tuple   # sensors per device, EVERY device
+    group_ids: tuple            # global device indices owned by this host
+
+    def __post_init__(self):
+        if not 0 <= self.host < self.n_hosts:
+            raise ValueError(f"host {self.host} outside [0, "
+                             f"{self.n_hosts})")
+        if len(self.group_ids) == 0:
+            raise ValueError(
+                f"host {self.host} owns no device groups "
+                f"({self.n_hosts} hosts over "
+                f"{len(self.global_group_sizes)} groups) — use fewer hosts")
+
+    @property
+    def local_group_sizes(self) -> list:
+        return [self.global_group_sizes[g] for g in self.group_ids]
+
+    @property
+    def n_local_streams(self) -> int:
+        return int(sum(self.local_group_sizes))
+
+    @property
+    def row_offsets(self) -> np.ndarray:
+        """(n_groups + 1,) global row offset of every device group."""
+        return np.concatenate(
+            [[0], np.cumsum(self.global_group_sizes)]).astype(np.int64)
+
+    @property
+    def row_ids(self) -> np.ndarray:
+        """(n_local_streams,) global row index of every local row."""
+        off = self.row_offsets
+        return np.concatenate(
+            [np.arange(off[g], off[g + 1]) for g in self.group_ids])
+
+    def take_rows(self, per_row):
+        """Select this host's rows from a fleet-wide per-row array."""
+        return np.asarray(per_row)[self.row_ids]
+
+
+def assign_groups(group_sizes, n_hosts: int, host: int) -> HostShard:
+    """Contiguous balanced device-group assignment (the default split):
+    ``np.array_split`` over group indices, so the first
+    ``n_groups % n_hosts`` hosts take one extra group; raises when a
+    host would own nothing."""
+    sizes = tuple(int(s) for s in group_sizes)
+    ids = np.array_split(np.arange(len(sizes)), n_hosts)[host]
+    return HostShard(host=host, n_hosts=n_hosts,
+                     global_group_sizes=sizes,
+                     group_ids=tuple(int(g) for g in ids))
+
+
+def shard_from_assignment(group_sizes, assignment, host: int,
+                          n_hosts: int = None) -> HostShard:
+    """HostShard for an ARBITRARY host<-group map (``assignment[g]`` is
+    the owning host of group g)."""
+    a = np.asarray(assignment, np.int64)
+    if n_hosts is None:
+        n_hosts = int(a.max()) + 1
+    return HostShard(host=host, n_hosts=n_hosts,
+                     global_group_sizes=tuple(int(s) for s in group_sizes),
+                     group_ids=tuple(int(g)
+                                     for g in np.nonzero(a == host)[0]))
 
 
 def pack_traces(traces, *, use_t_measured: bool = True,

@@ -41,17 +41,29 @@ each) and the two tail-reach checks (one bool each); with health, one
 bool per condition it checks.  Float64 sums fold over fixed axes: no
 atomics, so results are deterministic.
 
+Multi-host (``collectives`` + ``shard``, driven by
+``distributed.multihost.attribute_energy_fused_multihost``): each host
+runs the chain over its own device groups; the tracker's ring origin and
+fill frontier and Regrid/Fuse's emit frontier are all-reduced, each hop's
+(lag, weight) pairs and the health block ride the frontier's one framed
+reduce a window, and PhaseAttr merges the fleet's carries at the end.
+Every float sum inside a stage adds in an order fixed by the reduced
+length alone (``core.reduce``), never by how many rows or
+groups a host holds, so results are bit-identical for any process count
+and host<-group assignment.
+
 Checkpoints: ``StreamingFusedPipeline.checkpoint``/``restore`` write
 and read the reference's on-disk layout (``train.checkpoint``), so a
-run killed in either package resumes in the other.  ``host=True`` runs
-the reference's float64 mirror on the CPU; the scan engine
-(``engine="scan"``) is ``fleet.scan``.  Not ported yet: multi-host
-collectives (ROADMAP A9).  Calibration ``corrections`` apply per trace
-on the host before packing (``pack_stream_rows``).
+run killed in either package resumes in the other; keyed by global
+group, they restore under any process count.  ``host=True`` runs the
+reference's float64 mirror on the CPU; the scan engine
+(``engine="scan"``) is ``fleet.scan``.  Calibration ``corrections``
+apply per trace on the host before packing (``pack_stream_rows``).
 """
 from __future__ import annotations
 
 import dataclasses
+import pickle
 import time
 from pathlib import Path
 
@@ -62,6 +74,7 @@ from repro_torch.align.delay import (RefbankCache, estimate_delays,
                                      estimate_delays_host,
                                      stream_reference)
 from repro_torch.core.calibration import apply_corrections
+from repro_torch.core.reduce import fixed_sum, fold_sum
 from repro_torch.device import resolve_device
 from repro_torch.fleet.config import resolve_config
 from repro_torch.fleet.packing import ROW_ALIGN, _round_up, pack_traces
@@ -597,8 +610,7 @@ class DelayTrackPoint:
 
 
 class AlignTrackStage:
-    """Re-estimate per-stream delays on sliding windows, online
-    (single host).
+    """Re-estimate per-stream delays on sliding windows, online.
 
     An (F, window) ring on a uniform ``grid_step`` grid is filled from
     each closed window through the hold regrid; every ``hop`` new slots
@@ -611,15 +623,43 @@ class AlignTrackStage:
     that mode scores one group per launch.  Estimates with peak
     correlation below ``min_corr`` leave the EMA untouched.
     grid_step must come from the MEASURED cadence (see the reference).
+
+    Multi-host (``collectives`` + ``shard``, "synced"): the ring origin
+    and each update's fill frontier are all-reduced (min), so every host
+    fills the same global slots and fires in lockstep; each host scores
+    its own rows (a row's score does not depend on the rows scored with
+    it), folds them into its local EMA, and queues the fire's (lag,
+    peak) pairs (``pending_contribution``), which Regrid/Fuse sums over
+    the hosts on its frontier frame and hands to ``fold_fleet``: the
+    shared ``fleet_delay_s`` EMA, the same float64 operations on the
+    same inputs as the owner's, so it equals every owner's local delays
+    bit for bit.
     """
 
     def __init__(self, n_streams: int, *, grid_step: float,
                  reference=None, groups=None, window: int = 2048,
                  hop: int = 512, max_lag: int = 64, ema: float = 0.5,
                  min_corr: float = 0.2, min_fill: int = None,
-                 tail: int = 256, delay0=None, host: bool = False):
+                 tail: int = 256, delay0=None, collectives=None,
+                 shard=None, host: bool = False):
         assert reference is not None or groups is not None, \
             "AlignTrack needs a reference schedule or group structure"
+        if collectives is not None:
+            if shard is None:
+                raise ValueError("synchronized tracking needs the "
+                                 "HostShard (global row ids place this "
+                                 "host's lags in the fleet vector)")
+            if host:
+                raise ValueError("synchronized tracking scores on the "
+                                 "device: the host mirror's full-fleet "
+                                 "float64 product is not partition-"
+                                 "invariant (host=True)")
+            if not min_corr > 0.0:
+                raise ValueError("synchronized tracking needs min_corr > "
+                                 "0 (the zero frames of hop-less windows "
+                                 "must never pass the gate)")
+        self.collectives = collectives
+        self.shard = shard
         self.host = host
         self.n_streams = n_streams
         self.step = float(grid_step)
@@ -642,6 +682,9 @@ class AlignTrackStage:
         self.origin = None
         self.carry: AlignCarry = None
         self.history: list = []
+        self._pending = None       # (2, n) device (lag, peak) of a fire
+        self.delay_fleet = None    # (n_global,) shared EMA (synced)
+        self._seen_fleet = None
         self._tail.reset()
         return self
 
@@ -652,15 +695,41 @@ class AlignTrackStage:
             raise RuntimeError("AlignTrack has seen no data yet")
         return self.carry.delay
 
+    @property
+    def synced(self) -> bool:
+        """True when the tracking state is shared over collectives."""
+        return self.collectives is not None
+
+    @property
+    def fleet_delay_s(self) -> np.ndarray:
+        """(n_global,) fleet-wide tracked delays (host float64),
+        identical on every host (synced mode only)."""
+        if not self.synced:
+            raise ValueError("fleet_delay_s needs collectives")
+        if self.delay_fleet is None:
+            raise RuntimeError("AlignTrack has seen no data yet")
+        return self.delay_fleet.copy()
+
     def _init(self, chunk: ClosedWindow):
         f = chunk.times.shape[0]
         n = self.n_streams
         dev = chunk.times.device
-        self.origin = float(chunk.times[:n, 0].to(_F64).min())
+        origin = float(chunk.times[:n, 0].to(_F64).min())
+        d0 = len(self._delay0)
         delay = torch.zeros((f,), dtype=_F64, device=dev)
-        if len(self._delay0):
-            delay[:len(self._delay0)] = torch.as_tensor(
-                self._delay0, dtype=_F64, device=dev)
+        if d0:
+            delay[:d0] = torch.as_tensor(self._delay0, dtype=_F64,
+                                         device=dev)
+        if self.synced:
+            # shared ring origin: every host fills the same global slots,
+            # so the hops (and every estimate's window) land in lockstep
+            n_global = int(self.shard.row_offsets[-1])
+            seed = np.zeros((n_global,))
+            seed[self.shard.row_ids[:d0]] = self._delay0[:n]
+            origin, self.delay_fleet = self.collectives.allreduce_framed(
+                origin, seed, scalar_op="min")
+            self._seen_fleet = np.zeros((n_global,), bool)
+        self.origin = origin
         self.carry = AlignCarry(
             ring_v=torch.zeros((f, self.window), dtype=chunk.values.dtype,
                                device=dev),
@@ -676,6 +745,10 @@ class AlignTrackStage:
         n = self.n_streams
         rows_t, rows_v = self._tail.augmented(chunk)
         frontier = float(chunk.times[:n, -1].to(_F64).min())
+        if self.synced:
+            # fill to the globally slowest stream: the ring advances, and
+            # the hops fire, identically on every host
+            frontier = self.collectives.allreduce_min(frontier)
         hi = int(np.floor((frontier - self.origin) / self.step - 0.01))
         if hi >= c.next_slot:
             grid64 = _slot_grid(self.origin, self.step, c.next_slot, hi,
@@ -711,7 +784,36 @@ class AlignTrackStage:
             groups=self.groups, step=self.step, max_lag=self.max_lag,
             ema=self.ema, min_corr=self.min_corr, banks=self._banks,
             host=self.host)
+        if self.synced:
+            # this fire's (lag, peak) pairs wait for the framed reduce of
+            # Regrid/Fuse's next frontier round trip
+            self._pending = torch.stack([point.raw, point.peak])
         self.history.append(point)
+
+    def pending_contribution(self) -> np.ndarray:
+        """(2, n_global) framed (lag, peak) contribution: this host's
+        rows' lags and peak correlations of the fire since the last fold
+        (one (2, n) float64 copy to the host), zeros elsewhere, and all
+        zero when no hop fired (zero peaks fail the gate on every host,
+        so such a frame folds nothing)."""
+        out = np.zeros((2, len(self.delay_fleet)))
+        if self._pending is not None:
+            out[:, self.shard.row_ids] = self._pending.cpu().numpy()
+            self._pending = None
+        return out
+
+    def fold_fleet(self, reduced) -> None:
+        """Fold the host-summed (lag, peak) vectors into the shared fleet
+        EMA: the gate and fold of ``_track_estimate`` in the same float64
+        operations, on inputs that equal the owners' (each element came
+        from one host), so ``delay_fleet`` equals every owner's local
+        delays bit for bit."""
+        raw, peak = np.asarray(reduced, np.float64).reshape(2, -1)
+        good = peak >= self.min_corr
+        a = np.where(self._seen_fleet, self.ema, 1.0)
+        self.delay_fleet = np.where(
+            good, (1 - a) * self.delay_fleet + a * raw, self.delay_fleet)
+        self._seen_fleet = self._seen_fleet | good
 
 
 def _track_estimate(v_win, m_win, times64, delay, seen, *, n: int,
@@ -730,8 +832,11 @@ def _track_estimate(v_win, m_win, times64, delay, seen, *, n: int,
         if host:
             return estimate_delays_host(vals.to(_F64), mask, ref,
                                         step=step, max_lag=max_lag)
+        # rows scored alone: a row's delay never depends on how many
+        # rows its host scores with it (the multi-host invariance)
         return estimate_delays(vals, mask.to(vals.dtype), ref, step=step,
-                               max_lag=max_lag, bank_cache=banks)
+                               max_lag=max_lag, bank_cache=banks,
+                               rows_alone=True)
 
     if reference is not None:
         ref = np.asarray(reference(times64), np.float64)
@@ -749,7 +854,10 @@ def _track_estimate(v_win, m_win, times64, delay, seen, *, n: int,
             lo = hi
     good = peak >= min_corr
     good[n:] = False                      # padding rows never track
-    a = torch.where(seen, ema, 1.0)       # first estimate: direct
+    # first estimate: direct.  float64 like the host's fleet fold, which
+    # must see the same three operations on the same values (a fill, not
+    # a copy of a host scalar: no sync)
+    a = torch.ones_like(delay).masked_fill_(seen, ema)
     delay = torch.where(good, (1 - a) * delay + a * raw, delay)
     seen = seen | good
     return delay, seen, DelayTrackPoint(
@@ -768,14 +876,17 @@ class _GroupLayout:
     ``rows[d, k]`` is the row of device d's k-th stream (0 for padding),
     ``valid[d, k]`` marks real streams and ``flat[i]`` is stream i's
     position in the flattened (D * k_max) layout, so per-stream results
-    come back by one gather.
+    come back by one gather.  ``k_max`` defaults to the largest group; a
+    multi-host stage passes the fleet's, so every host's layout (and
+    pattern space) is the same.
     """
 
-    def __init__(self, group_sizes, device):
+    def __init__(self, group_sizes, device, k_max: int = None):
         sizes = [int(k) for k in group_sizes]
         assert sizes and min(sizes) >= 1, group_sizes
         self.n_devices = len(sizes)
-        self.k_max = max(sizes)
+        self.k_max = max(sizes) if k_max is None else int(k_max)
+        assert self.k_max >= max(sizes), (k_max, sizes)
         rows = np.zeros((self.n_devices, self.k_max), np.int64)
         valid = np.zeros((self.n_devices, self.k_max), bool)
         flat = []
@@ -817,8 +928,7 @@ class FuseCarry:
 
 
 class RegridFuseStage:
-    """Power windows -> delay-corrected shared-grid slots + fusion stats
-    (single host).
+    """Power windows -> delay-corrected shared-grid slots + fusion stats.
 
     The output grid is fixed (``origin + step * slot``); each update
     emits every slot whose per-row query ``slot_time + delay[row]`` is
@@ -832,15 +942,24 @@ class RegridFuseStage:
     The coverage counters (``dq_covered``, ``dq_last_coverage``,
     ``dq_low_coverage``) stay on the device; ``dq_policy`` with a
     ``min_coverage`` flags (or raises on) thinly covered rows.
+
+    Multi-host (``collectives``): the frontier is all-reduced every
+    update (``_sync``), so every host emits the same slot windows
+    whichever rows it holds; a synced tracker's pending (lag, peak)
+    pairs and the health stage's pending block ride that reduce as one
+    frame and fold before the frontier is used.  Every host must drive
+    the stage through the same number of ``update``/``flush`` calls
+    (time-aligned replay windows over the all-reduced span do).
     """
 
     def __init__(self, group_sizes, *, grid_origin: float,
                  grid_step: float, delays=None, align=None,
                  tail: int = 256, var_floor: float = 0.25,
-                 dq_policy: DataQualityPolicy = None, device=None,
-                 host: bool = False):
+                 collectives=None, dq_policy: DataQualityPolicy = None,
+                 device=None, host: bool = False):
         self.device = _host_device(device, host)
         self.host = host
+        self.collectives = collectives
         self.group_sizes = list(group_sizes)
         self.n_streams = int(sum(self.group_sizes))
         self.layout = _GroupLayout(self.group_sizes, self.device)
@@ -879,6 +998,34 @@ class RegridFuseStage:
     def _fold_health(self):
         if self.health is not None:
             self.health.fold(self.health.take_pending())
+
+    def _sync(self, value: float, op: str) -> float:
+        """Frontier all-reduce (min or max); a synced tracker's pending
+        (lag, peak) pairs and the health stage's pending block ride the
+        same frame (still one round trip) and fold into the shared state
+        before the value is used.  Both blocks are fleet-sized, so every
+        host's frame has the same length, and each element is written by
+        one host, so the left-fold sum is exact."""
+        al, hs = self.align, self.health
+        pend = (al.pending_contribution()
+                if al is not None and al.synced else None)
+        if pend is None and hs is None:
+            return (self.collectives.allreduce_min(value) if op == "min"
+                    else self.collectives.allreduce_max(value))
+        blocks = [] if pend is None else [pend.ravel()]
+        if hs is not None:
+            blocks.append(hs.take_pending().ravel())
+        value, summed = self.collectives.allreduce_framed(
+            value, np.concatenate(blocks), scalar_op=op)
+        off = 0
+        if pend is not None:
+            off = pend.size
+            al.fold_fleet(summed[:off].reshape(2, -1))
+        if hs is not None:
+            # the fleet delays folded first, so the drift flag sees this
+            # window's shared delays on every host
+            hs.fold(summed[off:])
+        return value
 
     def _delays(self, f: int) -> torch.Tensor:
         d = torch.zeros((f,), dtype=_F64, device=self.device)
@@ -923,15 +1070,16 @@ class RegridFuseStage:
                     hm, device=mask.device)[:, None]
         # fusion statistics: per-slot cross-sensor mean within each
         # device group, all groups at once over the padded layout
+        # (a row's additions never depend on the group count)
         lay = self.layout
         m = lay.gather(stat_mask)                       # (D, K, G)
         v = lay.gather(vals.to(_F64))
         mf = m.to(_F64)
-        cnt = mf.sum(dim=1)                             # (D, G)
-        m0 = (v * mf).sum(dim=1) / torch.clamp_min(cnt, 1.0)
+        cnt = fold_sum(mf, 1)                           # (D, G)
+        m0 = fold_sum(v * mf, 1) / torch.clamp_min(cnt, 1.0)
         resid = (v - m0[:, None, :]) * mf
-        self.carry.n_k += lay.scatter(mf.sum(dim=2))
-        self.carry.ssr += lay.scatter((resid * resid).sum(dim=2))
+        self.carry.n_k += lay.scatter(fixed_sum(mf, 2))
+        self.carry.ssr += lay.scatter(fixed_sum(resid * resid, 2))
         self.carry.next_slot = hi + 1
         return GriddedWindow(lo=lo, grid=grid64, values=vals, mask=mask)
 
@@ -942,9 +1090,15 @@ class RegridFuseStage:
         delays = self._delays(rows_t.shape[0])
         frontier = float((chunk.times[:n, -1].to(_F64)
                           - delays[:n]).min())
-        # fold at the multi-host cadence (once per update), so window
-        # w's stats gate the masks from window w+1 on
-        self._fold_health()
+        if self.collectives is not None:
+            # every host trails the globally slowest stream and emits
+            # the same slot windows (the accumulation order, and so the
+            # fused energies, do not depend on the assignment)
+            frontier = self._sync(frontier, "min")
+        else:
+            # single host: fold at the same cadence (once per update),
+            # so window w's stats gate the masks from window w+1 on
+            self._fold_health()
         self.last_frontier = frontier
         # 1% of a step keeps float32-rounded queries strictly inside
         # every row's closed span (flush re-emits with the final bound)
@@ -968,9 +1122,24 @@ class RegridFuseStage:
         f = tc.t.shape[0]
         n = self.n_streams
         delays = self._delays(f)
+        synced = self.collectives is not None and (
+            self.health is not None
+            or (self.align is not None and self.align.synced))
         if t_end is None:
             t_end = float((tc.t[:n, -1].to(_F64) - delays[:n]).max())
-        self._fold_health()
+            if self.collectives is not None:
+                # cover through the globally LAST row (rows that end
+                # early mask off, as in the batch regrid)
+                t_end = self._sync(t_end, "max")
+            else:
+                self._fold_health()
+        elif synced:
+            # an explicit t_end is the same on every host: the reduce is
+            # a no-op on it but still folds the (lag, peak) pairs a last
+            # hop left pending and the health stage's last block
+            t_end = self._sync(float(t_end), "max")
+        else:
+            self._fold_health()
         hi = int(np.floor((t_end - self.origin) / self.step + 1e-9))
         if hi < self.carry.next_slot:
             return None
@@ -1021,19 +1190,39 @@ class FusedPhaseAttributeStage:
     The fused series is sample-and-hold on the output grid, invalid slots
     are bridged by carrying the previous valid edge forward, and the
     first valid slot seeds zero-width — the batch convention.  All device
-    groups fold at once over the padded (D, k_max, G) layout, one batched
-    float64 product per coverage pattern (no atomics).
+    groups fold at once over the padded (D, k_max, G) layout, one float64
+    product a coverage pattern summed over the slots by ``fixed_sum``
+    (no atomics, and a group's sums do not depend on the group count).
+
+    Multi-host (``collectives`` + ``shard``): ``group_sizes`` are this
+    host's groups, ``k_max`` is the fleet's (every host's pattern space
+    is the same), and ``totals``/``weights`` are collective calls: the
+    integrals and the fuse stage's (n_k, ssr) of every host are gathered
+    once and placed by global group, then finalized on every host from
+    the same fleet-wide carries — pure placement, so the answer does not
+    depend on the assignment.
     """
 
     def __init__(self, phases, group_sizes, fuse: RegridFuseStage, *,
-                 device=None):
+                 collectives=None, shard=None, device=None):
         self.device = resolve_device(device)
         ph = np.asarray(phases, np.float64).reshape(-1, 2)
         self.phases = torch.as_tensor(ph, dtype=_F64, device=self.device)
         self.n_phases = len(ph)
         self.group_sizes = list(group_sizes)
         self.fuse = fuse
-        self.layout = _GroupLayout(self.group_sizes, self.device)
+        self.collectives = collectives
+        self.shard = shard
+        k_max = None
+        if collectives is not None:
+            if shard is None:
+                raise ValueError("multi-host totals need the HostShard "
+                                 "(global row ids)")
+            if list(shard.local_group_sizes) != self.group_sizes:
+                raise ValueError("group_sizes must be the shard's local "
+                                 "groups")
+            k_max = max(shard.global_group_sizes)
+        self.layout = _GroupLayout(self.group_sizes, self.device, k_max)
         if self.layout.k_max > MAX_GROUP:
             raise ValueError(f"fused attribution keeps a dense coverage-"
                              f"pattern accumulator: at most {MAX_GROUP} "
@@ -1078,26 +1267,81 @@ class FusedPhaseAttributeStage:
                              - torch.maximum(t_lo[:, None, :], a), 0.0)
         bits = (1 << torch.arange(lay.k_max, device=grid.device))
         pat = (m.to(torch.int64) * bits[None, :, None]).sum(dim=1)
-        vt = vv.transpose(1, 2)                          # (D, G, K)
+        # phases in chunks that keep each (D, P', K, G) product near
+        # 64M elements; a sum over G does not depend on the chunking
+        step = max(1, (1 << 26) // max(lay.n_devices * lay.k_max * g, 1))
         for p in range(1, self.n_patterns):
             sel = (pat == p).to(_F64)[:, None, :]        # (D, 1, G)
-            c.integrals[:, p] += torch.bmm(ov * sel, vt)
+            ovs = ov * sel                               # (D, P, G)
+            for lo in range(0, self.n_phases, step):
+                prod = (ovs[:, lo:lo + step, None, :]
+                        * vv[:, None, :, :])             # (D, P', K, G)
+                c.integrals[:, p, lo:lo + step] += fixed_sum(prod, -1)
         c.t_prev = torch.where(has, grid[last_valid[:, -1].clamp_min(0)],
                                c.t_prev)
         return None
 
+    def _gathered(self):
+        """(integrals, layout, group sizes, stream weights): this host's,
+        or the fleet-wide merge when collectives are attached (a
+        COLLECTIVE call).  The carries cross to the host as float64
+        numpy before they are pickled, are placed by global group id (a
+        group owned twice or by nobody raises), and the merged carries
+        go back to the device."""
+        if self.collectives is None:
+            return (self.carry.integrals, self.layout, self.group_sizes,
+                    self.fuse.weights())
+        sh, n = self.shard, self.fuse.n_streams
+        payload = pickle.dumps(
+            (tuple(int(g) for g in sh.group_ids),
+             self.carry.integrals.cpu().numpy(),
+             self.fuse.carry.n_k[:n].cpu().numpy(),
+             self.fuse.carry.ssr[:n].cpu().numpy()))
+        sizes = [int(k) for k in sh.global_group_sizes]
+        off = sh.row_offsets
+        integrals = np.zeros((len(sizes),)
+                             + tuple(self.carry.integrals.shape[1:]))
+        owned = np.zeros((len(sizes),), bool)
+        n_k = np.zeros((int(off[-1]),))
+        ssr = np.zeros((int(off[-1]),))
+        for raw in self.collectives.allgather_bytes(payload):
+            gids, ints, nk_l, ssr_l = pickle.loads(raw)
+            lo = 0
+            for j, g in enumerate(gids):
+                if owned[g]:
+                    raise ValueError(f"device group {g} owned by two "
+                                     f"hosts")
+                owned[g] = True
+                integrals[g] = ints[j]
+                k = sizes[g]
+                n_k[off[g]:off[g] + k] = nk_l[lo:lo + k]
+                ssr[off[g]:off[g] + k] = ssr_l[lo:lo + k]
+                lo += k
+        if not owned.all():
+            raise ValueError(f"multi-host merge: device groups "
+                             f"{np.flatnonzero(~owned).tolist()} are "
+                             f"owned by no host")
+        dev = self.device
+        w = _ivw_weights(torch.as_tensor(n_k, device=dev),
+                         torch.as_tensor(ssr, device=dev),
+                         self.fuse.var_floor)
+        return (torch.as_tensor(integrals, device=dev),
+                _GroupLayout(sizes, dev, self.layout.k_max), sizes, w)
+
     def totals(self) -> torch.Tensor:
         """(n_devices, n_phases) float64 fused joules, finalized with the
-        end-of-run inverse-variance weights."""
-        return _pattern_totals(self.carry.integrals,
-                               self.layout.gather(self.fuse.weights()))
+        end-of-run inverse-variance weights; fleet-wide (global device
+        order, the same on every host) in multi-host mode."""
+        integrals, layout, _, w = self._gathered()
+        return _pattern_totals(integrals, layout.gather(w))
 
     def weights(self) -> list:
-        """Per-device normalized stream weights (diagnostics)."""
-        w_flat = self.fuse.weights()
+        """Per-device normalized stream weights (diagnostics);
+        fleet-wide in multi-host mode."""
+        _, _, sizes, w_flat = self._gathered()
         out = []
         lo = 0
-        for k in self.group_sizes:
+        for k in sizes:
             w = w_flat[lo:lo + k]
             out.append(w / torch.clamp_min(w.sum(), 1e-30))
             lo += k
@@ -1112,13 +1356,13 @@ def _pattern_totals(integrals, w) -> torch.Tensor:
     pats = torch.arange(integrals.shape[1], device=w.device)
     member = ((pats[:, None] >> torch.arange(
         k, device=w.device)[None, :]) & 1).to(_F64)          # (C, K)
-    w_tot = (w[:, None, :] * member[None]).sum(dim=2)        # (D, C)
-    contrib = (integrals @ w[:, None, :, None])[..., 0]
+    w_tot = fold_sum(w[:, None, :] * member[None], 2)        # (D, C)
+    contrib = fold_sum(integrals * w[:, None, None, :], 3)   # (D, C, P)
     ok = w_tot > 0
     part = torch.where(ok[..., None],
                        contrib / torch.where(ok, w_tot, 1.0)[..., None],
                        0.0)
-    return part.sum(dim=1)
+    return fixed_sum(part, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -1167,12 +1411,13 @@ class MeteringStage(FusedPhaseAttributeStage):
     """
 
     def __init__(self, segments, group_sizes, fuse: RegridFuseStage, *,
-                 device=None):
+                 collectives=None, shard=None, device=None):
         segs = sorted(segments,
                       key=lambda s: (s.t_lo, s.t_hi, tuple(sorted(s.rids))))
         self.segments = segs
         super().__init__([(s.t_lo, s.t_hi) for s in segs], group_sizes,
-                         fuse, device=device)
+                         fuse, collectives=collectives, shard=shard,
+                         device=device)
 
     def update(self, gw: GriddedWindow):
         super().update(gw)
@@ -1490,7 +1735,7 @@ def stream_row_windows(rows: StreamRows, chunk: int = 1024, *,
 
 class StreamingFusedPipeline:
     """Ingest -> Reconstruct -> AlignTrack -> Regrid/Fuse -> PhaseAttr on
-    one device (single host).
+    one device.
 
     group_sizes: sensors per device, in row order (trailing padding rows
     up to a ROW_ALIGN multiple are ignored).  phases: [(a, b)] in pipeline
@@ -1505,6 +1750,12 @@ class StreamingFusedPipeline:
     Regrid/Fuse.  ``device=None`` means CUDA.  ``host=True`` is the
     reference's float64 mirror, on the CPU: dE/dt, the hold lookups and
     the tracker's scores in float64 through the plain versions.
+
+    Multi-host: ``collectives`` (a ``distributed.multihost``
+    HostCollectives) + ``shard`` (this host's ``HostShard``;
+    ``group_sizes`` are its local groups) synchronize the stages (see
+    ``distributed.multihost``); ``totals``/``weights`` then return the
+    fleet and are collective calls.
     """
 
     def __init__(self, group_sizes, phases, *, grid_origin: float,
@@ -1512,12 +1763,21 @@ class StreamingFusedPipeline:
                  delays=None, reference=None, track: bool = None,
                  window: int = 2048, hop: int = 512, max_lag: int = 64,
                  ema: float = 0.5, min_corr: float = 0.2, tail: int = 256,
-                 var_floor: float = 0.25, dtype=np.float32, health=None,
+                 var_floor: float = 0.25, collectives=None, shard=None,
+                 dtype=np.float32, health=None,
                  registry=None, health_names=None, meter=None,
                  dq_policy: DataQualityPolicy = None, device=None,
                  host: bool = False):
         self.device = dev = _host_device(device, host)
         self.group_sizes = list(group_sizes)
+        self.collectives = collectives
+        self.shard = shard
+        if collectives is not None:
+            if shard is None:
+                raise ValueError("multi-host pipelines need the HostShard")
+            if list(shard.local_group_sizes) != self.group_sizes:
+                raise ValueError("group_sizes must be this host's local "
+                                 "groups")
         n = int(sum(self.group_sizes))
         self.n_streams = n
         f = _round_up(n, ROW_ALIGN)
@@ -1540,28 +1800,35 @@ class StreamingFusedPipeline:
                 n, grid_step=grid_step, reference=reference,
                 groups=None if reference is not None else self.group_sizes,
                 window=window, hop=hop, max_lag=max_lag, ema=ema,
-                min_corr=min_corr, tail=tail, delay0=delays, host=host)
+                min_corr=min_corr, tail=tail, delay0=delays,
+                collectives=collectives, shard=shard, host=host)
         self.fuse = RegridFuseStage(
             self.group_sizes, grid_origin=grid_origin,
             grid_step=grid_step, delays=delays, align=self.align,
-            tail=tail, var_floor=var_floor, dq_policy=dq_policy,
-            device=dev, host=host)
-        self.attr = FusedPhaseAttributeStage(phases, self.group_sizes,
-                                             self.fuse, device=dev)
+            tail=tail, var_floor=var_floor, collectives=collectives,
+            dq_policy=dq_policy, device=dev, host=host)
+        self.attr = FusedPhaseAttributeStage(
+            phases, self.group_sizes, self.fuse, collectives=collectives,
+            shard=shard, device=dev)
         self.health_stage = None
         if health is not None and health is not False:
             from repro_torch.health.stage import (HealthConfig,
                                                   SensorHealthStage)
             hcfg = health if isinstance(health, HealthConfig) else None
+            row_ids = n_global = None
+            if shard is not None:
+                row_ids = np.asarray(shard.row_ids, np.int64)
+                n_global = int(sum(shard.global_group_sizes))
             self.health_stage = SensorHealthStage(
                 self.group_sizes, hcfg, grid_step=grid_step,
-                names=health_names, align=self.align, registry=registry,
-                device=dev)
+                row_ids=row_ids, n_global=n_global, names=health_names,
+                align=self.align, registry=registry, device=dev)
             self.fuse.health = self.health_stage
         self.meter_stage = None
         if meter:
-            self.meter_stage = MeteringStage(list(meter), self.group_sizes,
-                                             self.fuse, device=dev)
+            self.meter_stage = MeteringStage(
+                list(meter), self.group_sizes, self.fuse,
+                collectives=collectives, shard=shard, device=dev)
         stages = [self.ingest, self.reconstruct]
         if self.align is not None:
             stages.append(self.align)
@@ -1576,6 +1843,8 @@ class StreamingFusedPipeline:
             self.pipeline.attach_registry(registry)
             self._attach_fuse_metrics(registry)
             self._attach_dq_metrics(registry)
+            if collectives is not None:
+                registry.track_collectives(collectives)
         self._dtype = _torch_dtype(dtype)
         self._np_dtype = torch.empty((), dtype=self._dtype).numpy().dtype
         self._window = int(window)
@@ -1667,7 +1936,9 @@ class StreamingFusedPipeline:
         return self
 
     def totals(self) -> torch.Tensor:
-        """(n_devices, n_phases) float64 fused joules so far."""
+        """(n_devices, n_phases) float64 fused joules so far; multi-host,
+        the fleet's (global device order, the same on every host) and a
+        collective call."""
         return self.attr.totals()
 
     def weights(self) -> list:
@@ -1687,6 +1958,14 @@ class StreamingFusedPipeline:
             return self.align.delay_s[:self.n_streams].clone()
         return self.fuse._fixed.clone()
 
+    def fleet_delays(self):
+        """(n_global,) fleet-wide tracked delays, identical on every host
+        (multi-host tracking; None otherwise)."""
+        al = self.align
+        if al is not None and al.synced and al.delay_fleet is not None:
+            return al.fleet_delay_s
+        return None
+
     @property
     def delay_history(self) -> list:
         return [] if self.align is None else self.align.history
@@ -1697,15 +1976,20 @@ class StreamingFusedPipeline:
 
     # -- checkpoint/restart ----------------------------------------------
     #
-    # The reference's layout, single host:
+    # The reference's layout (a directory every host can reach):
     #
-    #   ckpt_dir/shared/step_W/          state every group shares: the
+    #   ckpt_dir/shared/step_W/          process 0 only: state that is
+    #                                    the same on every host (the
     #                                    frontier slots, the tracker's
-    #                                    origin, the health machine
-    #   ckpt_dir/group_{gid:05d}/step_W/ one device group's carry slices
+    #                                    origin and fleet EMA, the
+    #                                    health machine)
+    #   ckpt_dir/group_{gid:05d}/step_W/ the owning host: one GLOBAL
+    #                                    device group's carry slices
     #
-    # Every saved array is the exact carry, so a restored run continues
-    # the left folds bit-identically.  Each carry tensor crosses to the
+    # Keyed by global group, a checkpoint restores under any process
+    # count and host<-group assignment, each host gathering the groups
+    # it now owns.  Every saved array is the exact carry, so a restored
+    # run continues the left folds bit-identically.  Each carry tensor crosses to the
     # host once per checkpoint and is sliced per group in numpy; restore
     # assembles each carry in numpy and moves it to the device once.
     # The dense attribution integrals are saved as the reference's
@@ -1713,19 +1997,24 @@ class StreamingFusedPipeline:
 
     @property
     def _ckpt_group_ids(self) -> list:
+        if self.shard is not None:
+            return [int(g) for g in self.shard.group_ids]
         return list(range(len(self.group_sizes)))
 
     def _ckpt_config(self) -> dict:
         """Pipeline-shape fingerprint, the reference's field for field
         (plain Python values, numpy's dtype spelling): restore refuses
         a checkpoint written by a differently configured pipeline."""
+        gs = (self.shard.global_group_sizes if self.shard is not None
+              else self.group_sizes)
+        al = self.align
         return {
-            "global_group_sizes": [int(s) for s in self.group_sizes],
+            "global_group_sizes": [int(s) for s in gs],
             "n_phases": int(self.attr.n_phases),
             "grid_origin": float(self.fuse.origin),
             "grid_step": float(self.fuse.step),
-            "track": self.align is not None,
-            "synced": False,
+            "track": al is not None,
+            "synced": bool(al is not None and al.synced),
             "window": int(self._window),
             "hop": int(self._hop),
             "tail": int(self._tail_width),
@@ -1755,6 +2044,11 @@ class StreamingFusedPipeline:
                 "next_slot": np.asarray([al.carry.next_slot], i64),
                 "last_est_slot": np.asarray([al.carry.last_est_slot],
                                             i64)}
+            if al.synced:
+                tree["align"]["delay_fleet"] = np.asarray(al.delay_fleet,
+                                                          np.float64)
+                tree["align"]["seen_fleet"] = np.asarray(al._seen_fleet,
+                                                         bool)
         if hs is not None:
             tree["health"] = {
                 "state": np.asarray(hs.state, i64),
@@ -1784,6 +2078,10 @@ class StreamingFusedPipeline:
         if al is not None:
             tree["align"] = {"origin": f1(), "next_slot": i1(),
                              "last_est_slot": i1()}
+            if al.synced:
+                g = int(self.shard.row_offsets[-1])
+                tree["align"]["delay_fleet"] = np.zeros((g,), np.float64)
+                tree["align"]["seen_fleet"] = np.zeros((g,), bool)
         if hs is not None:
             g = hs.n_global
             gi = lambda: np.zeros((g,), np.int64)      # noqa: E731
@@ -1870,10 +2168,16 @@ class StreamingFusedPipeline:
 
     def checkpoint(self, ckpt_dir, *, keep: int = 3) -> int:
         """Write one checkpoint at the current window boundary (between
-        ``update`` calls); returns its step, the windows processed."""
+        ``update`` calls; every host at the same boundary in multi-host
+        mode, though it is not a collective); returns its step, the
+        windows processed.  Each host writes the groups it owns, and
+        process 0 the shared state."""
         from repro_torch.train.checkpoint import save_checkpoint
         assert self.pipeline.windows > 0, \
             "checkpoint() before the first update has nothing to save"
+        assert self.align is None or self.align._pending is None, \
+            "checkpoint() must run at a window boundary (a pending " \
+            "tracker contribution would be lost)"
         step = int(self.pipeline.windows)
         root = Path(ckpt_dir)
         cfg = self._ckpt_config()
@@ -1908,18 +2212,21 @@ class StreamingFusedPipeline:
             save_checkpoint(root / f"group_{gid:05d}", step, tree,
                             keep=keep, extra_meta=meta)
             lo += k
-        save_checkpoint(
-            root / "shared", step, self._shared_state(), keep=keep,
-            extra_meta={"config": cfg,
-                        "suggested": (dict(hs._suggested)
-                                      if hs is not None else {})})
+        if self.collectives is None or self.collectives.process_id == 0:
+            save_checkpoint(
+                root / "shared", step, self._shared_state(), keep=keep,
+                extra_meta={"config": cfg,
+                            "suggested": (dict(hs._suggested)
+                                          if hs is not None else {})})
         return step
 
     def _resolve_ckpt_step(self, root, step):
-        """Largest step published by ``shared`` and every group dir:
-        a kill that landed mid-checkpoint drops that step."""
+        """Largest step published by ``shared`` and EVERY global group
+        dir: the same answer on every host, and a kill that landed
+        mid-checkpoint drops that step for everyone."""
+        n_groups = len(self._ckpt_config()["global_group_sizes"])
         common = _published_steps(root / "shared")
-        for gid in self._ckpt_group_ids:
+        for gid in range(n_groups):
             common &= _published_steps(root / f"group_{gid:05d}")
         if step is not None:
             if int(step) not in common:
@@ -1935,7 +2242,9 @@ class StreamingFusedPipeline:
     def restore(self, ckpt_dir, *, step: int = None) -> int:
         """Reload the carries of :meth:`checkpoint` (written by this
         package or the reference); returns the window count it was
-        taken at (the replay skip count).
+        taken at (the replay skip count).  Elastic: this host gathers the
+        global groups it owns now, whatever process count and
+        assignment wrote them.
 
         Trailing padding rows replicate the last real row, the state an
         uninterrupted run holds (``update`` pads its inputs the same
@@ -2019,6 +2328,10 @@ class StreamingFusedPipeline:
             al._tail.carry = TailCarry(
                 t=rows("align", "tail_t"), v=rows("align", "tail_v"),
                 dropped_t=rows("align", "tail_dropped"))
+            al._pending = None
+            if al.synced:
+                al.delay_fleet = np.asarray(sa["delay_fleet"], np.float64)
+                al._seen_fleet = np.asarray(sa["seen_fleet"], bool)
         for sec, st in self._phase_stages().items():
             ints = np.zeros(tuple(st.carry.integrals.shape))
             for j, (g, k) in enumerate(zip(groups, self.group_sizes)):

@@ -16,19 +16,23 @@ deterministic fusion mask fed back to the fuse/attribute stages.
 
 Where the work runs: the per-window statistics block is computed on
 the device from the emitted window's tensors (float32 window
-arithmetic, float64 row sums, the group sums as one ``torch.matmul``
-against a group-indicator matrix) and stays there until the fold; the
-fold copies the ``(N_STATS, n)`` block to the host once (with the
-tracked delays for the drift flag riding in the same copy), and the
-state machine, streaks, flags and events run on the host in numpy, as
-in the reference.  The window itself never leaves the device.
+arithmetic, float64 row sums, the group sums over a padded
+(groups, k_max) row index; every float sum by ``core.reduce``, so a
+row's statistics do not depend on how many rows or groups its host
+holds) and stays there until the fold; the fold copies the
+``(N_STATS, n)`` block to the host once (with the tracked delays for the
+drift flag riding in the same copy, unless the tracker is synced and
+the flag reads the shared fleet delays), and the state machine, streaks,
+flags and events run on the host in numpy, as in the reference.  The
+window itself never leaves the device.
 
 Decisions folded from window ``w`` gate the masks applied from window
 ``w+1`` on; with every sensor healthy the masks are all-ones and the
 fuse/attribute arithmetic is bypassed entirely, keeping results
 bit-identical to a pipeline without the stage.  Single host: every
 component of the block is written by this host (``row_ids`` places the
-local rows among ``n_global``, as a multi-host layout would).
+local rows among ``n_global``); multi-host, each host writes its rows
+and the blocks are summed on the frontier frame.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.reduce import fixed_sum, fold_sum
 from repro_torch.device import resolve_device
 from repro_torch.health.events import (
     HEALTHY, SUSPECT, QUARANTINED, RECOVERING, HealthEvent)
@@ -130,12 +135,21 @@ class SensorHealthStage:
         self.names = list(names)
         sizes = np.asarray(self.group_sizes, np.int64)
         self._gidx = np.repeat(np.arange(len(sizes)), sizes)
-        # group sums as one matmul against a (groups, rows) indicator:
-        # the host copy decides the dark-group fallback, the device copy
-        # sums the window
+        # the (groups, rows) indicator decides the dark-group fallback on
+        # the host; the device sums a group over its padded row index
         self._ind = np.zeros((len(sizes), self.n_streams), np.float32)
         self._ind[self._gidx, np.arange(self.n_streams)] = 1.0
-        self._ind_dev = torch.as_tensor(self._ind, device=self.device)
+        k_max = int(sizes.max())
+        rows = np.zeros((len(sizes), k_max), np.int64)
+        member = np.zeros((len(sizes), k_max), np.float32)
+        lo = 0
+        for g, k in enumerate(sizes):
+            rows[g, :k] = np.arange(lo, lo + k)
+            member[g, :k] = 1.0
+            lo += k
+        self._grows = torch.as_tensor(rows, device=self.device)
+        self._gmember = torch.as_tensor(member[..., None],
+                                        device=self.device)
         self._gidx_dev = torch.as_tensor(self._gidx, device=self.device)
         self.reset()
         if registry is not None:
@@ -188,7 +202,8 @@ class SensorHealthStage:
         if p is None:
             return out
         al = self.align
-        if al is not None and al.carry is not None:
+        if (al is not None and al.carry is not None
+                and not getattr(al, "synced", False)):
             d = al.delay_s[:self.n_streams].to(p.dtype)
             host = torch.cat([p, d[None]]).cpu().numpy()
             self._delays = host[N_STATS]
@@ -291,13 +306,18 @@ class SensorHealthStage:
         out = np.zeros((self.n_global,), bool)
         if al is None:
             return out
-        local, self._delays = self._delays, None
-        if local is None:
-            if al.carry is None:
+        if getattr(al, "synced", False):
+            if al.delay_fleet is None:
                 return out
-            local = al.delay_s[:self.n_streams].cpu().numpy()
-        delays = np.zeros((self.n_global,))
-        delays[self.row_ids] = local
+            delays = al.delay_fleet
+        else:
+            local, self._delays = self._delays, None
+            if local is None:
+                if al.carry is None:
+                    return out
+                local = al.delay_s[:self.n_streams].cpu().numpy()
+            delays = np.zeros((self.n_global,))
+            delays[self.row_ids] = local
         cap = self.cfg.drift_frac * al.max_lag * al.step
         return np.abs(np.asarray(delays, np.float64)) > cap
 
@@ -355,15 +375,19 @@ class SensorHealthStage:
 
         The block is computed where the window lives: float32 window
         math with every row sum accumulated in float64, the group sums
-        as ``torch.matmul`` against the indicator; nothing comes back to
-        the host here (``local_mask`` is host state)."""
+        over the padded row index, all by ``core.reduce``; nothing comes
+        back to the host here (``local_mask`` is host state)."""
         n = self.n_streams
         vals = gw.values[:n].to(torch.float32)
         mask = gw.mask[:n].to(torch.bool)
         dev = vals.device
         hm = self.local_mask()
         f64 = torch.float64
-        ind, gidx = self._ind_dev, self._gidx_dev
+        gidx = self._gidx_dev
+
+        def group_sum(x):                      # (n, W) -> (groups, W)
+            return fold_sum(x[self._grows] * self._gmember, 1)
+
         maskf = mask.to(torch.float32)
         # reference = healthy-member fused mean; a fully-dark group
         # (every member quarantined) falls back to the raw mean so its
@@ -376,10 +400,10 @@ class SensorHealthStage:
             keep = torch.as_tensor(hm | dark[self._gidx], device=dev)
             mhf = (mask & keep[:, None]).to(torch.float32)
         vmh = vals * mhf
-        cnt = torch.matmul(ind, mhf)                     # (groups, W)
+        cnt = group_sum(mhf)                             # (groups, W)
         have = cnt > 0
         fused = torch.where(
-            have, torch.matmul(ind, vmh) / torch.clamp_min(cnt, 1.0),
+            have, group_sum(vmh) / torch.clamp_min(cnt, 1.0),
             torch.zeros((), dtype=torch.float32, device=dev))
         if healthy:
             # all-healthy: a valid sample implies its own group is
@@ -394,17 +418,17 @@ class SensorHealthStage:
         blk = torch.zeros((N_STATS, n), dtype=f64, device=dev)
         blk[_N_VALID] = mask.sum(dim=1).to(f64)
         blk[_N_EXP] = hsum[gidx]
-        blk[_R_SUM] = r.to(f64).sum(dim=1)
-        blk[_R_SQ] = (r * r).to(f64).sum(dim=1)
-        blk[_V_SUM] = vm.to(f64).sum(dim=1)
-        blk[_V_SQ] = (vals * vm).to(f64).sum(dim=1)
+        blk[_R_SUM] = fixed_sum(r.to(f64), 1)
+        blk[_R_SQ] = fixed_sum((r * r).to(f64), 1)
+        blk[_V_SUM] = fixed_sum(vm.to(f64), 1)
+        blk[_V_SQ] = fixed_sum((vals * vm).to(f64), 1)
         if vals.shape[1] > 1:
             blk[_CHG] = ((vals[:, 1:] != vals[:, :-1])
                          & mask[:, 1:] & mask[:, :-1]).sum(dim=1).to(f64)
         fh = fused * have
-        fsum = fh.to(f64).sum(dim=1)
+        fsum = fixed_sum(fh.to(f64), 1)
         blk[_F_SUM] = fsum[gidx]
-        blk[_F_SQ] = (fused * fh).to(f64).sum(dim=1)[gidx]
+        blk[_F_SQ] = fixed_sum((fused * fh).to(f64), 1)[gidx]
         if fused.shape[1] > 2:
             # fused-mean crossings between adjacent covered slots
             fmean = (fsum / torch.clamp_min(hsum, 1.0))[:, None]

@@ -21,7 +21,7 @@ from repro_torch.core.measurement_model import CHIP_IDLE_W, ToolSpec
 from repro_torch.core.power_model import occupancy_power, phase_power
 from repro_torch.core.sensors import NodeFabric
 from repro_torch.core.tracing import RegionTracer
-from repro_torch.device import refuse_unported, resolve_device
+from repro_torch.device import resolve_device
 
 _UNSET = object()      # legacy-kwarg sentinel (see fleet.config)
 
@@ -98,12 +98,19 @@ def fused_fleet_energize(tracer: RegionTracer, n_nodes, *, n_chips=4,
     then attributes on the fused power.  ``streaming=True`` runs the same
     accounting through the windowed pipeline (``fleet.pipeline``) with
     its ``config``; the flat ``chunk``/``track``/``engine``/``interpret``
-    kwargs resolve as in the reference (deprecated).  Multi-host
-    ``shard``/``collectives`` are not ported.  Returns one [PhaseEnergy]
-    per node.
+    kwargs resolve as in the reference (deprecated).  ``shard`` +
+    ``collectives`` split the fleet over processes: this host simulates
+    only the nodes its ``HostShard`` assigns it (per-node seeds keep each
+    node's sensors those of the single-host run) and every host returns
+    the fleet-wide result, tracking synchronized over the collectives
+    (``distributed.multihost``).  Returns one [PhaseEnergy] per node.
     """
-    refuse_unported("fused_fleet_energize", shard=shard,
-                    collectives=collectives)
+    if (shard is None) != (collectives is None):
+        raise ValueError("shard and collectives come together (a shard "
+                         "without collectives would attribute this "
+                         "host's nodes only)")
+    if shard is not None and len(shard.global_group_sizes) != n_nodes:
+        raise ValueError("the HostShard must cover all n_nodes groups")
     from repro_torch.fleet.config import resolve_config
     dev = resolve_device(device)
     legacy = {k: v for k, v in dict(track=track, chunk=chunk,
@@ -118,11 +125,21 @@ def fused_fleet_energize(tracer: RegionTracer, n_nodes, *, n_chips=4,
     wanted = ["chip0_energy", "chip0_power_inst", "pm_accel0_power",
               "pm_accel0_energy", "chip0_power_avg"][:max(sensors_per_chip,
                                                           1)]
+    local_nodes = (range(n_nodes) if shard is None
+                   else list(shard.group_ids))
     groups = []
-    for node in range(n_nodes):
+    for node in local_nodes:
         fabric = NodeFabric(chip_truths=[truth] * n_chips)
         traces = fabric.sample_all(ToolSpec(), seed=seed0 + node)
         groups.append([traces[n] for n in wanted])
+    if collectives is not None:
+        from repro_torch.distributed.multihost import (
+            attribute_energy_fused_multihost)
+        return attribute_energy_fused_multihost(
+            groups, shifted, shard=shard, collectives=collectives,
+            reference=truth, corrections=nic_rail_corrections(),
+            config=resolve_config(config, legacy, "fused_fleet_energize"),
+            device=dev)
     if streaming:
         from repro_torch.fleet.pipeline import (
             attribute_energy_fused_streaming)

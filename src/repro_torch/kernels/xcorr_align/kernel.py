@@ -35,18 +35,25 @@ def split_plan(g: int) -> tuple:
     return per, -(-stages // per)
 
 
-def xcorr_align_kernel(x, m, refbank, *, n_lags: int):
+def xcorr_align_kernel(x, m, refbank, *, n_lags: int,
+                       rows_alone: bool = False):
     """x/m: (F, G) float32 streams and 0/1 validity; refbank: (L, G)
     float32 whose rows from ``n_lags`` on are zero padding -> (F, L)
     float32 normalized scores (those of the padding are 0).
 
-    A CPU tensor takes the plain version over the whole bank; a CUDA
-    tensor launches the kernel (two or three CUDA launches, one call) on
-    the current stream, which writes the padding's zeros without a
-    product.
+    A CPU tensor takes the plain version over the whole bank; with
+    ``rows_alone`` one row a call, so a row's scores do not depend on the
+    rows scored with it (a CPU matmul's blocking does; the kernel's
+    never do).  A CUDA tensor launches the kernel (two or three CUDA
+    launches, one call) on the current stream, which writes the
+    padding's zeros without a product.
     """
     dev = x.device
     if dev.type == "cpu":
+        if rows_alone:
+            return torch.cat([xcorr_scores_ref(x[i:i + 1], m[i:i + 1],
+                                               refbank)
+                              for i in range(x.shape[0])])
         return xcorr_scores_ref(x, m, refbank)
     if dev.type != "cuda":
         raise ValueError(f"xcorr_align: unsupported device {dev}")

@@ -24,14 +24,15 @@ def make_refbank(ref: torch.Tensor, *, max_lag: int) -> torch.Tensor:
                        torch.zeros((), dtype=ref.dtype, device=ref.device))
 
 
-def xcorr_scores(x, m, refbank):
+def xcorr_scores(x, m, refbank, *, rows_alone: bool = False):
     """(F, G) streams + mask vs (L, G) bank -> (F, L) scores.
 
     Pads L to ``LAG_ALIGN`` with all-zero bank rows (they score 0: the
     plain version through the eps-guarded norm, the CUDA kernel without
     a product) and F to ``ROW_ALIGN`` with zero rows, and slices both
     back, as the reference op does.  The CUDA kernel's row scores do not
-    depend on F, so the padding changes no score.
+    depend on F, so the padding changes no score; ``rows_alone`` makes
+    the CPU's plain version score each row alone, so neither do its.
     """
     m = m.to(x.dtype)
     f, g = x.shape
@@ -44,5 +45,6 @@ def xcorr_scores(x, m, refbank):
         x = torch.cat([x, x.new_zeros((pad_f, g))])
         m = torch.cat([m, m.new_zeros((pad_f, g))])
     scores = xcorr_align_kernel(x.contiguous(), m.contiguous(),
-                                refbank.contiguous(), n_lags=lags)
+                                refbank.contiguous(), n_lags=lags,
+                                rows_alone=rows_alone)
     return scores[:f, :lags]

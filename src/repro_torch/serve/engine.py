@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tracing import RegionTracer
-from repro_torch.device import refuse_unported, resolve_device, wait
+from repro_torch.device import resolve_device, wait
 from repro_torch.fleet.pipeline import SlotSegment
 from repro_torch.models import Model
 from repro_torch.serve.metering import (RequestEnergy, RequestEnergyReport,
@@ -137,10 +137,12 @@ class _AttributionMixin:
         ``health.SensorHealthStage`` into the pipeline (True or a
         ``HealthConfig``); ``registry`` (a ``HealthRegistry``, defaulting
         to the engine's own) collects the health and pipeline metrics.
-        Not ported: ``shard``/``collectives`` (ROADMAP A9).
+        ``shard`` + ``collectives`` (streaming only) extend that pipeline
+        over processes: this engine's traces are the local device groups
+        the ``HostShard`` describes, and the dict covers the local
+        devices with fleet-consistent energies, tracking synchronized
+        over the collectives (``distributed.multihost``).
         """
-        refuse_unported("attribute_phases", collectives=collectives,
-                        shard=shard, item="A9")
         reg = registry if registry is not None else self.registry
         phases = [(n, a + t_shift, b + t_shift)
                   for n, a, b in self.tracer.phases(depth=depth)]
@@ -153,7 +155,19 @@ class _AttributionMixin:
             from repro_torch.align import (attribute_energy_fused,
                                            group_traces_by_device)
             groups = group_traces_by_device(traces)
-            if streaming:
+            if collectives is not None:
+                if not streaming:
+                    raise ValueError("multi-host attribution runs the "
+                                     "streaming pipeline")
+                from repro_torch.distributed.multihost import (
+                    attribute_energy_fused_multihost)
+                all_rows = attribute_energy_fused_multihost(
+                    list(groups.values()), phases, shard=shard,
+                    collectives=collectives, config=config,
+                    corrections=corrections, reference=reference,
+                    registry=reg, device=self.device, **legacy)
+                rows = [all_rows[g] for g in shard.group_ids]
+            elif streaming:
                 from repro_torch.fleet.pipeline import (
                     attribute_energy_fused_streaming)
                 rows = attribute_energy_fused_streaming(

@@ -459,6 +459,7 @@ def test_batch_matches_windowed_with_fixed_delays(case, chunk):
     lambda g, t: tfleet.attribute_energy_fleet(g[0][:1], [("p", 0, 1)],
                                                device=CPU,
                                                use_kernel=False),
+    # multi-host runs the streaming pipeline only, and needs both
     lambda g, t: tfleet.attribute_energy_fused(g, [("p", 0, 1)],
                                                device=CPU, collectives=1),
     lambda g, t: tfleet.attribute_energy_fused(g, [("p", 0, 1)],
@@ -470,9 +471,14 @@ def test_batch_matches_windowed_with_fixed_delays(case, chunk):
     lambda g, t: tfleet.fleet_reconstruct(t, device=CPU, mesh=1),
 ], ids=["aef-use_kernel", "fused-collectives", "fused-shard",
         "align-interpret", "stream-mesh", "acc-use_kernel", "recon-mesh"])
-def test_unported_options_raise(case, call):
+def test_unported_options_raise(case, call, request):
     _, traces = _counter_traces(n=1)
     packed = tfleet.pack_traces([_port_trace(traces[0])])
+    if request.node.callspec.id in ("fused-collectives", "fused-shard"):
+        with pytest.raises(ValueError, match="streaming pipeline|needs "
+                                             "both"):
+            call(case["port_groups"], packed)
+        return
     with pytest.raises(NotImplementedError, match="does not support"):
         call(case["port_groups"], packed)
 

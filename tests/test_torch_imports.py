@@ -1,6 +1,7 @@
 """PyTorch port, import boundary: ``repro_torch`` loads with JAX and every
 module of the reference package blocked, its sources name neither, and
 its entry points never drop quietly to the CPU."""
+import os
 import re
 import subprocess
 import sys
@@ -101,9 +102,8 @@ def test_case_study_entry_points_default_to_cuda(monkeypatch):
         squarewave_load(torch.ones(8, 8), fma_chain=2, interpret=True)
     with pytest.raises(NotImplementedError, match="use_kernel=False"):
         squarewave_load(torch.ones(8, 8), fma_chain=2, use_kernel=False)
-    with pytest.raises(NotImplementedError, match="shard"):
-        hpl.fused_fleet_energize(tracer, 1, shard=object(),
-                                 collectives=object(), device="cpu")
+    with pytest.raises(ValueError, match="shard and collectives"):
+        hpl.fused_fleet_energize(tracer, 1, shard=object(), device="cpu")
 
 
 _SERVE_MODULES = ("repro_torch.configs", "repro_torch.configs.base",
@@ -319,3 +319,44 @@ def test_kernel_build_flags_and_path():
                     "squarewave.cu", "xcorr_align.cu"]
     assert "--use_fast_math" not in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+_MULTIHOST_MODULES = ("repro_torch.distributed",
+                      "repro_torch.distributed.multihost",
+                      "repro_torch.distributed.compression",
+                      "repro_torch.core.reduce")
+
+
+@pytest.mark.parametrize("module", _MULTIHOST_MODULES)
+def test_multihost_module_imports_with_jax_and_repro_blocked(module):
+    """The multi-host layer (collectives, reduce frame, the entry) and
+    the fixed-order sums load on their own with JAX and the reference
+    blocked."""
+    test_case_study_module_imports_with_jax_and_repro_blocked(module)
+
+
+def test_spawned_worker_imports_nothing_of_jax_or_the_reference():
+    """A process with JAX and the reference blocked spawns 2 workers;
+    each runs a small multi-host attribution and reports the JAX or
+    reference modules it holds: none."""
+    tests = Path(__file__).resolve().parent
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError(name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "from repro_torch.distributed.multihost import run_multihost\n"
+        "import torch_multihost_workers as w\n"
+        "if __name__ == '__main__':\n"
+        "    out = run_multihost(w.leaked_imports, 2, timeout_s=150)\n"
+        "    assert out == [[], []], out\n"
+        "    print('clean')\n")
+    env = {"PYTHONPATH": os.pathsep.join([str(tests.parent / "src"),
+                                          str(tests)]),
+           "PATH": "/usr/bin:/bin"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=200, env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.strip().endswith("clean")

@@ -245,10 +245,17 @@ def test_attribute_phases_fused_windowed_matches_reference():
 
 
 def test_unported_serve_options_raise_naming_the_roadmap():
+    """``mesh=`` stays refused naming A9 (one card a process: there is no
+    device mesh to shard over); multi-host ``shard``/``collectives`` run
+    the streaming pipeline (tests/test_torch_multihost.py) and refuse the
+    batch one."""
+    from repro_torch.models.layers import attention_apply
     _, _, eng, port_traces, _ = _served_fabric()
     with pytest.raises(NotImplementedError, match="A9"):
-        eng.attribute_phases(port_traces, fuse=True, streaming=True,
-                             shard=object(), collectives=object())
+        attention_apply(None, None, None, None, mesh=object())
+    with pytest.raises(ValueError, match="streaming pipeline"):
+        eng.attribute_phases(port_traces, fuse=True, shard=object(),
+                             collectives=object())
 
 
 # ---------------------------------------------- per-request metering
