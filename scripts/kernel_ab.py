@@ -54,7 +54,10 @@ then run through both libraries, each one's largest error against the
 plain version printed as the gate measures it (relative to the plain
 output's largest magnitude) and in bf16 ulps at that magnitude.  The last
 line is one JSON object; the exit code is 1 if a kernel of this tree
-fails its gate.  Needs a CUDA card and nvcc; imports nothing of JAX.
+fails its gate.  An other tree whose B9 entries predate the key length
+and the window (12 arguments: the entry up to commit 144dfe9) is called
+through them at the shapes both take (Sk == S, no window).  Needs a
+CUDA card and nvcc; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -105,15 +108,42 @@ def build_other(tree: Path, build, names) -> Path:
     return out
 
 
+FA_OLD_ARGS = 12       # B9's entry before the key length and the window:
+                       # q, k, v, o, B, Hq, Hkv, S, strides, causal, cap,
+                       # stream (this tree's adds Sk after S, window after
+                       # causal)
+
+
+def fa_entry_args(tree: Path) -> int:
+    """The number of arguments of B9's C entries in ``tree``'s source
+    (0 where the entry macro is not found)."""
+    path = tree / "src" / "repro_torch" / "csrc" / SOURCES["b9"]
+    src = path.read_text() if path.is_file() else ""
+    hit = re.search(r'extern "C" int NAME\(([^)]*)\)', src)
+    return hit.group(1).count(",") + 1 if hit else 0
+
+
 @contextlib.contextmanager
-def using(lib, build):
-    """Route the wrappers' C entries to ``lib`` (None: this tree's)."""
+def using(lib, build, fa_old=False):
+    """Route the wrappers' C entries to ``lib`` (None: this tree's);
+    ``fa_old``: ``lib``'s B9 entries take the 12 arguments of the entry
+    before the key length and the window, so this tree's call drops Sk
+    and the window (it must pass Sk == S and no window)."""
     saved = build.c_function
 
     def entry(name, argtypes):
         fn = getattr(lib, name)
-        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        if fa_old and name.startswith("fa_launch_"):
+            fn.argtypes = argtypes[:8] + argtypes[9:11] + argtypes[12:]
+
+            def call(*a):
+                if a[8] != a[7] or a[11]:
+                    raise ValueError("the other tree's B9 takes neither "
+                                     "a key length nor a window")
+                return fn(*a[:8], *a[9:11], *a[12:])
+            return call
+        fn.argtypes = argtypes
         return fn
     if lib is not None:
         build.c_function = entry
@@ -257,7 +287,7 @@ def serve_calls(cs, gen, dev, want) -> dict:
     return calls
 
 
-def flash_edges(cs, other, build, dev) -> dict:
+def flash_edges(cs, other, build, dev, fa_old=False) -> dict:
     """B9 bf16's worst error over the card tests' edge cases, both
     libraries."""
     import torch
@@ -273,7 +303,7 @@ def flash_edges(cs, other, build, dev) -> dict:
                    _attention_case(3, b=1, hq=2 * group, hkv=2, s=s, d=d))
         want = flash_attention_ref(q, k, v, causal=causal, logit_cap=cap)
         for side, lib in (("other", other), ("this", None)):
-            with using(lib, build):
+            with using(lib, build, fa_old and lib is not None):
                 got = flash_attention_kernel(q, k, v, causal=causal,
                                              logit_cap=cap)
             rel = cs._rel_err(got, want)
@@ -428,6 +458,14 @@ def main(argv=None) -> int:
             ap.error(f"b4: the other tree's xcorr_align_launch takes "
                      f"{n_other} arguments, neither this tree's nor the "
                      f"{XCORR_OLD_ARGS} of the entry before the redesign")
+    fa_old = False
+    if "b9" in want:
+        n_fa = fa_entry_args(args.against)
+        if n_fa not in (FA_OLD_ARGS, fa_entry_args(ROOT)):
+            ap.error(f"b9: the other tree's entries take {n_fa} arguments, "
+                     f"neither this tree's nor the {FA_OLD_ARGS} of the "
+                     f"entry before the key length and the window")
+        fa_old = n_fa == FA_OLD_ARGS
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -458,7 +496,7 @@ def main(argv=None) -> int:
         want_out = ref()
         checks, outs = {}, {}
         for side, lib in (("other", other), ("this", None)):
-            with using(lib, build):
+            with using(lib, build, fa_old and lib is not None):
                 outs[side] = fn()
                 checks[side], ok = compare(outs[side], want_out)
             if not ok and side == "this":
@@ -472,7 +510,8 @@ def main(argv=None) -> int:
         before = cs.gpu_clocks()
         ms = {"other": [], "this": []}
         for side in ("other", "this", "this", "other"):
-            with using(other if side == "other" else None, build):
+            with using(other if side == "other" else None, build,
+                       fa_old and side == "other"):
                 ms[side].append(cs.timed(fn)["device_ms"])
         after = cs.gpu_clocks()
         mean = {s: sum(v) / len(v) for s, v in ms.items()}
@@ -484,7 +523,7 @@ def main(argv=None) -> int:
               f"other/this {mean['other'] / mean['this']:.3f}; {checks}; "
               f"card before {before}, after {after}")
     if "b9" in want:
-        result["edges"] = flash_edges(cs, other, build, dev)
+        result["edges"] = flash_edges(cs, other, build, dev, fa_old)
     result["failed"] = failed
     print(json.dumps(result, default=str))
     if failed:

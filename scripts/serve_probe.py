@@ -5,9 +5,11 @@
 
 Builds the kernels, holds B9 (``flash_attention``) and B10
 (``selective_scan``) against their plain versions at the serving shapes
-and times them (``chip_smoke.check_serve_kernels``), then serves both
-configurations (``chip_smoke.run_serving``: llama3.2-3b at full size
-and the 8-layer Jamba-width hybrid) with every gate of the full script.
+and times them (``chip_smoke.check_serve_kernels``, B9 at the zoo's
+shapes too), then serves each configuration of ``chip_smoke.serve_configs``
+(``chip_smoke.run_serving``: llama3.2-3b at full size, the 8-layer
+Jamba-width hybrid and moonshot-v1-16b-a3b at full size) with every
+gate of the full script.
 A quick check of the serving path, and a second sample of its numbers:
 the last line is one JSON object with the kernels' records (the card's
 SM clock, draw and temperature read before and after each kernel's
@@ -42,7 +44,7 @@ def main(argv=None) -> int:
     records = cs.check_serve_kernels(torch.device("cuda"), args.seed)
     serving = {}
     for label, cfg, cuts in cs.serve_configs():
-        serving[label], _ = cs.run_serving(label, cfg, cuts, args.seed)
+        serving[label] = cs.run_serving(label, cfg, cuts, args.seed)[0]
     kernels = {k: dict(cs.kernel_entry(v), clocks_before=v["clocks_before"],
                        clocks_after=v["clocks_after"])
                for k, v in records.items()}

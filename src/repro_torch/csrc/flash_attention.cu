@@ -1,19 +1,28 @@
-// flash_attention: causal or full GQA attention with an online softmax and
-// an optional tanh soft-cap.
+// flash_attention: causal, sliding-window or full GQA attention with an
+// online softmax and an optional tanh soft-cap.
 //
 // Replaces the TPU kernel flash_attention_kernel (_fa_kernel) in
 // src/repro/kernels/flash_attention/kernel.py.
 //
 //   s[i,j] = q_i . k_j / sqrt(D);  s = cap * tanh(s / cap) if cap > 0;
-//   s[i,j] = -1e30 where causal and j > i;   o_i = softmax_j(s[i,:]) v
-// for q (B, Hq, S, D) and k/v (B, Hkv, S, D), query head h reading kv
+//   s[i,j] = -1e30 where causal and j > i, or where a window w > 0 is
+//   given and i - j >= w (the reference's _attend);  o_i = softmax_j(s) v
+// for q (B, Hq, Sq, D) and k/v (B, Hkv, Sk, D), query head h reading kv
 // head h / (Hq / Hkv) (jnp.repeat's order in the reference), float32
-// accumulation, the output in q's type.  Strides are arguments (the head
-// dimension must be contiguous), so the model's (B, S, H, D) activations
-// go in as they are, without a transpose, and the output keeps q's layout.
-// Both kernels take one block per (batch * query head, 64-row query
-// tile), mask keys and rows past S (any S >= 1), and stop the causal loop
-// at the diagonal tile.
+// accumulation, the output in q's type.  Sk may differ from Sq only
+// without causality (whisper's cross-attention: the prompt, or one
+// position, against 1500 encoder frames); a window needs causality
+// (gemma2's local layers).  Strides are arguments (the head dimension
+// must be contiguous), so the model's (B, S, H, D) activations go in as
+// they are, without a transpose, and the output keeps q's layout.  Both
+// kernels take one block per (batch * query head, 64-row query tile),
+// mask keys past Sk and rows past Sq (any Sq, Sk >= 1), stop the causal
+// loop at the diagonal tile and start a windowed one at the tile that
+// holds the first row's first key (q0 - w + 1): tiles wholly left of the
+// window are never loaded.  A row whose keys in a tile are all masked
+// takes p = 1 there with m = -1e30; its first tile with a key in the
+// window rescales that away (exp(-1e30 - m) = 0), and every row has one
+// (its own position).
 //
 // Bound on the H100: at the serve path's shapes (S ~ 1000, D = 128) the
 // work, 2*S*S*D operations a head causal, sits far above the bytes (q, k,
@@ -99,8 +108,8 @@ template <int D>
 __global__ void __launch_bounds__(kF32Threads)
 fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, int Hq,
-              int group, int S, Strides sq, Strides sk, Strides sv,
-              Strides so, int causal, float cap, float sqrt_d) {
+              int group, int S, int Sk, Strides sq, Strides sk, Strides sv,
+              Strides so, int causal, int window, float cap, float sqrt_d) {
   extern __shared__ float smem[];
   float* Qs = smem;                    // [kBQ][D]
   float* Ks = Qs + kBQ * D;            // [D][kKPad], transposed
@@ -131,15 +140,16 @@ fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[i][c] = 0.0f;
   }
-  const int n_keys = causal ? min(S, q0 + kBQ) : S;
+  const int n_keys = causal ? min(Sk, q0 + kBQ) : Sk;
   const int n_tiles = (n_keys + kBK - 1) / kBK;
+  const int t_first = window > 0 ? max(q0 - window + 1, 0) / kBK : 0;
   const unsigned full = 0xffffffffu;
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_first; t < n_tiles; ++t) {
     const int k0 = t * kBK;
     __syncthreads();                   // the last tile's k/v are consumed
     for (int i = tid; i < kBK * D; i += kF32Threads) {
       const int r = i / D, d = i % D;
-      const bool ok = k0 + r < S;
+      const bool ok = k0 + r < Sk;
       Ks[d * kKPad + r] = ok ? kb[(k0 + r) * sk.s + d] : 0.0f;
       Vs[i] = ok ? vb[(k0 + r) * sv.s + d] : 0.0f;
     }
@@ -171,7 +181,9 @@ fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int key = k0 + tx + 16 * j;
         float x = __fdiv_rn(s[i][j], sqrt_d);
         if (cap > 0.0f) x = cap * tanhf(__fdiv_rn(x, cap));
-        if (key >= S || (causal && key > row)) x = kNegInf;
+        if (key >= Sk || (causal && key > row) ||
+            (window > 0 && row - key >= window))
+          x = kNegInf;
         s[i][j] = x;
         mt = fmaxf(mt, x);
       }
@@ -287,12 +299,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 //   A regs 0..3: (row g, k 2c..2c+1), (g+8, 2c..), (g, 2c+8..), (g+8, 2c+8..)
 //   B regs 0..1: (k 2c..2c+1, n g), (k 2c+8.., n g)
 //   C 0..3:      (row g, n 2c), (g, 2c+1), (g+8, 2c), (g+8, 2c+1)
-template <int D>
+// kWin: a window is given.  The kernel without one carries none of the
+// window's bounds and masks: they cost registers at D = 128, where the
+// accumulators already take 251 of 255.
+template <int D, bool kWin>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, bf16* __restrict__ o, int Hq,
-              int group, int S, Strides sq, Strides sk, Strides sv,
-              Strides so, int causal, float score_mul, float cap_mul) {
+              int group, int S, int Sk, Strides sq, Strides sk, Strides sv,
+              Strides so, int causal, int window, float score_mul,
+              float cap_mul) {
   constexpr int P = mma_pitch<D>();
   constexpr int KD = D / 16;           // k-steps of Q K^T
   constexpr int ND = D / 8;            // n-tiles of the output
@@ -314,25 +330,26 @@ fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + b * sv.b + hk * sv.h;
   bf16* ob = o + b * so.b + h * so.h;
 
-  // a 64-row tile of rows r0.. into shared memory, zeros past S
+  // a 64-row tile of rows r0.. into shared memory, zeros past n
   auto load_tile = [&](bf16* dst, const bf16* src, long long stride,
-                       int r0) {
+                       int r0, int n) {
 #pragma unroll
     for (int i = 0; i < kBQ * CH / kMmaThreads; ++i) {
       const int chunk = tid + i * kMmaThreads;
       const int r = chunk / CH, cc = chunk % CH;
-      const bool ok = r0 + r < S;
+      const bool ok = r0 + r < n;
       const bf16* from = ok ? src + (r0 + r) * stride + cc * 8 : src;
       cp_async16(smem_u32(dst + r * P + cc * 8), from, ok);
     }
   };
 
-  const int n_keys = causal ? min(S, q0 + kBQ) : S;
+  const int n_keys = causal ? min(Sk, q0 + kBQ) : Sk;
   const int n_tiles = (n_keys + kBK - 1) / kBK;
-  load_tile(Qs, qb, sq.s, q0);
+  const int t_first = kWin ? max(q0 - window + 1, 0) / kBK : 0;
+  load_tile(Qs, qb, sq.s, q0, S);
   cp_async_commit();
-  load_tile(Ks, kb, sk.s, 0);
-  load_tile(Vs, vb, sv.s, 0);
+  load_tile(Ks, kb, sk.s, t_first * kBK, Sk);
+  load_tile(Vs, vb, sv.s, t_first * kBK, Sk);
   cp_async_commit();
   cp_async_wait<1>();                  // Q has landed
   __syncthreads();
@@ -355,11 +372,11 @@ fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int row0 = q0 + warp * 16 + g;
   const unsigned full = 0xffffffffu;
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
+  for (int t = t_first; t < n_tiles; ++t) {
+    const int buf = (t - t_first) & 1;
     if (t + 1 < n_tiles) {             // the next tile's copy overlaps
-      load_tile(Ks + (buf ^ 1) * kBK * P, kb, sk.s, (t + 1) * kBK);
-      load_tile(Vs + (buf ^ 1) * kBK * P, vb, sv.s, (t + 1) * kBK);
+      load_tile(Ks + (buf ^ 1) * kBK * P, kb, sk.s, (t + 1) * kBK, Sk);
+      load_tile(Vs + (buf ^ 1) * kBK * P, vb, sv.s, (t + 1) * kBK, Sk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -389,7 +406,8 @@ fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // scale (and cap) into the log2 domain, mask, online softmax
     const int k0 = t * kBK;
-    const bool masked = k0 + kBK > S || (causal && k0 + kBK - 1 > q0);
+    const bool masked = k0 + kBK > Sk || (causal && k0 + kBK - 1 > q0) ||
+                        (kWin && q0 + kBQ - 1 - k0 >= window);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
@@ -400,7 +418,9 @@ fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (masked) {
           const int key = k0 + 8 * n + 2 * c4 + (e & 1);
           const int row = row0 + 8 * (e >> 1);
-          if (key >= S || (causal && key > row)) x = kNegInf;
+          if (key >= Sk || (causal && key > row) ||
+              (kWin && row - key >= window))
+            x = kNegInf;
         }
         s[n][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -495,8 +515,8 @@ Strides strides_of(const long long* st, int i) {
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int Hq, int Hkv, int S, const long long* st, int causal,
-               float cap, void* stream) {
+               int Hq, int Hkv, int S, int Sk, const long long* st,
+               int causal, int window, float cap, void* stream) {
   const int smem = f32_smem_floats<D>() * static_cast<int>(sizeof(float));
   static bool opted[kMaxDevices] = {};
   const cudaError_t err = opt_in(fa_f32_kernel<D>, smem, opted);
@@ -506,18 +526,21 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Hq, Hq / Hkv, S,
-      strides_of(st, 0), strides_of(st, 1), strides_of(st, 2),
-      strides_of(st, 3), causal, cap, sqrtf(static_cast<float>(D)));
+      Sk, strides_of(st, 0), strides_of(st, 1), strides_of(st, 2),
+      strides_of(st, 3), causal, window, cap, sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int Hq, int Hkv, int S, const long long* st, int causal,
-                float cap, void* stream) {
+                int Hq, int Hkv, int S, int Sk, const long long* st,
+                int causal, int window, float cap, void* stream) {
   const int smem = mma_smem_bytes<D>();
   static bool opted[kMaxDevices] = {};
-  const cudaError_t err = opt_in(fa_mma_kernel<D>, smem, opted);
+  static bool opted_win[kMaxDevices] = {};
+  const cudaError_t err =
+      window > 0 ? opt_in(fa_mma_kernel<D, true>, smem, opted_win)
+                 : opt_in(fa_mma_kernel<D, false>, smem, opted);
   if (err != cudaSuccess) return static_cast<int>(err);
   // scores -> log2 domain: x * log2(e) / sqrt(D), or with the cap
   // cap * log2(e) * tanh(x / (sqrt(D) * cap))
@@ -526,25 +549,29 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   const float score_mul = cap > 0.0f ? rsd / cap : rsd * log2e;
   const float cap_mul = cap > 0.0f ? cap * log2e : 0.0f;
   const dim3 grid(B * Hq, (S + kBQ - 1) / kBQ);
-  fa_mma_kernel<D><<<grid, kMmaThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = window > 0 ? fa_mma_kernel<D, true> : fa_mma_kernel<D, false>;
+  kernel<<<grid, kMmaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), Hq, Hq / Hkv, S,
-      strides_of(st, 0), strides_of(st, 1), strides_of(st, 2),
-      strides_of(st, 3), causal, score_mul, cap_mul);
+      Sk, strides_of(st, 0), strides_of(st, 1), strides_of(st, 2),
+      strides_of(st, 3), causal, window, score_mul, cap_mul);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// strides: 12 int64, (batch, head, seq) for q, k, v and o in turn.
+// S: query rows, Sk: keys; strides: 12 int64, (batch, head, seq) for q,
+// k, v and o in turn; window: 0 for none.
 #define FA_ENTRY(NAME, LAUNCH)                                               \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* o,  \
-                      int B, int Hq, int Hkv, int S,                         \
-                      const long long* strides, int causal, float cap,       \
-                      void* stream) {                                        \
+                      int B, int Hq, int Hkv, int S, int Sk,                 \
+                      const long long* strides, int causal, int window,      \
+                      float cap, void* stream) {                             \
     if (B <= 0 || S <= 0 || Hq <= 0) return 0;                               \
-    return LAUNCH(q, k, v, o, B, Hq, Hkv, S, strides, causal, cap, stream);  \
+    if (Sk <= 0 || (causal && Sk != S) || (window > 0 && !causal))           \
+      return static_cast<int>(cudaErrorInvalidValue);                        \
+    return LAUNCH(q, k, v, o, B, Hq, Hkv, S, Sk, strides, causal, window,    \
+                  cap, stream);                                              \
   }
 
 FA_ENTRY(fa_launch_f32_d64, launch_f32<64>)

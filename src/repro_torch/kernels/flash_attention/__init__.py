@@ -1,4 +1,5 @@
-"""Causal or full GQA flash attention with an optional soft-cap (B9)."""
+"""Causal, sliding-window or full GQA flash attention with an optional
+soft-cap, and a key length of its own without causality (B9)."""
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: F401
     flash_attention_kernel)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: F401

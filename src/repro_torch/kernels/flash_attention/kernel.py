@@ -15,8 +15,8 @@ _ENTRY = {(torch.float32, 64): "fa_launch_f32_d64",
           (torch.float32, 128): "fa_launch_f32_d128",
           (torch.bfloat16, 64): "fa_launch_bf16_d64",
           (torch.bfloat16, 128): "fa_launch_bf16_d128"}
-_ARGS = (build.PTR,) * 4 + (build.INT,) * 4 + (
-    build.PTR, build.INT, ctypes.c_float, build.PTR)
+_ARGS = (build.PTR,) * 4 + (build.INT,) * 5 + (
+    build.PTR, build.INT, build.INT, ctypes.c_float, build.PTR)
 
 
 def _check(x: torch.Tensor, what: str, dtype, shape, dev):
@@ -46,9 +46,15 @@ def _check(x: torch.Tensor, what: str, dtype, shape, dev):
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool = True,
-                           logit_cap: float = 0.0) -> torch.Tensor:
-    """q: (B, Hq, S, D); k/v: (B, Hkv, S, D), float32 or bfloat16 ->
-    (B, Hq, S, D) in q's dtype, laid out in memory as q is.
+                           logit_cap: float = 0.0,
+                           window: int = 0) -> torch.Tensor:
+    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D), float32 or bfloat16 ->
+    (B, Hq, Sq, D) in q's dtype, laid out in memory as q is.
+
+    Sk may differ from Sq only with ``causal=False`` (cross-attention);
+    ``window > 0`` masks keys at or past ``window`` positions behind the
+    query (``q - k >= window``, the reference's sliding window) and
+    needs ``causal=True``.  Anything else raises ``ValueError``.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel on the current stream: bfloat16 runs on the tensor cores
@@ -60,10 +66,19 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     batch, head and sequence strides must be 16-byte aligned; a view
     that is not raises ``ValueError`` (it is not copied).
     """
+    window = int(window or 0)
+    sk = k.shape[2]
+    if sk < 1 or window < 0:
+        raise ValueError(f"flash_attention: {sk} keys, window {window}")
+    if causal and sk != q.shape[2]:
+        raise ValueError(f"flash_attention: a causal call needs as many "
+                         f"keys as queries, got {sk} and {q.shape[2]}")
+    if window and not causal:
+        raise ValueError("flash_attention: a window needs causal=True")
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal,
-                                   logit_cap=logit_cap)
+                                   logit_cap=logit_cap, window=window)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
     b, hq, s, d = q.shape
@@ -76,16 +91,17 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_attention: {hq} query heads are not a "
                          f"multiple of {hkv} kv heads")
     _check(q, "q", q.dtype, (b, hq, s, d), dev)
-    _check(k, "k", q.dtype, (b, hkv, s, d), dev)
-    _check(v, "v", q.dtype, (b, hkv, s, d), dev)
+    _check(k, "k", q.dtype, (b, hkv, sk, d), dev)
+    _check(v, "v", q.dtype, (b, hkv, sk, d), dev)
     out = torch.empty_like(q)          # q's layout (dense: same strides)
     strides = (ctypes.c_longlong * 12)(
         *(st for x in (q, k, v, out) for st in x.stride()[:3]))
     fn = build.c_function(_ENTRY[(q.dtype, d)], _ARGS)
     with torch.cuda.device(dev):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, hq, hkv, s, ctypes.addressof(strides), int(bool(causal)),
-                float(logit_cap or 0.0), build.stream_ptr(dev))
+                b, hq, hkv, s, sk, ctypes.addressof(strides),
+                int(bool(causal)), window, float(logit_cap or 0.0),
+                build.stream_ptr(dev))
     build.check_launch(rc, "flash_attention")
     flash_attention_kernel.launches += 1
     return out

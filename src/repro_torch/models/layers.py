@@ -2,11 +2,14 @@
 of ``repro/models/layers.py``).
 
 Plain PyTorch, shape-polymorphic over batch/seq and dtype-polymorphic,
-with the reference's parameter layout.  On a CUDA tensor, full
-attention (``window == 0``, no ``kv_len_mask``) is the hand-written
-``flash_attention`` kernel (B9); every other attention option on the
-card raises instead of falling back.  On a CPU tensor the plain form
-runs in full, query chunks and all, as the reference's jnp form.
+with the reference's parameter layout.  On a CUDA tensor, attention
+from position 0 without a ``kv_len_mask`` is the hand-written
+``flash_attention`` kernel (B9): causal with or without a sliding
+window, or non-causal with a key length of its own (whisper's encoder
+and cross-attention); ``q_offset`` and ``kv_len_mask`` on the card
+raise instead of falling back (no model path passes them).  On a CPU
+tensor the plain form runs in full, query chunks and all, as the
+reference's jnp form.
 
 KV caches are updated in place (the reference returns new ones): the
 returned cache is the given one, written.
@@ -23,6 +26,9 @@ from repro_torch.device import refuse_unported
 from repro_torch.kernels.flash_attention import flash_attention
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# leaves with more elements than this are drawn a slice at a time when
+# they are stored cast (moonshot's stacked experts: 8.9e9 each)
+SLICED_DRAW = 1 << 31
 
 
 def torch_dtype(name) -> torch.dtype:
@@ -39,20 +45,32 @@ class ParamSpec:
     axes: tuple              # logical axis names, len == len(shape)
     init: str = "normal"     # normal | zeros | ones | small_normal
 
-    def initializer(self, generator: torch.Generator, param_dtype):
+    def initializer(self, generator: torch.Generator, param_dtype,
+                    store_dtype=None):
         """The reference's init kinds and scales; the numbers come from
-        ``generator`` (on the target device), not ``jax.random``."""
+        ``generator`` (on the target device), not ``jax.random``.
+        ``store_dtype``: the draw in ``param_dtype``, then cast to it; a
+        leaf of more than ``SLICED_DRAW`` elements is then drawn a slice
+        of its leading dimension at a time, so its full float32 draw
+        never exists."""
         dtype = torch_dtype(param_dtype)
+        out = dtype if store_dtype is None else torch_dtype(store_dtype)
         dev = generator.device
         if self.init == "zeros":
-            return torch.zeros(self.shape, dtype=dtype, device=dev)
+            return torch.zeros(self.shape, dtype=dtype, device=dev).to(out)
         if self.init == "ones":
-            return torch.ones(self.shape, dtype=dtype, device=dev)
+            return torch.ones(self.shape, dtype=dtype, device=dev).to(out)
         scale = 0.02 if self.init == "normal" else 0.006
         fan_in = self.shape[0] if len(self.shape) > 1 else 1
         scale = min(scale, (1.0 / max(fan_in, 1)) ** 0.5)
+        if store_dtype is not None and math.prod(self.shape) > SLICED_DRAW:
+            w = torch.empty(self.shape, dtype=out, device=dev)
+            for i in range(self.shape[0]):
+                w[i] = torch.randn(self.shape[1:], generator=generator,
+                                   device=dev).mul_(scale).to(dtype)
+            return w
         w = torch.randn(self.shape, generator=generator, device=dev)
-        return w.mul_(scale).to(dtype)
+        return w.mul_(scale).to(dtype).to(out)
 
 
 def map_tree(fn, tree, path=()):
@@ -63,15 +81,16 @@ def map_tree(fn, tree, path=()):
 
 
 def init_params(specs, generator: torch.Generator, param_dtype="float32",
-                store=None):
+                store_dtype=None):
     """Parameters of ``specs`` in ``param_dtype``, one draw per leaf in
-    the tree's order.  ``store(path, tensor)`` may return the tensor in
-    another dtype; it is applied leaf by leaf, so the full-precision
-    copy of the whole tree never exists at once."""
+    the tree's order.  ``store_dtype(path)`` may name another dtype to
+    keep a leaf in (None keeps ``param_dtype``); it is applied leaf by
+    leaf, so the full-precision copy of the whole tree never exists at
+    once."""
     return map_tree(
-        lambda path, s: (s.initializer(generator, param_dtype)
-                         if store is None else
-                         store(path, s.initializer(generator, param_dtype))),
+        lambda path, s: s.initializer(
+            generator, param_dtype,
+            None if store_dtype is None else store_dtype(path)),
         specs)
 
 
@@ -134,7 +153,7 @@ def apply_rope(x, positions, theta=10_000.0, mrope_sections=None):
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA, causal / sliding-window, chunked queries)
+# Attention (GQA, causal / sliding-window / cross, chunked queries)
 # ---------------------------------------------------------------------------
 
 def _attend(q, k, v, *, causal, q_offset, window=0, logit_cap=0.0,
@@ -167,23 +186,22 @@ def attention(q, k, v, *, causal=True, q_offset=0, window=0, logit_cap=0.0,
     """q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D) -> (B, Sq, Hq, D).
 
     On the card: the ``flash_attention`` kernel over the whole sequence
-    (no query chunks: it holds no score matrix), for self-attention
-    without a window or a kv mask; anything else raises.  On the CPU:
-    the plain form, in query chunks that bound the score memory to
-    (B, H, q_chunk, Sk), as the reference computes it.
+    (no query chunks: it holds no score matrix), causal (with the
+    window, if any) or non-causal (any key length); a ``kv_len_mask``
+    or a ``q_offset`` raises.  On the CPU: the plain form, in query
+    chunks that bound the score memory to (B, H, q_chunk, Sk), as the
+    reference computes it.  The window binds only with ``causal``, as
+    in the reference.
     """
     if q.is_cuda:
-        if window:
+        if kv_len_mask is not None or q_offset:
             raise NotImplementedError(
-                "attention: sliding-window attention (gemma2's local "
-                "layers) does not run on the card yet (ROADMAP A4b)")
-        if kv_len_mask is not None or q_offset or q.shape[1] != k.shape[1]:
-            raise NotImplementedError(
-                "attention: on the card only self-attention from "
-                "position 0 without a kv mask runs (ROADMAP A4b)")
+                "attention: a kv_len_mask or a q_offset does not run on "
+                "the card (no model path passes one)")
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
-                              logit_cap=logit_cap)
+                              logit_cap=logit_cap,
+                              window=window if causal else 0)
         return out.transpose(1, 2)
     sq = q.shape[1]
     if sq % q_chunk:          # largest divisor of sq that is <= q_chunk
@@ -200,7 +218,8 @@ def attention(q, k, v, *, causal=True, q_offset=0, window=0, logit_cap=0.0,
 
 
 def attention_specs(cfg):
-    """ParamSpecs for one attention block."""
+    """ParamSpecs for one attention block (self- or cross-attention: the
+    same leaves)."""
     d, h = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     specs = {
@@ -231,23 +250,28 @@ def attention_apply(p, cfg, x, positions, *, layer_window=0, kv_cache=None,
     indexing.  cache_index: an int (or 0-d tensor) write offset — 0 in
     prefill — or a (B,) tensor of per-row offsets during single-token
     decode (continuous batching: each slot advances at its own
-    position).  ``cross_kv`` (whisper's decoder) and ``mesh`` are not
+    position).  ``cross_kv``: precomputed (k, v), each (B, F, Hkv, D),
+    for cross-attention (whisper's decoder): q's projection and bias, no
+    RoPE, non-causal attention over the F keys.  ``mesh`` is not
     ported.
     """
     refuse_unported("attention_apply", mesh=mesh, item="A9")
-    if cross_kv is not None:
-        raise NotImplementedError("attention_apply: cross-attention "
-                                  "(whisper's decoder) is ROADMAP A4b")
     b, s, _ = x.shape
     h = cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     dt = x.dtype
 
     q = (x @ p["wq"].to(dt)).reshape(b, s, nq, h)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt).reshape(nq, h)
+    if cross_kv is not None:
+        k, v = cross_kv
+        out = attention(q, k, v, causal=False)
+        return out.reshape(b, s, nq * h) @ p["wo"].to(dt), kv_cache
+
     k = (x @ p["wk"].to(dt)).reshape(b, s, nkv, h)
     v = (x @ p["wv"].to(dt)).reshape(b, s, nkv, h)
     if cfg.qkv_bias:
-        q = q + p["bq"].to(dt).reshape(nq, h)
         k = k + p["bk"].to(dt).reshape(nkv, h)
         v = v + p["bv"].to(dt).reshape(nkv, h)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)

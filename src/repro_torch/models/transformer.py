@@ -1,18 +1,22 @@
-"""Config-driven model: the dense and the attention+Mamba families (port
-of ``repro/models/transformer.py``).
+"""Config-driven model: dense / MoE / hybrid (Mamba) / xLSTM / enc-dec
+(whisper) / VLM (qwen2-vl) — port of ``repro/models/transformer.py``.
 
-Layers are stacked per *pattern position*, as in the reference: every
-parameter of pattern position ``p`` carries a leading group dimension,
-so weights carry across 1:1.  The reference's ``lax.scan`` over pattern
-groups is a Python loop over that dimension here.
+One :class:`Model` covers all ten configurations of
+``repro_torch.configs``.  Layers are stacked per *pattern position*, as
+in the reference: every parameter of pattern position ``p`` carries a
+leading group dimension, so weights carry across 1:1.  The reference's
+``lax.scan`` over pattern groups is a Python loop over that dimension
+here.
 
 Entry points:
   * ``prefill(params, batch, cache) -> (logits, cache)``
   * ``decode_step(params, batch, cache, pos) -> (logits, cache)``
 Both write ``cache`` in place (the reference returns a new one) and
-return it.  Not ported yet (each raises ``NotImplementedError`` naming
-ROADMAP A4b): MoE layers, xLSTM blocks, the encoder (whisper), vision
-embeddings (qwen2-vl) and ``forward_train``.
+return it.  ``batch`` may carry ``audio_frames`` (whisper: the encoder
+runs in prefill and its cross-attention keys/values go into the cache)
+and ``vision_embeds`` (qwen2-vl: they replace the first positions'
+token embeddings).  Not ported yet: ``forward_train`` (raises
+``NotImplementedError`` naming ROADMAP A4b).
 """
 from __future__ import annotations
 
@@ -23,15 +27,21 @@ from repro_torch.configs.base import (ArchConfig, ATTN, ATTN_LOCAL, MAMBA,
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
+from repro_torch.models import xlstm as X
 from repro_torch.models.layers import ParamSpec, map_tree, torch_dtype
 
 # Weights that every use casts to the compute dtype: ``Model.init`` may
-# store these cast once.  Norm weights (``rms_norm`` reads them in
-# float32) and dt_proj / dt_bias / A_log (read in float32) stay in the
-# parameter dtype.
+# store these cast once (the experts' and shared experts' w_gate / w_up /
+# w_down among them).  Norm weights (``rms_norm`` reads them in float32)
+# and the leaves the reference reads in float32 stay in the parameter
+# dtype: dt_proj / dt_bias / A_log (Mamba), the MoE router, the mLSTM
+# gates (w_igate, w_fgate, b_igate, b_fgate) and the sLSTM's b_in and
+# recurrent r_z / r_i / r_f / r_o.
 COMPUTE_CAST = frozenset({"embed", "lm_head", "wq", "wk", "wv", "wo", "bq",
                           "bk", "bv", "w_gate", "w_up", "w_down", "in_proj",
-                          "conv_w", "conv_b", "x_proj", "D", "out_proj"})
+                          "conv_w", "conv_b", "x_proj", "D", "out_proj",
+                          "up", "down", "up_gate", "w_in", "pos_embed"})
 
 
 def _unported(what: str):
@@ -39,23 +49,38 @@ def _unported(what: str):
                               f"yet (ROADMAP A4b)")
 
 
-def _block_specs(cfg: ArchConfig, kind: str):
+def _block_specs(cfg: ArchConfig, kind: str, layer_pos: int, *,
+                 cross: bool = False):
     d = cfg.d_model
     specs = {"norm1": ParamSpec((d,), ("embed",), init="zeros")}
     if kind in (ATTN, ATTN_LOCAL):
         specs["core"] = L.attention_specs(cfg)
     elif kind == MAMBA:
         specs["core"] = M.mamba_specs(cfg)
+    elif kind == MLSTM:
+        specs["core"] = X.mlstm_specs(cfg)
+    elif kind == SLSTM:
+        specs["core"] = X.slstm_specs(cfg)
     else:
-        _unported(f"{kind} blocks")
+        raise ValueError(kind)
+    if cross:
+        specs["cross_norm"] = ParamSpec((d,), ("embed",), init="zeros")
+        specs["cross"] = L.attention_specs(cfg)
     if _has_ffn(cfg, kind):
         specs["norm2"] = ParamSpec((d,), ("embed",), init="zeros")
-        specs["ffn"] = L.mlp_specs(cfg)
+        if _is_moe_layer(cfg, layer_pos):
+            specs["ffn"] = MOE.moe_specs(cfg)
+        else:
+            specs["ffn"] = L.mlp_specs(cfg)
     return specs
 
 
 def _has_ffn(cfg, kind):
     return cfg.d_ff > 0 and kind in (ATTN, ATTN_LOCAL, MAMBA)
+
+
+def _is_moe_layer(cfg, layer_pos):
+    return cfg.moe is not None and layer_pos % cfg.moe_every == 0
 
 
 def _stack_specs(specs, n):
@@ -82,18 +107,16 @@ def _write_back(cache, new):
 
 class Model:
     def __init__(self, cfg: ArchConfig):
-        if cfg.moe is not None:
-            _unported("MoE layers")
-        if any(k in (MLSTM, SLSTM) for k in cfg.block_pattern):
-            _unported("xLSTM blocks")
-        if cfg.encoder_layers:
-            _unported("the encoder and cross-attention")
         self.cfg = cfg
         self.pattern = tuple(cfg.block_pattern)
         if cfg.num_layers % len(self.pattern):
             raise ValueError(f"{cfg.num_layers} layers not divisible by "
                              f"pattern {self.pattern}")
         self.n_groups = cfg.num_layers // len(self.pattern)
+        if cfg.moe is not None and len(self.pattern) % cfg.moe_every \
+                and cfg.moe_every != 1:
+            raise ValueError(f"moe_every {cfg.moe_every} does not divide "
+                             f"the pattern {self.pattern}")
         self.compute_dtype = torch_dtype(cfg.compute_dtype)
 
     # ------------------------------------------------------------------
@@ -110,9 +133,18 @@ class Model:
         if not cfg.tie_embeddings:
             specs["lm_head"] = ParamSpec((d, cfg.vocab_size),
                                          ("embed", "vocab"))
+        cross = cfg.encoder_layers > 0
         for p_idx, kind in enumerate(self.pattern):
             specs["layers"][f"pos{p_idx}"] = _stack_specs(
-                _block_specs(cfg, kind), self.n_groups)
+                _block_specs(cfg, kind, p_idx, cross=cross), self.n_groups)
+        if cfg.encoder_layers:
+            specs["encoder"] = {
+                "pos_embed": ParamSpec((cfg.num_audio_frames, d),
+                                       (None, "embed")),
+                "final_norm": ParamSpec((d,), ("embed",), init="zeros"),
+                "layers": {"pos0": _stack_specs(
+                    _block_specs(cfg, ATTN, 0), cfg.encoder_layers)},
+            }
         return specs
 
     def init(self, seed: int = 0, *, device=None, cast_weights=False):
@@ -123,26 +155,34 @@ class Model:
         ``cast_weights=True`` stores each weight of ``COMPUTE_CAST`` in
         the compute dtype, cast as it is drawn (every use casts it so),
         so a full-size model never holds the float32 tree and its cast
-        copy at once; the others keep ``param_dtype``.
+        copy at once (a leaf too large to draw whole in float32 beside
+        the rest is drawn a slice of its leading dimension at a time);
+        the others keep ``param_dtype``.
         """
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
-        store = None
+        store_dtype = None
         if cast_weights:
             cd = self.compute_dtype
 
-            def store(path, t):
-                return t.to(cd) if path[-1] in COMPUTE_CAST else t
+            def store_dtype(path):
+                return cd if path[-1] in COMPUTE_CAST else None
         return L.init_params(self.specs(), gen, self.cfg.param_dtype,
-                             store=store)
+                             store_dtype=store_dtype)
 
     # ------------------------------------------------------------------
     # Block application
     # ------------------------------------------------------------------
-    def _apply_block(self, kind, p, x, positions, *, cache=None,
-                     cache_index=None):
+    def _apply_block(self, kind, p, x, positions, *, layer_pos, cache=None,
+                     cache_index=None, enc_out=None, causal=True,
+                     with_aux=False):
+        """One block -> (x, new_cache, aux): ``aux`` is the MoE aux loss
+        (a float32 scalar; zero without experts, None unless
+        ``with_aux``)."""
         cfg = self.cfg
+        aux = (torch.zeros((), dtype=torch.float32, device=x.device)
+               if with_aux else None)
         new_cache = {}
         h = L.rms_norm(x, p["norm1"], cfg.rms_eps)
         if kind in (ATTN, ATTN_LOCAL):
@@ -150,7 +190,7 @@ class Model:
             kvc = cache.get("kv") if cache else None
             out, nkv = L.attention_apply(
                 p["core"], cfg, h, positions, layer_window=window,
-                kv_cache=kvc, cache_index=cache_index)
+                kv_cache=kvc, cache_index=cache_index, causal=causal)
             if nkv is not None:
                 new_cache["kv"] = nkv
         elif kind == MAMBA:
@@ -160,41 +200,91 @@ class Model:
                 conv_state=cache.get("conv") if cache else None)
             if cache is not None:
                 new_cache.update(st)
+        elif kind == MLSTM:
+            out, st = X.mlstm_apply(
+                p["core"], cfg, h,
+                state=cache.get("mlstm") if cache else None)
+            if cache is not None:
+                new_cache["mlstm"] = st
+        elif kind == SLSTM:
+            out, st = X.slstm_apply(
+                p["core"], cfg, h,
+                state=cache.get("slstm") if cache else None)
+            if cache is not None:
+                new_cache["slstm"] = st
         else:
-            _unported(f"{kind} blocks")
+            raise ValueError(kind)
         x = x + out
+
+        has_cached_cross = cache is not None and "cross_k" in cache
+        if "cross" in p and (enc_out is not None or has_cached_cross):
+            hc = L.rms_norm(x, p["cross_norm"], cfg.rms_eps)
+            dt = hc.dtype
+            if has_cached_cross and enc_out is None:
+                ck, cv = cache["cross_k"], cache["cross_v"]
+            else:
+                b, f, _ = enc_out.shape
+                ck = (enc_out @ p["cross"]["wk"].to(dt)).reshape(
+                    b, f, cfg.num_kv_heads, cfg.resolved_head_dim)
+                cv = (enc_out @ p["cross"]["wv"].to(dt)).reshape(
+                    b, f, cfg.num_kv_heads, cfg.resolved_head_dim)
+            out, _ = L.attention_apply(p["cross"], cfg, hc, positions,
+                                       cross_kv=(ck.to(dt), cv.to(dt)))
+            if cache is not None:
+                new_cache["cross_k"], new_cache["cross_v"] = ck, cv
+            x = x + out
+
         if "ffn" in p:
             hf = L.rms_norm(x, p["norm2"], cfg.rms_eps)
-            x = x + L.mlp_apply(p["ffn"], hf)
-        return x, new_cache
+            if _is_moe_layer(cfg, layer_pos):
+                out, a = MOE.moe_apply(p["ffn"], cfg, hf,
+                                       with_aux=with_aux)
+                if with_aux:
+                    aux = aux + a
+            else:
+                out = L.mlp_apply(p["ffn"], hf)
+            x = x + out
+        return x, new_cache, aux
 
     # ------------------------------------------------------------------
     # Stack runner
     # ------------------------------------------------------------------
     def _run_stack(self, stacked_params, x, positions, *, caches=None,
-                   cache_index=None):
+                   cache_index=None, enc_out=None, with_aux=False):
+        """-> (x, aux, caches): ``aux`` summed over the blocks in the
+        reference's order (None unless ``with_aux``)."""
+        aux_sum = (torch.zeros((), dtype=torch.float32, device=x.device)
+                   if with_aux else None)
         for gi in range(self.n_groups):
             for p_idx, kind in enumerate(self.pattern):
                 key = f"pos{p_idx}"
                 cg = (_group(caches[key], gi) if caches is not None
                       else None)
-                x, nc = self._apply_block(
+                x, nc, aux = self._apply_block(
                     kind, _group(stacked_params[key], gi), x, positions,
-                    cache=cg, cache_index=cache_index)
+                    layer_pos=p_idx, cache=cg, cache_index=cache_index,
+                    enc_out=enc_out, with_aux=with_aux)
                 if cg is not None:
                     _write_back(cg, nc)
-        return x, caches
+                if with_aux:
+                    aux_sum = aux_sum + aux
+        return x, aux_sum, caches
 
     # ------------------------------------------------------------------
     # Embedding / unembedding
     # ------------------------------------------------------------------
     def _embed(self, params, batch):
-        if "vision_embeds" in batch:
-            _unported("vision embeddings")
         table = params["embed"]
         tokens = torch.as_tensor(batch["tokens"], device=table.device)
         # gather, then cast: the same values as casting the whole table
-        return table[tokens.long()].to(self.compute_dtype)
+        x = table[tokens.long()].to(self.compute_dtype)
+        if self.cfg.family == "vlm" and "vision_embeds" in batch:
+            # the first n_vis positions take the vision rows
+            ve = torch.as_tensor(batch["vision_embeds"],
+                                 device=table.device).to(self.compute_dtype)
+            n_vis = ve.shape[1]
+            x = torch.cat([ve, x[:, n_vis:]], dim=1)
+        return x
 
     def _positions(self, batch, seq, offset=0, device=None):
         cfg = self.cfg
@@ -214,6 +304,27 @@ class Model:
                 else params["lm_head"]).to(self.compute_dtype)
         logits = x @ head
         return L.softcap(logits.float(), cfg.final_softcap)
+
+    # ------------------------------------------------------------------
+    # Encoder (whisper)
+    # ------------------------------------------------------------------
+    def _encode(self, params, batch):
+        """The audio frames plus ``pos_embed`` through the encoder's
+        layers (non-causal self-attention), then its final norm."""
+        cfg = self.cfg
+        enc = params["encoder"]
+        cd = self.compute_dtype
+        frames = torch.as_tensor(batch["audio_frames"],
+                                 device=enc["pos_embed"].device).to(cd)
+        x = frames + enc["pos_embed"].to(cd)[None]
+        b, f, _ = x.shape
+        pos = torch.arange(f, dtype=torch.int32,
+                           device=x.device)[None].expand(b, f)
+        for gi in range(cfg.encoder_layers):
+            x, _, _ = self._apply_block(
+                ATTN, _group(enc["layers"]["pos0"], gi), x, pos,
+                layer_pos=0, causal=False)
+        return L.rms_norm(x, enc["final_norm"], cfg.rms_eps)
 
     # ------------------------------------------------------------------
     # Public entry points
@@ -241,6 +352,18 @@ class Model:
             elif kind == MAMBA:
                 c.update({k: ((g,) + shape, dt) for k, (shape, dt)
                           in M.mamba_state_specs(cfg, batch_size).items()})
+            elif kind == MLSTM:
+                c["mlstm"] = {k: ((g,) + shape, dt) for k, (shape, dt)
+                              in X.mlstm_state_specs(cfg,
+                                                     batch_size).items()}
+            elif kind == SLSTM:
+                c["slstm"] = {k: ((g,) + shape, dt) for k, (shape, dt)
+                              in X.slstm_state_specs(cfg,
+                                                     batch_size).items()}
+            if cfg.encoder_layers:
+                f = cfg.num_audio_frames
+                c["cross_k"] = ((g, batch_size, f, nkv, h), cd)
+                c["cross_v"] = ((g, batch_size, f, nkv, h), cd)
             caches[f"pos{p_idx}"] = c
         return caches
 
@@ -257,8 +380,10 @@ class Model:
         cfg = self.cfg
         x = self._embed(params, batch)
         positions = self._positions(batch, x.shape[1], device=x.device)
-        x, cache = self._run_stack(params["layers"], x, positions,
-                                   caches=cache, cache_index=0)
+        enc_out = self._encode(params, batch) if cfg.encoder_layers else None
+        x, _, cache = self._run_stack(params["layers"], x, positions,
+                                      caches=cache, cache_index=0,
+                                      enc_out=enc_out)
         x = L.rms_norm(x[:, -1:], params["final_norm"], cfg.rms_eps)
         return self._logits(params, x), cache
 
@@ -268,7 +393,8 @@ class Model:
         cfg = self.cfg
         x = self._embed(params, batch)
         positions = self._positions(batch, 1, offset=pos, device=x.device)
-        x, cache = self._run_stack(params["layers"], x, positions,
-                                   caches=cache, cache_index=pos)
+        # the cross-attention keys/values come from the cache
+        x, _, cache = self._run_stack(params["layers"], x, positions,
+                                      caches=cache, cache_index=pos)
         x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
         return self._logits(params, x), cache

@@ -19,10 +19,13 @@ conserve against ``attribute_phases`` totals).  A ``HealthRegistry``
 given as ``registry=`` exports the scheduler gauges and the rolling
 J/request percentiles.
 
-``FixedBatchEngine`` keeps the serve-to-completion baseline.  On the
-card, each admission's prefill runs the ``flash_attention`` kernel in
-every attention layer and the ``selective_scan`` kernel in every Mamba
-layer.
+``FixedBatchEngine`` keeps the serve-to-completion baseline.  Both serve
+every configuration whose inputs are tokens alone: dense, MoE, the
+attention+Mamba hybrid and xLSTM (a slot write copies the float32
+Mamba, mLSTM and sLSTM states as it copies the KV rows).  On the card,
+each admission's prefill runs the ``flash_attention`` kernel in every
+attention layer (gemma2's local layers with their window) and the
+``selective_scan`` kernel in every Mamba layer.
 """
 from __future__ import annotations
 

@@ -522,6 +522,62 @@ def test_cuda_flash_attention_takes_strided_model_layout():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("sk", [1, 63, 65, 1500])
+@pytest.mark.parametrize("sq", [1, 17, 128, 200])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_kv_length_matches_plain(dtype, d, sq, sk):
+    """Non-causal with a key length of its own (whisper's
+    cross-attention: the prompt, or one position, against the encoder's
+    frames): float32 within 1e-5, bfloat16 within 8e-3."""
+    dev = _cuda()
+    q = torch.from_numpy(_attention_case(5, b=2, hq=4, hkv=2, s=sq,
+                                         d=d)[0]).to(dev, dtype)
+    _, k, v = (torch.from_numpy(a).to(dev, dtype)
+               for a in _attention_case(6, b=2, hq=4, hkv=2, s=sk, d=d))
+    n0 = flash_attention_kernel.launches
+    got = flash_attention_kernel(q, k, v, causal=False)
+    want = flash_attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == n0 + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    assert _rel(got, want) <= (1e-5 if dtype == torch.float32 else 8e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [0.0, 50.0])
+@pytest.mark.parametrize("window", [1, 7, 64, 100, 129])
+@pytest.mark.parametrize("s", [1, 65, 200, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_window_matches_plain(dtype, s, window, cap):
+    """Causal with a sliding window (gemma2's local layers), windows
+    inside a tile, on a tile edge and across tiles, so that whole key
+    tiles left of the window are skipped: float32 within 1e-5, bfloat16
+    within 8e-3."""
+    dev = _cuda()
+    q, k, v = (torch.from_numpy(a).to(dev, dtype)
+               for a in _attention_case(7, b=1, hq=4, hkv=2, s=s, d=128))
+    got = flash_attention_kernel(q, k, v, logit_cap=cap, window=window)
+    want = flash_attention_ref(q, k, v, logit_cap=cap, window=window)
+    torch.cuda.synchronize()
+    assert _rel(got, want) <= (1e-5 if dtype == torch.float32 else 8e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_wide_window_is_no_window(dtype):
+    """A window of at least S masks nothing: the same bits as the call
+    without one."""
+    dev = _cuda()
+    q, k, v = (torch.from_numpy(a).to(dev, dtype)
+               for a in _attention_case(8, b=1, hq=4, hkv=2, s=150, d=64))
+    want = flash_attention_kernel(q, k, v, logit_cap=50.0)
+    for w in (150, 151, 4096):
+        assert torch.equal(flash_attention_kernel(q, k, v, logit_cap=50.0,
+                                                  window=w), want)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", [8, 16, 40])
 @pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
                                     (torch.float32, torch.bfloat16),
@@ -668,16 +724,22 @@ def test_cuda_model_prefill_runs_the_kernels_and_matches_cpu():
 
 @pytest.mark.gpu
 def test_cuda_attention_refuses_what_has_no_kernel():
-    """On the card, sliding-window attention (gemma2's local layers) and
-    a kv mask raise instead of falling back to the plain form."""
+    """On the card, a kv mask and a query offset raise instead of falling
+    back to the plain form; sliding-window attention (gemma2's local
+    layers) and a key length of its own (whisper's cross-attention) have
+    the kernel now and launch it."""
     from repro_torch.models.layers import attention
     dev = _cuda()
     q = torch.zeros((1, 8, 4, 64), device=dev)
-    with pytest.raises(NotImplementedError, match="A4b"):
-        attention(q, q, q, window=4)
-    with pytest.raises(NotImplementedError, match="A4b"):
+    with pytest.raises(NotImplementedError, match="kv_len_mask"):
         attention(q, q, q, kv_len_mask=torch.ones((1, 8), dtype=torch.bool,
                                                   device=dev))
+    with pytest.raises(NotImplementedError, match="q_offset"):
+        attention(q, q, q, q_offset=3)
+    n0 = flash_attention_kernel.launches
+    attention(q, q, q, window=4)
+    attention(q[:, :1], q, q, causal=False)
+    assert flash_attention_kernel.launches == n0 + 2
 
 
 def _health_groups(n_devices, faults, span_s=2.5):

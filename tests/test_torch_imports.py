@@ -109,6 +109,7 @@ def test_case_study_entry_points_default_to_cuda(monkeypatch):
 _SERVE_MODULES = ("repro_torch.configs", "repro_torch.configs.base",
                   "repro_torch.models", "repro_torch.models.layers",
                   "repro_torch.models.mamba",
+                  "repro_torch.models.moe", "repro_torch.models.xlstm",
                   "repro_torch.models.transformer",
                   "repro_torch.distributed.decode_attention",
                   "repro_torch.kernels.flash_attention",

@@ -15,6 +15,7 @@ from repro.kernels.flash_attention.ref import (flash_attention_ref as
                                                jax_flash_attention_ref)
 from repro.kernels.ssm_scan.ref import (selective_scan_ref as
                                         jax_selective_scan_ref)
+from repro.models.layers import attention as jax_attention
 from repro.models.mamba import _chunk_scan as jax_chunk_scan
 from repro.kernels.grid_resample.ref import (grid_resample_ref as
                                              jax_grid_resample_ref)
@@ -523,6 +524,74 @@ def test_flash_attention_plain_takes_the_model_layout():
     assert not qt.is_contiguous()
     torch.testing.assert_close(flash_attention(qt, kt, vt),
                                flash_attention(q, k, v), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("sq,sk", [(1, 40), (17, 40), (40, 7), (33, 33)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_kv_length_matches_reference(dtype, sq, sk):
+    """Non-causal with a key length of its own (whisper's
+    cross-attention) against the reference's ``attention`` (the jnp form
+    its models run), GQA 4/2; float32 within 1e-5 of the largest
+    output, bfloat16 at the reference's bf16 bounds."""
+    q = _attention_case(10, s=sq)[0]
+    _, k, v = _attention_case(11, s=sk)
+    if dtype == "float32":
+        jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+        tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    else:
+        (jq, tq), (jk, tk), (jv, tv) = (_bf16_np(a) for a in (q, k, v))
+    want = np.asarray(jax_attention(*(x.swapaxes(1, 2)
+                                      for x in (jq, jk, jv)),
+                                    causal=False).swapaxes(1, 2),
+                      np.float32)
+    got = flash_attention(tq, tk, tv, causal=False)
+    assert got.shape == tq.shape and got.dtype == tq.dtype
+    got = got.float().numpy()
+    if dtype == "float32":
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    else:
+        np.testing.assert_allclose(got, want, atol=5e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("cap", [0.0, 50.0])
+@pytest.mark.parametrize("window", [1, 5, 16, 40, 200])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_plain_window_matches_reference(dtype, window, cap):
+    """Causal with a sliding window (gemma2's local layers) against the
+    reference's ``attention`` at the same window and cap (a window of
+    at least S masks nothing)."""
+    q, k, v = _attention_case(12, s=40)
+    if dtype == "float32":
+        jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+        tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    else:
+        (jq, tq), (jk, tk), (jv, tv) = (_bf16_np(a) for a in (q, k, v))
+    want = np.asarray(jax_attention(*(x.swapaxes(1, 2)
+                                      for x in (jq, jk, jv)),
+                                    causal=True, window=window,
+                                    logit_cap=cap).swapaxes(1, 2),
+                      np.float32)
+    got = flash_attention(tq, tk, tv, logit_cap=cap, window=window)
+    got = got.float().numpy()
+    if dtype == "float32":
+        assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    else:
+        np.testing.assert_allclose(got, want, atol=5e-2, rtol=1e-2)
+    if window >= 40:
+        torch.testing.assert_close(
+            flash_attention(tq, tk, tv, logit_cap=cap, window=window),
+            flash_attention(tq, tk, tv, logit_cap=cap), rtol=0, atol=0)
+
+
+def test_flash_attention_refuses_causal_kv_length_and_open_window():
+    """A causal call needs as many keys as queries, and a window needs
+    causality: both raise before any device is chosen."""
+    q = torch.from_numpy(_attention_case(13, s=8)[0])
+    _, k, v = (torch.from_numpy(a) for a in _attention_case(13, s=12))
+    with pytest.raises(ValueError, match="as many keys"):
+        flash_attention_kernel(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="needs causal"):
+        flash_attention_kernel(q, k, v, causal=False, window=4)
 
 
 def test_flash_attention_refuses_unported_options():

@@ -1,6 +1,8 @@
 """PyTorch port, models: the layers, the Mamba block, flash-decode and the
-whole ``Model`` against the JAX reference on the same seeded weights and
-inputs (numpy on both sides, the weights carried over through
+whole ``Model`` — every configuration of ``repro_torch.configs``, the MoE,
+xLSTM, whisper (encoder and cross-attention) and qwen2-vl (vision rows)
+families included — against the JAX reference on the same seeded weights
+and inputs (numpy on both sides, the weights carried over through
 ``interop.model_params_from_arrays``).  Float32 cases agree within 1e-5
 of the reference output's largest magnitude; bfloat16 cases at the
 reference's own bf16 bounds (atol 5e-2, rtol 1e-2)."""
@@ -12,19 +14,21 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCHS as JAX_ARCHS
 from repro.configs import get_arch as jax_get_arch, reduced as jax_reduced
 from repro.distributed.decode_attention import (decode_attention as
                                                 jax_decode_attention)
 from repro.models import Model as JaxModel
 from repro.models import layers as JL
 from repro.models import mamba as JM
-from repro_torch.configs import get_arch, reduced
+from repro_torch.configs import ARCHS, get_arch, reduced
 from repro_torch.distributed.decode_attention import decode_attention
 from repro_torch.interop import (model_cache_from_arrays,
                                  model_params_from_arrays)
 from repro_torch.models import Model
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models.transformer import COMPUTE_CAST
 
 torch.use_deterministic_algorithms(True)
 # the test workers share the machine's cores: keep torch from taking them all
@@ -391,31 +395,251 @@ def test_prefill_matches_stepwise_decode():
                                atol=5e-2, rtol=1e-2)
 
 
+# ----------------------------------------------- the rest of the zoo
+
+# the families this slice added: MoE (qwen3-moe: no shared expert;
+# moonshot: shared experts), Jamba with its MoE layers, xLSTM (mLSTM and
+# sLSTM blocks), whisper (encoder and cross-attention), qwen2-vl (vision
+# rows and M-RoPE)
+ZOO = ["qwen3-moe-235b-a22b", "moonshot-v1-16b-a3b", "jamba-1.5-large-398b",
+       "xlstm-1.3b", "whisper-base", "qwen2-vl-2b"]
+_ZOO = {}
+
+
+def _zoo_cfgs(arch, dtype="float32"):
+    """The reduced config of ``arch`` in both packages, experts kept."""
+    return [dataclasses.replace(red(get(arch)), compute_dtype=dtype)
+            for get, red in ((jax_get_arch, jax_reduced),
+                             (get_arch, reduced))]
+
+
+def _zoo_pair(arch, dtype="float32", seed=1):
+    key = (arch, dtype, seed)
+    if key not in _ZOO:
+        cj, ct = _zoo_cfgs(arch, dtype)
+        jm, tm = JaxModel(cj), Model(ct)
+        params = jm.init(jax.random.key(seed))
+        tp = model_params_from_arrays(_np_tree(params), ct, device=CPU)
+        _ZOO[key] = (jm, tm, params, tp)
+    return _ZOO[key]
+
+
+def _zoo_batch(cfg, b, s, seed):
+    """Tokens, and the family's extra inputs: whisper's audio frames,
+    qwen2-vl's vision rows (a quarter of the prompt) and M-RoPE
+    positions whose three streams differ."""
+    rng = _rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s))
+             .astype(np.int32)}
+    if cfg.family == "audio":
+        batch["audio_frames"] = rng.normal(
+            0, 1.0, (b, cfg.num_audio_frames, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = rng.normal(
+            0, 1.0, (b, s // 4, cfg.d_model)).astype(np.float32)
+        ar = np.arange(s, dtype=np.int32)
+        batch["positions"] = np.ascontiguousarray(np.broadcast_to(
+            np.stack([ar, ar // 2, ar % 3])[:, None], (3, b, s)))
+    return batch
+
+
+def _dec_batch(cfg, tok, pos):
+    """A decode step's batch at per-row positions (the engine's form)."""
+    p = pos[:, None]
+    if cfg.mrope_sections is not None:
+        p = np.ascontiguousarray(np.broadcast_to(p[None], (3,) + p.shape))
+    return {"tokens": tok, "positions": p}
+
+
+def _both(batch):
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.from_numpy(np.array(v)) for k, v in batch.items()})
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_zoo_prefill_and_decode_match_reference(arch):
+    """Float32: prefill of 16 tokens (logits and every cache leaf: KV,
+    Mamba, mLSTM/sLSTM states, cross k/v), then three decode steps at
+    per-row positions, each step's logits and the final cache, within
+    1e-5 of the reference."""
+    jm, tm, params, tp = _zoo_pair(arch)
+    cfg = jm.cfg
+    jb, tb = _both(_zoo_batch(cfg, 2, 16, 20))
+    lj, cj = jax.jit(jm.prefill)(params, jb, jm.init_cache(2, 32))
+    lt, ct = tm.prefill(tp, tb, tm.init_cache(2, 32, device=CPU))
+    _close(lt, lj)
+    _cmp_tree(ct, _np_tree(cj), _close)
+    step = jax.jit(jm.decode_step)
+    for i in range(3):
+        tok = np.array([[3 + i], [11 + i]], np.int32)
+        pos = np.array([16 + i, 16 + i], np.int32)
+        jd, td = _both(_dec_batch(cfg, tok, pos))
+        lj, cj = step(params, jd, cj, jnp.asarray(pos))
+        lt, ct = tm.decode_step(tp, td, ct,
+                                torch.from_numpy(pos.astype(np.int64)))
+        _close(lt, lj)
+    _cmp_tree(ct, _np_tree(cj), _close)
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_zoo_bf16_matches_reference_at_bf16_bounds(arch):
+    """The serving dtype (bf16 activations and caches, float32 weights):
+    prefill and one scalar-position decode step at the reference's
+    bounds."""
+    jm, tm, params, tp = _zoo_pair(arch, "bfloat16")
+    cfg = jm.cfg
+    jb, tb = _both(_zoo_batch(cfg, 1, 12, 21))
+    lj, cj = jax.jit(jm.prefill)(params, jb, jm.init_cache(1, 16))
+    lt, ct = tm.prefill(tp, tb, tm.init_cache(1, 16, device=CPU))
+    _bf16_close(lt, lj)
+    dec = {"tokens": np.array([[5]], np.int32)}
+    if cfg.mrope_sections is not None:
+        dec["positions"] = np.full((3, 1, 1), 12, np.int32)
+    jd, td = _both(dec)
+    lj, _ = jm.decode_step(params, jd, cj, jnp.asarray(12, jnp.int32))
+    lt, _ = tm.decode_step(tp, td, ct, 12)
+    _bf16_close(lt, lj)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "whisper-base"])
+def test_zoo_prefill_matches_stepwise_decode(arch):
+    """The reference's own consistency check (``tests/test_models_decode.py``)
+    on the port alone, for the two families it adds: the last prefill
+    logits equal those of decoding the prompt token by token; whisper
+    prefills its first token to fill the cross k/v."""
+    _, tm, _, tp = _zoo_pair(arch, "bfloat16")
+    cfg = tm.cfg
+    n = 10
+    toks = torch.from_numpy(
+        _rng(22).integers(0, cfg.vocab_size, (1, n)).astype(np.int64))
+    extra = {}
+    if cfg.family == "audio":
+        extra["audio_frames"] = torch.ones(
+            (1, cfg.num_audio_frames, cfg.d_model), dtype=torch.bfloat16)
+    lp, _ = tm.prefill(tp, {"tokens": toks, **extra},
+                       tm.init_cache(1, 32, device=CPU))
+    cache = tm.init_cache(1, 32, device=CPU)
+    start = 0
+    if cfg.family == "audio":
+        lg, cache = tm.prefill(tp, {"tokens": toks[:, :1], **extra}, cache)
+        start = 1
+    for i in range(start, n):
+        lg, cache = tm.decode_step(tp, {"tokens": toks[:, i:i + 1]}, cache,
+                                   i)
+    np.testing.assert_allclose(lp[0, -1].float().numpy(),
+                               lg[0, 0].float().numpy(),
+                               atol=5e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
+                                  "jamba-1.5-large-398b"])
+def test_moe_aux_loss_summed_over_layers_matches_reference(arch):
+    """The MoE aux loss of every MoE layer, summed over the stack in the
+    reference's order (the term ``forward_train`` adds to the loss);
+    prefill and decode leave it out."""
+    jm, tm, params, tp = _zoo_pair(arch)
+    cfg = jm.cfg
+    toks = _zoo_batch(cfg, 2, 16, 26)["tokens"]
+    x = np.asarray(jm._embed(params, {"tokens": jnp.asarray(toks)}))
+    pos = np.broadcast_to(np.arange(16, dtype=np.int32), (2, 16))
+    _, want, _ = jm._run_stack(params["layers"], jnp.asarray(x),
+                               jnp.asarray(pos), remat=False)
+    got_x, got, _ = tm._run_stack(tp["layers"], torch.from_numpy(x),
+                                  torch.from_numpy(pos.copy()),
+                                  with_aux=True)
+    assert float(want) > 0
+    assert abs(float(got) / float(want) - 1.0) <= TOL
+    _, none, _ = tm._run_stack(tp["layers"], torch.from_numpy(x),
+                               torch.from_numpy(pos.copy()))
+    assert none is None
+
+
+def test_vision_rows_replace_the_first_embeddings():
+    """qwen2-vl: the first n_vis positions take the vision rows cast to
+    the compute dtype, the rest the token embeddings."""
+    _, tm, _, tp = _zoo_pair("qwen2-vl-2b", "bfloat16")
+    batch = _zoo_batch(tm.cfg, 2, 8, 23)
+    x = tm._embed(tp, {k: torch.from_numpy(v) for k, v in batch.items()})
+    ve = torch.from_numpy(batch["vision_embeds"]).to(torch.bfloat16)
+    assert x.dtype == torch.bfloat16
+    assert torch.equal(x[:, :2], ve)
+    toks = torch.from_numpy(batch["tokens"]).long()
+    assert torch.equal(x[:, 2:], tp["embed"][toks[:, 2:]].to(torch.bfloat16))
+
+
+def test_whisper_decode_reads_cross_kv_from_the_cache():
+    """After prefill the cross k/v in the cache are the encoder output's
+    projections (the reference's); a decode step reads them there and
+    never needs the audio frames again."""
+    jm, tm, params, tp = _zoo_pair("whisper-base")
+    jb, tb = _both(_zoo_batch(jm.cfg, 1, 4, 24))
+    _, cj = jax.jit(jm.prefill)(params, jb, jm.init_cache(1, 8))
+    _, ct = tm.prefill(tp, tb, tm.init_cache(1, 8, device=CPU))
+    for key in ("cross_k", "cross_v"):
+        _close(ct["pos0"][key], np.asarray(cj["pos0"][key]))
+        assert ct["pos0"][key].abs().max() > 0
+    tok = np.array([[9]], np.int32)
+    lj, _ = jm.decode_step(params, {"tokens": jnp.asarray(tok)}, cj,
+                           jnp.asarray(4, jnp.int32))
+    lt, _ = tm.decode_step(tp, {"tokens": torch.from_numpy(tok)}, ct, 4)
+    _close(lt, lj)
+
+
 # ------------------------------------------------- init, interop, refusals
 
 def test_init_matches_reference_shapes_dtypes_and_kinds():
-    cj, ct = _cfgs("jamba-1.5-large-398b")
-    ref = _np_tree(JaxModel(cj).init(jax.random.key(0)))
-    got = Model(ct).init(0, device=CPU)
+    """Every configuration (reduced, experts kept): the reference's tree
+    of shapes, float32, zeros and ones where its init puts them, and the
+    same scale rule elsewhere (std within 10% of the reference's)."""
+    assert sorted(ARCHS) == sorted(JAX_ARCHS)
+    for arch in sorted(ARCHS):
+        cj, ct = _zoo_cfgs(arch)
+        ref = _np_tree(JaxModel(cj).init(jax.random.key(0)))
+        got = Model(ct).init(0, device=CPU)
+        _check_init(got, ref, Model(ct).specs(), (arch,))
 
-    def walk(g, r, path=()):
-        if isinstance(r, dict):
-            assert set(g) == set(r), path
-            for k in r:
-                walk(g[k], r[k], path + (k,))
-            return
-        assert tuple(g.shape) == r.shape and g.dtype == torch.float32, path
-        if path[-1] in ("norm1", "norm2", "final_norm", "conv_b",
-                        "dt_bias", "A_log"):
-            assert not g.any(), path
-        elif path[-1] == "D":
-            assert torch.equal(g, torch.ones_like(g)), path
-        else:   # the same scale rule: std within 10% of the reference's
-            assert abs(float(g.std()) / float(r.std()) - 1.0) < 0.1, path
-    walk(got, ref)
+
+def _check_init(g, r, spec, path):
+    if isinstance(r, dict):
+        assert set(g) == set(r) == set(spec), path
+        for k in r:
+            _check_init(g[k], r[k], spec[k], path + (k,))
+        return
+    assert tuple(g.shape) == r.shape and g.dtype == torch.float32, path
+    if spec.init == "zeros":
+        assert not g.any() and not r.any(), path
+    elif spec.init == "ones":
+        assert torch.equal(g, torch.ones_like(g)) and (r == 1).all(), path
+    else:
+        assert abs(float(g.std()) / float(r.std()) - 1.0) < 0.1, path
+
+
+# leaves the reference reads in float32 (``.astype(f32)``) wherever they
+# occur: the compute-dtype cast must leave them alone
+_READ_F32 = {"norm1", "norm2", "final_norm", "cross_norm", "dt_proj",
+             "dt_bias", "A_log", "router", "w_igate", "w_fgate", "b_igate",
+             "b_fgate", "b_in", "r_z", "r_i", "r_f", "r_o"}
 
 
 def test_init_cast_weights_keeps_float32_where_the_reference_reads_it():
+    # every configuration: a leaf is stored in bf16 exactly where every
+    # use casts it (COMPUTE_CAST), never where the reference reads it
+    # in float32
+    assert not COMPUTE_CAST & _READ_F32
+    for arch in sorted(ARCHS):
+        _, zt = _zoo_cfgs(arch, "bfloat16")
+        cast = Model(zt).init(0, device=CPU, cast_weights=True)
+
+        def walk(t, path):
+            if isinstance(t, dict):
+                for k, v in t.items():
+                    walk(v, path + (k,))
+                return
+            want = (torch.bfloat16 if path[-1] in COMPUTE_CAST
+                    else torch.float32)
+            assert t.dtype == want, (arch, path, t.dtype)
+            assert path[-1] in COMPUTE_CAST | _READ_F32, (arch, path)
+        walk(cast, ())
     _, ct = _cfgs("jamba-1.5-large-398b", "bfloat16")
     p = Model(ct).init(0, device=CPU, cast_weights=True)
     mamba = p["layers"]["pos1"]["core"]
@@ -446,11 +670,34 @@ def test_interop_raises_on_dtype_shape_or_key_mismatch():
         model_params_from_arrays(bad, ct, device=CPU)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "xlstm-1.3b",
-                                  "whisper-base"])
-def test_unported_families_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="A4b"):
-        Model(reduced(get_arch(arch)))
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_interop_round_trips_every_family(arch):
+    """Each configuration's reference trees — parameters (experts,
+    router, shared experts, mLSTM/sLSTM weights, the encoder) and a
+    prefilled decode cache (KV, Mamba, mLSTM/sLSTM states, cross k/v) —
+    carried into the port leaf for leaf, and the port's own tree has the
+    reference's keys, shapes and dtypes; the port then prefills and
+    decodes on them."""
+    cj, ct = _zoo_cfgs(arch, "bfloat16")
+    jm, tm = JaxModel(cj), Model(ct)
+    params = jm.init(jax.random.key(2))
+    tp = model_params_from_arrays(_np_tree(params), ct, device=CPU)
+    _cmp_tree(tp, _np_tree(params),
+              lambda g, w: np.testing.assert_array_equal(g.numpy(), w))
+    jb, tb = _both(_zoo_batch(cj, 1, 8, 25))
+    _, cache = jax.jit(jm.prefill)(params, jb, jm.init_cache(1, 16))
+    tc = model_cache_from_arrays(_np_tree(cache), ct, 1, 16, device=CPU)
+    _cmp_tree(tc, _np_tree(cache), lambda g, w: np.testing.assert_array_equal(
+        g.float().numpy(), np.asarray(w, np.float32)))
+    own = tm.init_cache(1, 16, device=CPU)
+    _cmp_tree(own, _np_tree(jm.init_cache(1, 16)),
+              lambda g, w: (g.shape == w.shape) or pytest.fail(
+                  f"{g.shape} vs {w.shape}"))
+    lg, tc = tm.prefill(tp, tb, tm.init_cache(1, 16, device=CPU))
+    assert lg.shape == (1, 1, cj.vocab_size)
+    dec = _dec_batch(cj, np.array([[1]], np.int32), np.array([8], np.int32))
+    lg, _ = tm.decode_step(tp, _both(dec)[1], tc, 8)
+    assert lg.shape == (1, 1, cj.vocab_size) and torch.isfinite(lg).all()
 
 
 def test_unported_model_options_raise_naming_the_roadmap():
@@ -458,9 +705,6 @@ def test_unported_model_options_raise_naming_the_roadmap():
     toks = torch.zeros((1, 4), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="A4b"):
         tm.forward_train(tp, {"tokens": toks})
-    with pytest.raises(NotImplementedError, match="A4b"):
-        tm.prefill(tp, {"tokens": toks, "vision_embeds": torch.zeros(1)},
-                   tm.init_cache(1, 8, device=CPU))
     q = torch.zeros((1, 4, 4, 16))
     with pytest.raises(NotImplementedError, match="A9"):
         L.attention_apply(tp["layers"]["pos0"]["core"], tm.cfg,

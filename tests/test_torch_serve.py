@@ -137,6 +137,81 @@ def test_continuous_matches_fixed_batch():
     assert cont.tokens_emitted == sum(max_new)
 
 
+_ZOO = {}
+
+
+def _setup_zoo(arch):
+    """Both packages' float32 reduced model with the same weights,
+    experts kept."""
+    if arch not in _ZOO:
+        cj = dataclasses.replace(jax_reduced(jax_get_arch(arch)),
+                                 compute_dtype="float32")
+        ct = dataclasses.replace(reduced(get_arch(arch)),
+                                 compute_dtype="float32")
+        jm = JaxModel(cj)
+        params = jm.init(jax.random.key(0))
+        tp = interop.model_params_from_arrays(_np_tree(params), ct,
+                                              device=CPU)
+        _ZOO[arch] = (jm, params, Model(ct), tp)
+    return _ZOO[arch]
+
+
+@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",
+                                  "jamba-1.5-large-398b", "xlstm-1.3b"])
+def test_engines_on_moe_and_xlstm_match_reference(arch):
+    """MoE (moonshot: shared experts; Jamba: MoE every other layer of
+    its attention+Mamba pattern) and xLSTM (float32 mLSTM/sLSTM states
+    carried through ``_scatter_slot`` and the masked step): each engine
+    gives the reference's engine's greedy tokens, token for token, with
+    the same schedule and host transfers."""
+    jm, params, tm, tp = _setup_zoo(arch)
+    vocab = jm.cfg.vocab_size
+    kw = dict(batch_slots=2, max_len=32, flush_interval=3)
+    ref = JaxServeEngine(jm, params, **kw)
+    want = ref.run(_reqs(JaxRequest, vocab, _LENS, _NEW))
+    eng = ServeEngine(tm, tp, device=CPU, **kw)
+    assert eng.run(_reqs(Request, vocab, _LENS, _NEW)) == want
+    assert _schedule(eng) == _schedule(ref)
+    assert eng.host_transfers == ref.host_transfers
+    fkw = dict(batch_slots=2, max_len=32, flush_interval=3)
+    ref_f = JaxFixedBatchEngine(jm, params, **fkw)
+    want_f = ref_f.run(_reqs(JaxRequest, vocab, _LENS, _NEW))
+    eng_f = FixedBatchEngine(tm, tp, device=CPU, **fkw)
+    assert eng_f.run(_reqs(Request, vocab, _LENS, _NEW)) == want_f
+    assert eng_f.host_transfers == ref_f.host_transfers
+
+
+def test_moe_engines_match_reference_where_capacity_splits_them():
+    """An MoE layout whose batch-1 prefill (continuous) and 2-slot prefill
+    (fixed) drop different assignments (moonshot's 64 experts top-6 at
+    d_model 256, 2 layers, an untied head so the greedy tokens show it):
+    the reference's two engines disagree, and each of the port's engines
+    gives its counterpart's tokens, token for token (ROADMAP C)."""
+    base = (jax_get_arch("moonshot-v1-16b-a3b"),
+            get_arch("moonshot-v1-16b-a3b"))
+    cj, ct = (dataclasses.replace(
+        b, num_layers=2, d_model=256, num_heads=4, num_kv_heads=4,
+        vocab_size=1024, compute_dtype="float32", tie_embeddings=False,
+        moe=dataclasses.replace(b.moe, expert_d_ff=64)) for b in base)
+    jm = JaxModel(cj)
+    params = jm.init(jax.random.key(0))
+    tm = Model(ct)
+    tp = interop.model_params_from_arrays(_np_tree(params), ct, device=CPU)
+    lens, max_new = [64] * 4, [7, 3, 5, 2]
+    kw = dict(batch_slots=2, max_len=144)
+    ref_f = JaxFixedBatchEngine(jm, params, **kw).run(
+        _reqs(JaxRequest, 1024, lens, max_new))
+    ref_c = JaxServeEngine(jm, params, flush_interval=2, **kw).run(
+        _reqs(JaxRequest, 1024, lens, max_new))
+    assert ref_c != ref_f
+    got_f = FixedBatchEngine(tm, tp, device=CPU, **kw).run(
+        _reqs(Request, 1024, lens, max_new))
+    got_c = ServeEngine(tm, tp, flush_interval=2, device=CPU, **kw).run(
+        _reqs(Request, 1024, lens, max_new))
+    assert got_f == ref_f
+    assert got_c == ref_c
+
+
 def test_host_transfer_counts_and_zero_budget():
     _, _, tm, tp = _setup()
     vocab = tm.cfg.vocab_size
