@@ -111,7 +111,8 @@ def build_other(tree: Path, build, names) -> Path:
 FA_OLD_ARGS = 12       # B9's entry before the key length and the window:
                        # q, k, v, o, B, Hq, Hkv, S, strides, causal, cap,
                        # stream (this tree's adds Sk after S, window after
-                       # causal)
+                       # causal, and the lse pointer before the stream)
+FA_NO_LSE_ARGS = 14    # the entry with Sk and the window, before the lse
 
 
 def fa_entry_args(tree: Path) -> int:
@@ -124,24 +125,29 @@ def fa_entry_args(tree: Path) -> int:
 
 
 @contextlib.contextmanager
-def using(lib, build, fa_old=False):
+def using(lib, build, fa_old=0):
     """Route the wrappers' C entries to ``lib`` (None: this tree's);
-    ``fa_old``: ``lib``'s B9 entries take the 12 arguments of the entry
-    before the key length and the window, so this tree's call drops Sk
-    and the window (it must pass Sk == S and no window)."""
+    ``fa_old``: the argument count of ``lib``'s B9 entries where they
+    are older than this tree's: ``FA_NO_LSE_ARGS`` (no lse pointer: this
+    tree's call must pass none) or ``FA_OLD_ARGS`` (also neither the key
+    length nor the window: it must pass Sk == S and no window)."""
     saved = build.c_function
 
     def entry(name, argtypes):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         if fa_old and name.startswith("fa_launch_"):
-            fn.argtypes = argtypes[:8] + argtypes[9:11] + argtypes[12:]
+            keep = [i for i in range(len(argtypes)) if i != 13
+                    and (fa_old == FA_NO_LSE_ARGS or i not in (8, 11))]
+            fn.argtypes = [argtypes[i] for i in keep]
 
             def call(*a):
-                if a[8] != a[7] or a[11]:
+                if a[13]:
+                    raise ValueError("the other tree's B9 writes no lse")
+                if fa_old == FA_OLD_ARGS and (a[8] != a[7] or a[11]):
                     raise ValueError("the other tree's B9 takes neither "
                                      "a key length nor a window")
-                return fn(*a[:8], *a[9:11], *a[12:])
+                return fn(*(a[i] for i in keep))
             return call
         fn.argtypes = argtypes
         return fn
@@ -287,7 +293,7 @@ def serve_calls(cs, gen, dev, want) -> dict:
     return calls
 
 
-def flash_edges(cs, other, build, dev, fa_old=False) -> dict:
+def flash_edges(cs, other, build, dev, fa_old=0) -> dict:
     """B9 bf16's worst error over the card tests' edge cases, both
     libraries."""
     import torch
@@ -303,7 +309,7 @@ def flash_edges(cs, other, build, dev, fa_old=False) -> dict:
                    _attention_case(3, b=1, hq=2 * group, hkv=2, s=s, d=d))
         want = flash_attention_ref(q, k, v, causal=causal, logit_cap=cap)
         for side, lib in (("other", other), ("this", None)):
-            with using(lib, build, fa_old and lib is not None):
+            with using(lib, build, fa_old if lib is not None else 0):
                 got = flash_attention_kernel(q, k, v, causal=causal,
                                              logit_cap=cap)
             rel = cs._rel_err(got, want)
@@ -458,14 +464,15 @@ def main(argv=None) -> int:
             ap.error(f"b4: the other tree's xcorr_align_launch takes "
                      f"{n_other} arguments, neither this tree's nor the "
                      f"{XCORR_OLD_ARGS} of the entry before the redesign")
-    fa_old = False
+    fa_old = 0
     if "b9" in want:
         n_fa = fa_entry_args(args.against)
-        if n_fa not in (FA_OLD_ARGS, fa_entry_args(ROOT)):
+        if n_fa not in (FA_OLD_ARGS, FA_NO_LSE_ARGS, fa_entry_args(ROOT)):
             ap.error(f"b9: the other tree's entries take {n_fa} arguments, "
-                     f"neither this tree's nor the {FA_OLD_ARGS} of the "
+                     f"neither this tree's nor the {FA_NO_LSE_ARGS} of the "
+                     f"entry before the lse nor the {FA_OLD_ARGS} of the "
                      f"entry before the key length and the window")
-        fa_old = n_fa == FA_OLD_ARGS
+        fa_old = n_fa if n_fa in (FA_OLD_ARGS, FA_NO_LSE_ARGS) else 0
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -496,7 +503,7 @@ def main(argv=None) -> int:
         want_out = ref()
         checks, outs = {}, {}
         for side, lib in (("other", other), ("this", None)):
-            with using(lib, build, fa_old and lib is not None):
+            with using(lib, build, fa_old if lib is not None else 0):
                 outs[side] = fn()
                 checks[side], ok = compare(outs[side], want_out)
             if not ok and side == "this":
@@ -511,7 +518,7 @@ def main(argv=None) -> int:
         ms = {"other": [], "this": []}
         for side in ("other", "this", "this", "other"):
             with using(other if side == "other" else None, build,
-                       fa_old and side == "other"):
+                       fa_old if side == "other" else 0):
                 ms[side].append(cs.timed(fn)["device_ms"])
         after = cs.gpu_clocks()
         mean = {s: sum(v) / len(v) for s, v in ms.items()}

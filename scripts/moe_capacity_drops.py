@@ -65,7 +65,7 @@ def layer0_drops(cfg, tokens, seed) -> int:
     model = Model(cfg)
     p = model.init(seed, device="cpu")
     x = p["embed"][torch.as_tensor(tokens).long()]
-    blk = L.map_tree(lambda _, t: t[0], p["layers"]["pos0"])
+    blk = L.tree_map(lambda t: t[0], p["layers"]["pos0"])
     # layer 0's MoE input is its norm of x plus its attention output:
     # run the block's attention as the model does
     h = L.rms_norm(x, blk["norm1"], cfg.rms_eps)

@@ -78,21 +78,12 @@
 // 4 rows x D/16 output columns; q, k (transposed, padded) and v are
 // float32 in shared memory (113 KB at D = 128); each row's (m, l) is
 // folded by shuffles inside one half-warp.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_attention.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kBQ = 64;          // query rows per block
 constexpr int kBK = 64;          // keys per tile
-constexpr float kNegInf = -1e30f;
-
-struct Strides {                 // in elements; the D axis is contiguous
-  long long b, h, s;
-};
 
 // ------------------------------------------------ float32: SIMT kernel
 
@@ -107,9 +98,10 @@ constexpr int f32_smem_floats() {
 template <int D>
 __global__ void __launch_bounds__(kF32Threads)
 fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int Hq,
-              int group, int S, int Sk, Strides sq, Strides sk, Strides sv,
-              Strides so, int causal, int window, float cap, float sqrt_d) {
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int Hq, int group, int S, int Sk,
+              Strides sq, Strides sk, Strides sv, Strides so, int causal,
+              int window, float cap, float sqrt_d) {
   extern __shared__ float smem[];
   float* Qs = smem;                    // [kBQ][D]
   float* Ks = Qs + kBQ * D;            // [D][kKPad], transposed
@@ -227,6 +219,8 @@ fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < C; ++c)
       ob[row * so.s + tx + 16 * c] = __fdiv_rn(acc[i][c], den);
+    if (lse != nullptr && tx == 0)     // l is the half-warp's full sum
+      lse[static_cast<long long>(blockIdx.y) * S + row] = m[i] + logf(den);
   }
 }
 
@@ -242,73 +236,16 @@ constexpr int mma_smem_bytes() {              // Q, then 2 x K, 2 x V
   return 5 * kBQ * mma_pitch<D>() * static_cast<int>(sizeof(bf16));
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !ok
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool ok) {
-  const int n = ok ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(dst), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// four 8x8 b16 matrices; lanes 8j..8j+7 give matrix j's row addresses,
-// register j holds matrix j's (row lane/4, columns 2*(lane%4) .. +1)
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-// the same, transposed: register j holds matrix j's (rows 2*(lane%4) .. +1,
-// column lane/4)
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x: low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Fragment layouts (PTX ISA, mma.m16n8k16), g = lane / 4, c = lane % 4:
-//   A regs 0..3: (row g, k 2c..2c+1), (g+8, 2c..), (g, 2c+8..), (g+8, 2c+8..)
-//   B regs 0..1: (k 2c..2c+1, n g), (k 2c+8.., n g)
-//   C 0..3:      (row g, n 2c), (g, 2c+1), (g+8, 2c), (g+8, 2c+1)
 // kWin: a window is given.  The kernel without one carries none of the
 // window's bounds and masks: they cost registers at D = 128, where the
 // accumulators already take 251 of 255.
 template <int D, bool kWin>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o, int Hq,
-              int group, int S, int Sk, Strides sq, Strides sk, Strides sv,
-              Strides so, int causal, int window, float score_mul,
-              float cap_mul) {
+              const bf16* __restrict__ v, bf16* __restrict__ o,
+              float* __restrict__ lse, int Hq, int group, int S, int Sk,
+              Strides sq, Strides sk, Strides sv, Strides so, int causal,
+              int window, float score_mul, float cap_mul) {
   constexpr int P = mma_pitch<D>();
   constexpr int KD = D / 16;           // k-steps of Q K^T
   constexpr int ND = D / 8;            // n-tiles of the output
@@ -479,6 +416,11 @@ fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float inv0 = 1.0f / fmaxf(l[0], 1e-30f);
   const float inv1 = 1.0f / fmaxf(l[1], 1e-30f);
   const int row1 = row0 + 8;
+  if (lse != nullptr && c4 == 0) {     // m is in the log2 domain
+    float* lb = lse + static_cast<long long>(blockIdx.x) * S;
+    if (row0 < S) lb[row0] = (m[0] + log2f(fmaxf(l[0], 1e-30f))) * kLn2;
+    if (row1 < S) lb[row1] = (m[1] + log2f(fmaxf(l[1], 1e-30f))) * kLn2;
+  }
 #pragma unroll
   for (int n = 0; n < ND; ++n) {
     const int col = 8 * n + 2 * c4;
@@ -493,30 +435,10 @@ fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // ------------------------------------------------------------ launchers
 
-constexpr int kMaxDevices = 64;
-
-// a kernel's opt-in to more than 48 KB of dynamic shared memory, once
-// per device (the driver keeps it; a launch needs no further call)
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, int bytes, bool (&opted)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && opted[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && dev < kMaxDevices) opted[dev] = true;
-  return err;
-}
-
-Strides strides_of(const long long* st, int i) {
-  return Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
-}
-
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int Hq, int Hkv, int S, int Sk, const long long* st,
-               int causal, int window, float cap, void* stream) {
+               int causal, int window, float cap, float* lse, void* stream) {
   const int smem = f32_smem_floats<D>() * static_cast<int>(sizeof(float));
   static bool opted[kMaxDevices] = {};
   const cudaError_t err = opt_in(fa_f32_kernel<D>, smem, opted);
@@ -525,8 +447,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   fa_f32_kernel<D><<<grid, kF32Threads, smem,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Hq, Hq / Hkv, S,
-      Sk, strides_of(st, 0), strides_of(st, 1), strides_of(st, 2),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Hq,
+      Hq / Hkv, S, Sk, strides_of(st, 0), strides_of(st, 1), strides_of(st, 2),
       strides_of(st, 3), causal, window, cap, sqrtf(static_cast<float>(D)));
   return static_cast<int>(cudaGetLastError());
 }
@@ -534,7 +456,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int Hq, int Hkv, int S, int Sk, const long long* st,
-                int causal, int window, float cap, void* stream) {
+                int causal, int window, float cap, float* lse,
+                void* stream) {
   const int smem = mma_smem_bytes<D>();
   static bool opted[kMaxDevices] = {};
   static bool opted_win[kMaxDevices] = {};
@@ -544,16 +467,15 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   if (err != cudaSuccess) return static_cast<int>(err);
   // scores -> log2 domain: x * log2(e) / sqrt(D), or with the cap
   // cap * log2(e) * tanh(x / (sqrt(D) * cap))
-  const float log2e = 1.4426950408889634f;
   const float rsd = 1.0f / sqrtf(static_cast<float>(D));
-  const float score_mul = cap > 0.0f ? rsd / cap : rsd * log2e;
-  const float cap_mul = cap > 0.0f ? cap * log2e : 0.0f;
+  const float score_mul = cap > 0.0f ? rsd / cap : rsd * kLog2e;
+  const float cap_mul = cap > 0.0f ? cap * kLog2e : 0.0f;
   const dim3 grid(B * Hq, (S + kBQ - 1) / kBQ);
   auto kernel = window > 0 ? fa_mma_kernel<D, true> : fa_mma_kernel<D, false>;
   kernel<<<grid, kMmaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Hq, Hq / Hkv, S,
-      Sk, strides_of(st, 0), strides_of(st, 1), strides_of(st, 2),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Hq,
+      Hq / Hkv, S, Sk, strides_of(st, 0), strides_of(st, 1), strides_of(st, 2),
       strides_of(st, 3), causal, window, score_mul, cap_mul);
   return static_cast<int>(cudaGetLastError());
 }
@@ -561,17 +483,19 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // S: query rows, Sk: keys; strides: 12 int64, (batch, head, seq) for q,
-// k, v and o in turn; window: 0 for none.
+// k, v and o in turn; window: 0 for none; lse: null, or (B, Hq, S)
+// float32 that takes each row's log-sum-exp of its scaled (and capped)
+// scores, m + log(l), for the backward (flash_attention_bwd.cu).
 #define FA_ENTRY(NAME, LAUNCH)                                               \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* o,  \
                       int B, int Hq, int Hkv, int S, int Sk,                 \
                       const long long* strides, int causal, int window,      \
-                      float cap, void* stream) {                             \
+                      float cap, float* lse, void* stream) {                 \
     if (B <= 0 || S <= 0 || Hq <= 0) return 0;                               \
     if (Sk <= 0 || (causal && Sk != S) || (window > 0 && !causal))           \
       return static_cast<int>(cudaErrorInvalidValue);                        \
     return LAUNCH(q, k, v, o, B, Hq, Hkv, S, Sk, strides, causal, window,    \
-                  cap, stream);                                              \
+                  cap, lse, stream);                                         \
   }
 
 FA_ENTRY(fa_launch_f32_d64, launch_f32<64>)

@@ -38,6 +38,20 @@ def refuse_unported(entry: str, *, mesh=None, interpret=None,
             + " yet" + (f" (ROADMAP {item})" if item else ""))
 
 
+def refuse_detached(kernel: str, *tensors, item: str):
+    """Raise ``NotImplementedError`` naming ROADMAP ``item`` when autograd
+    is recording and one of ``tensors`` requires a gradient: a ctypes
+    kernel's output carries no ``grad_fn``, so launching it then would cut
+    the graph silently (the parameters behind it would get no gradient).
+    Each kernel wrapper without a backward calls it before it launches."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise NotImplementedError(
+            f"repro_torch's {kernel} kernel has no backward yet: its "
+            f"result would carry no gradient (ROADMAP {item})")
+
+
 def wait(device) -> None:
     """Block the host until ``device`` has finished its queued work (the
     counterpart of ``jax.block_until_ready``); nothing to wait for on the

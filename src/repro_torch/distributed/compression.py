@@ -1,19 +1,25 @@
-"""The host-collective reduce frame: the lossless wire format of
-``HostCollectives.allreduce_framed`` (port of the reduce-frame part of
-``repro/distributed/compression.py``; its gradient-compression hooks
-belong to training, ROADMAP A4b).
+"""Gradient compression for the data-parallel reduce, and the
+host-collective wire format (port of ``repro/distributed/compression.py``).
 
-The framed vectors are per-window (lag, weight) tracking contributions
-and health statistics, (k, n_global) float64 with non-zeros only on the
-posting host's rows, and all zero on the many windows where no hop
-fired.  A sparse frame (strictly increasing non-zero positions as a
-varint first index plus bitpacked zigzag gaps, then the non-zero values
-as raw float64) shrinks them while every surviving float stays
-bit-exact: the fold-order rule tolerates no rounding, so values are never
-quantized; only the zeros and the index bookkeeping are compressed away.
-A dense flag keeps mostly non-zero vectors at raw size.  Frames are byte
-for byte the reference's, so a frame from either package decodes in the
-other.  Host numpy and the standard library only.
+The gradient hooks (``make_grad_hook`` for ``make_train_step(grad_hook=
+...)``, ``ef_roundtrip`` with error feedback) round-trip a gradient tree
+(nested dicts of tensors) through bf16 or blockwise int8, as the
+reference does before its reduce; they round exactly as the reference
+(round to nearest even in both).
+
+The reduce frame is the lossless wire format of
+``HostCollectives.allreduce_framed``.  The framed vectors are per-window
+(lag, weight) tracking contributions and health statistics, (k,
+n_global) float64 with non-zeros only on the posting host's rows, and
+all zero on the many windows where no hop fired.  A sparse frame
+(strictly increasing non-zero positions as a varint first index plus
+bitpacked zigzag gaps, then the non-zero values as raw float64) shrinks
+them while every surviving float stays bit-exact: the fold-order rule
+tolerates no rounding, so values are never quantized; only the zeros and
+the index bookkeeping are compressed away.  A dense flag keeps mostly
+non-zero vectors at raw size.  Frames are byte for byte the reference's,
+so a frame from either package decodes in the other.  Host numpy and
+the standard library only.
 """
 from __future__ import annotations
 
@@ -21,10 +27,94 @@ import dataclasses
 import struct
 
 import numpy as np
+import torch
 
 from repro_torch.core.trace_format import (bitpack, bitunpack,
                                            varint_decode, varint_encode,
                                            zigzag_decode, zigzag_encode)
+from repro_torch.models.layers import tree_map
+
+
+# ---------------------------------------------------------------------------
+# Gradient compression hooks
+# ---------------------------------------------------------------------------
+
+def bf16_compress(x):
+    return x.to(torch.bfloat16)
+
+
+def bf16_decompress(x):
+    return x.to(torch.float32)
+
+
+def int8_compress(x, *, block=256):
+    flat = x.reshape(-1)
+    pad = (-flat.numel()) % block
+    flat = torch.nn.functional.pad(flat, (0, pad))
+    blocks = flat.reshape(-1, block)
+    scale = torch.amax(torch.abs(blocks), dim=1, keepdim=True) / 127.0
+    scale = torch.clamp(scale, min=1e-12)
+    q = torch.clamp(torch.round(blocks / scale), -127, 127).to(torch.int8)
+    return q, scale.to(torch.float32), tuple(x.shape), pad
+
+
+def int8_decompress(q, scale, shape, pad):
+    flat = (q.to(torch.float32) * scale).reshape(-1)
+    if pad:
+        flat = flat[:-pad]
+    return flat.reshape(shape)
+
+
+def apply_error_feedback(grads, residual):
+    """g' = g + residual (fp32); returns corrected grads."""
+    if residual is None:
+        return grads
+    return tree_map(lambda g, r: g.float() + r, grads, residual)
+
+
+def compute_residual(grads_corrected, grads_compressed_roundtrip):
+    """residual' = g' - decompress(compress(g'))."""
+    return tree_map(lambda g, gq: g - gq.float(), grads_corrected,
+                 grads_compressed_roundtrip)
+
+
+def _int8_roundtrip(g):
+    return int8_decompress(*int8_compress(g))
+
+
+def make_grad_hook(scheme: str = "bf16"):
+    """grad_hook for make_train_step: compress -> (implicit reduce) ->
+    decompress.  Stateless form (no error feedback); the stateful EF form
+    is ``ef_roundtrip``."""
+    if scheme == "none":
+        return None
+
+    def hook(grads):
+        if scheme == "bf16":
+            return tree_map(lambda g: bf16_decompress(bf16_compress(g)), grads)
+        if scheme == "int8":
+            return tree_map(lambda g: _int8_roundtrip(g).to(g.dtype), grads)
+        raise ValueError(scheme)
+
+    return hook
+
+
+def ef_roundtrip(grads, residual, *, scheme="bf16"):
+    """One error-feedback step: returns (compressed-roundtrip grads,
+    new residual)."""
+    corrected = apply_error_feedback(grads, residual)
+    if scheme == "bf16":
+        rt_f = tree_map(lambda g: bf16_decompress(bf16_compress(g)), corrected)
+    elif scheme == "int8":
+        rt_f = tree_map(_int8_roundtrip, corrected)
+    else:
+        raise ValueError(scheme)
+    return rt_f, compute_residual(corrected, rt_f)
+
+
+# ---------------------------------------------------------------------------
+# The host-collective reduce frame (lossless wire format)
+# ---------------------------------------------------------------------------
 
 # header: magic(2) + version(1) + flags(1) + raw float64 scalar(8)
 FRAME_MAGIC = b"RW"

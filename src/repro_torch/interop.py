@@ -7,9 +7,11 @@ Covered: sensor traces and specs, the truth schedule, the packed blocks
 of the batch path (``PackedFleet``, ``SeriesRows``), every stage carry
 of the windowed pipeline, so a run can start in the reference and finish
 in the port, the §V-B case study's inputs (a linear system, a region
-tracer's events), and a model's parameters and decode cache (nested dicts
-of arrays, stacked per ``pos{i}``).  Arrays are installed verbatim: a
-dtype that differs from the carry's raises instead of being cast.
+tracer's events), a model's parameters and decode cache (nested dicts
+of arrays, stacked per ``pos{i}``) and its optimizer state (AdamW's or
+Adafactor's), so a training checkpoint crosses too.  Arrays are
+installed verbatim: a dtype that differs from the carry's raises
+instead of being cast.
 
 State schema for ``load_pipeline_state`` (``pipeline_state`` returns the
 same from a port pipeline)::
@@ -298,3 +300,40 @@ def model_cache_from_arrays(tree, cfg, batch_size: int, max_len: int,
     specs = Model(cfg).cache_specs(batch_size, max_len)
     return _install(tree, specs, resolve_device(device), "cache",
                     lambda sd: (sd[1], sd[0]))
+
+
+def optimizer_state_from_arrays(tree, params, kind: str,
+                                device=None) -> dict:
+    """A reference optimizer state as nested dicts of numpy arrays ->
+    the port's, shaped for ``params`` (the port's parameter tree) on
+    ``device`` (None means CUDA): ``kind="adamw"`` takes ``{"m", "v",
+    "count"}``, ``kind="adafactor"`` ``{"slots", "count"}`` (a factored
+    leaf's ``vr``/``vc``, a vector's ``v``).  Moments are float32 and
+    ``count`` an int32 scalar, installed verbatim as
+    ``model_params_from_arrays`` installs weights: a dtype, shape or key
+    that differs raises."""
+    from repro_torch.device import resolve_device
+    f32 = torch.float32
+
+    def moments(p):
+        if isinstance(p, dict):
+            return {k: moments(v) for k, v in p.items()}
+        return (f32, tuple(p.shape))
+
+    def slots(p):
+        if isinstance(p, dict):
+            return {k: slots(v) for k, v in p.items()}
+        if p.dim() >= 2:
+            return {"vr": (f32, tuple(p.shape[:-1])),
+                    "vc": (f32, tuple(p.shape[:-2] + p.shape[-1:]))}
+        return {"v": (f32, tuple(p.shape))}
+
+    if kind == "adamw":
+        spec = {"m": moments(params), "v": moments(params)}
+    elif kind == "adafactor":
+        spec = {"slots": slots(params)}
+    else:
+        raise ValueError(f"optimizer kind {kind!r}: adamw or adafactor")
+    spec["count"] = (torch.int32, ())
+    return _install(tree, spec, resolve_device(device), "opt_state",
+                    lambda leaf: leaf)

@@ -1,6 +1,9 @@
-"""Wrapper of the ``flash_attention`` CUDA kernel
+"""Wrappers of the ``flash_attention`` CUDA kernels: the forward
 (``csrc/flash_attention.cu``; replaces the TPU kernel
-``flash_attention_kernel`` of ``repro/kernels/flash_attention/kernel.py``).
+``flash_attention_kernel`` of ``repro/kernels/flash_attention/kernel.py``)
+and its gradient (``csrc/flash_attention_bwd.cu``; no TPU counterpart:
+the reference differentiates its jnp attention), joined by the autograd
+``FlashAttention``.
 """
 from __future__ import annotations
 
@@ -8,6 +11,7 @@ import ctypes
 
 import torch
 
+from repro_torch.device import refuse_detached
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -16,6 +20,10 @@ _ENTRY = {(torch.float32, 64): "fa_launch_f32_d64",
           (torch.bfloat16, 64): "fa_launch_bf16_d64",
           (torch.bfloat16, 128): "fa_launch_bf16_d128"}
 _ARGS = (build.PTR,) * 4 + (build.INT,) * 5 + (
+    build.PTR, build.INT, build.INT, ctypes.c_float, build.PTR, build.PTR)
+_BWD_ENTRY = {key: name.replace("fa_launch", "fa_bwd_launch")
+              for key, name in _ENTRY.items()}
+_BWD_ARGS = (build.PTR,) * 10 + (build.INT,) * 5 + (
     build.PTR, build.INT, build.INT, ctypes.c_float, build.PTR)
 
 
@@ -44,6 +52,65 @@ def _check(x: torch.Tensor, what: str, dtype, shape, dev):
                          f"{x.stride()}")
 
 
+def _check_options(q, k, causal, window) -> int:
+    window = int(window or 0)
+    sk = k.shape[2]
+    if sk < 1 or window < 0:
+        raise ValueError(f"flash_attention: {sk} keys, window {window}")
+    if causal and sk != q.shape[2]:
+        raise ValueError(f"flash_attention: a causal call needs as many "
+                         f"keys as queries, got {sk} and {q.shape[2]}")
+    if window and not causal:
+        raise ValueError("flash_attention: a window needs causal=True")
+    return window
+
+
+def _check_cuda(q, k, v):
+    """The CUDA kernels' argument checks -> (b, hq, hkv, s, sk, d)."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {dev}")
+    b, hq, s, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if (q.dtype, d) not in _ENTRY:
+        raise ValueError(f"flash_attention: dtype {q.dtype} with head_dim "
+                         f"{d}; the kernel takes float32 or bfloat16 with "
+                         f"head_dim 64 or 128")
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"flash_attention: {hq} query heads are not a "
+                         f"multiple of {hkv} kv heads")
+    _check(q, "q", q.dtype, (b, hq, s, d), dev)
+    _check(k, "k", q.dtype, (b, hkv, sk, d), dev)
+    _check(v, "v", q.dtype, (b, hkv, sk, d), dev)
+    return b, hq, hkv, s, sk, d
+
+
+def _strides(*tensors):
+    return (ctypes.c_longlong * (3 * len(tensors)))(
+        *(st for x in tensors for st in x.stride()[:3]))
+
+
+def _forward(q, k, v, causal, logit_cap, window, with_lse):
+    """Launch the forward on CUDA tensors -> (out, lse or None); lse is
+    (B, Hq, S) float32, each row's log-sum-exp of its scores."""
+    b, hq, hkv, s, sk, d = _check_cuda(q, k, v)
+    dev = q.device
+    out = torch.empty_like(q)          # q's layout (dense: same strides)
+    lse = (torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+           if with_lse else None)
+    strides = _strides(q, k, v, out)
+    fn = build.c_function(_ENTRY[(q.dtype, d)], _ARGS)
+    with torch.cuda.device(dev):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b, hq, hkv, s, sk, ctypes.addressof(strides),
+                int(bool(causal)), window, float(logit_cap or 0.0),
+                None if lse is None else lse.data_ptr(),
+                build.stream_ptr(dev))
+    build.check_launch(rc, "flash_attention")
+    flash_attention_kernel.launches += 1
+    return out, lse
+
+
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool = True,
                            logit_cap: float = 0.0,
@@ -65,46 +132,89 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     S >= 1 and Hq a multiple of Hkv.  In bfloat16 the pointers and the
     batch, head and sequence strides must be 16-byte aligned; a view
     that is not raises ``ValueError`` (it is not copied).
+
+    Its result carries no gradient: a CUDA input that requires one, with
+    grad enabled, raises ``NotImplementedError``; ``ops.flash_attention``
+    takes such inputs through ``FlashAttention``.
     """
-    window = int(window or 0)
-    sk = k.shape[2]
-    if sk < 1 or window < 0:
-        raise ValueError(f"flash_attention: {sk} keys, window {window}")
-    if causal and sk != q.shape[2]:
-        raise ValueError(f"flash_attention: a causal call needs as many "
-                         f"keys as queries, got {sk} and {q.shape[2]}")
-    if window and not causal:
-        raise ValueError("flash_attention: a window needs causal=True")
-    dev = q.device
-    if dev.type == "cpu":
+    window = _check_options(q, k, causal, window)
+    if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal,
                                    logit_cap=logit_cap, window=window)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {dev}")
-    b, hq, s, d = q.shape
-    hkv = k.shape[1]
-    if (q.dtype, d) not in _ENTRY:
-        raise ValueError(f"flash_attention: dtype {q.dtype} with head_dim "
-                         f"{d}; the kernel takes float32 or bfloat16 with "
-                         f"head_dim 64 or 128")
-    if hkv < 1 or hq % hkv:
-        raise ValueError(f"flash_attention: {hq} query heads are not a "
-                         f"multiple of {hkv} kv heads")
-    _check(q, "q", q.dtype, (b, hq, s, d), dev)
-    _check(k, "k", q.dtype, (b, hkv, sk, d), dev)
-    _check(v, "v", q.dtype, (b, hkv, sk, d), dev)
-    out = torch.empty_like(q)          # q's layout (dense: same strides)
-    strides = (ctypes.c_longlong * 12)(
-        *(st for x in (q, k, v, out) for st in x.stride()[:3]))
-    fn = build.c_function(_ENTRY[(q.dtype, d)], _ARGS)
-    with torch.cuda.device(dev):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, hq, hkv, s, sk, ctypes.addressof(strides),
-                int(bool(causal)), window, float(logit_cap or 0.0),
-                build.stream_ptr(dev))
-    build.check_launch(rc, "flash_attention")
-    flash_attention_kernel.launches += 1
-    return out
+    refuse_detached("flash_attention", q, k, v, item="B9: call "
+                    "ops.flash_attention, whose FlashAttention has the "
+                    "backward")
+    return _forward(q, k, v, causal, logit_cap, window, False)[0]
 
 
 flash_attention_kernel.launches = 0
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` if the kernels take its layout, else a contiguous copy (the
+    incoming gradient of the output may be any view)."""
+    ok = x.stride(-1) == 1 and (x.dtype != torch.bfloat16 or (
+        x.data_ptr() % 16 == 0
+        and all(st % 8 == 0 for st, n in zip(x.stride()[:3], x.shape[:3])
+                if n > 1)))
+    return x if ok else x.clone(memory_format=torch.contiguous_format)
+
+
+def flash_attention_bwd_kernel(q, k, v, out, dout, lse, *, causal=True,
+                               logit_cap=0.0, window=0):
+    """The gradient of ``flash_attention_kernel``: q (B, Hq, Sq, D), k/v
+    (B, Hkv, Sk, D), its output ``out`` and the forward's ``lse`` (B, Hq,
+    Sq) float32, and ``dout`` the gradient of ``out`` -> (dq, dk, dv),
+    each in its input's dtype and layout.  CUDA tensors only (the CPU's
+    gradient is autograd through the plain version): the delta pre-pass,
+    the dK/dV kernel and the dQ kernel on the current stream, float32 on
+    the SIMT kernels, bfloat16 on the tensor cores (P and dS rounded to
+    bfloat16 for their products).  Deterministic: no atomics."""
+    window = _check_options(q, k, causal, window)
+    b, hq, hkv, s, sk, d = _check_cuda(q, k, v)
+    dev = q.device
+    dout = _aligned(dout)
+    _check(out, "out", q.dtype, (b, hq, s, d), dev)
+    _check(dout, "dout", q.dtype, (b, hq, s, d), dev)
+    build.check_tensor(lse, "flash_attention lse", dtype=torch.float32,
+                       shape=(b, hq, s), device=dev)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    delta = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+    strides = _strides(q, k, v, out, dout, dq, dk, dv)
+    fn = build.c_function(_BWD_ENTRY[(q.dtype, d)], _BWD_ARGS)
+    with torch.cuda.device(dev):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, s,
+                sk, ctypes.addressof(strides), int(bool(causal)), window,
+                float(logit_cap or 0.0), build.stream_ptr(dev))
+    build.check_launch(rc, "flash_attention_bwd")
+    flash_attention_bwd_kernel.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_kernel.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """B9 with its gradient, on CUDA tensors: the forward kernel writes
+    each row's log-sum-exp beside the output, and the backward kernel
+    recomputes P from q, k and it.  ``FlashAttention.apply(q, k, v,
+    causal, logit_cap, window)``; the CPU's counterpart is autograd
+    through ``flash_attention_ref``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, logit_cap, window):
+        window = _check_options(q, k, causal, window)
+        out, lse = _forward(q, k, v, causal, logit_cap, window, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.options = dict(causal=causal, logit_cap=logit_cap,
+                           window=window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_kernel(q, k, v, out, dout, lse,
+                                                **ctx.options)
+        return dq, dk, dv, None, None, None

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import refuse_detached
 from repro_torch.kernels import build
 from repro_torch.kernels.fleet_attribute.ref import fleet_attribute_ref
 
@@ -28,6 +29,8 @@ def fleet_attribute_kernel(times: torch.Tensor, energy: torch.Tensor,
         return fleet_attribute_ref(times, energy, wrap_row, phases)
     if dev.type != "cuda":
         raise ValueError(f"fleet_attribute: unsupported device {dev}")
+    refuse_detached("fleet_attribute", times, energy, wrap_row, phases,
+                    item="B7")
     r, s = times.shape
     p = phases.shape[0]
     for x, what, shape in ((times, "times", (r, s)),

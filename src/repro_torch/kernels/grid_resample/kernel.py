@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import refuse_detached
 from repro_torch.kernels import build
 from repro_torch.kernels.grid_resample.ref import (_ceil_log2,
                                                    grid_resample_ref)
@@ -39,6 +40,7 @@ def grid_resample_kernel(times, values, n_row, first_row, grid, delays, *,
                                  mode=mode, sorted_search=True)
     if dev.type != "cuda":
         raise ValueError(f"grid_resample: unsupported device {dev}")
+    refuse_detached("grid_resample", times, values, grid, delays, item="B5")
     f, s = times.shape
     g = grid.shape[0]
     for x, what, dtype, shape in (

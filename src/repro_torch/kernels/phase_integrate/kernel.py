@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import refuse_detached
 from repro_torch.kernels import build
 from repro_torch.kernels.phase_integrate.ref import phase_energies_ref
 
@@ -26,6 +27,7 @@ def phase_integrate_kernel(times: torch.Tensor, watts: torch.Tensor,
         return phase_energies_ref(times, watts, phases)
     if dev.type != "cuda":
         raise ValueError(f"phase_integrate: unsupported device {dev}")
+    refuse_detached("phase_integrate", times, watts, phases, item="B6")
     r, s = times.shape
     p = phases.shape[0]
     for x, what, shape in ((times, "times", (r, s)),

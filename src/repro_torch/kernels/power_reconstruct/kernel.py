@@ -14,6 +14,7 @@ import ctypes
 
 import torch
 
+from repro_torch.device import refuse_detached
 from repro_torch.kernels import build
 from repro_torch.kernels.power_reconstruct.ref import (
     reconstruct_power_fleet_ref, reconstruct_power_ref,
@@ -38,6 +39,8 @@ def power_reconstruct_rows_kernel(energy: torch.Tensor, times: torch.Tensor,
         return reconstruct_power_rows_ref(energy, times, wrap_row)
     if dev.type != "cuda":
         raise ValueError(f"power_reconstruct_rows: unsupported device {dev}")
+    refuse_detached("power_reconstruct_rows", energy, times, wrap_row,
+                    item="B1")
     f, s = energy.shape
     for x, what, shape in ((energy, "energy", (f, s)),
                            (times, "times", (f, s)),
@@ -70,6 +73,8 @@ def power_reconstruct_fleet_kernel(energy: torch.Tensor, times: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"power_reconstruct_fleet: unsupported device "
                          f"{dev}")
+    refuse_detached("power_reconstruct_fleet", energy, times, wrap_row, n_row,
+                    item="B2")
     f, s = energy.shape
     for x, what, dtype, shape in ((energy, "energy", torch.float32, (f, s)),
                                   (times, "times", torch.float32, (f, s)),
@@ -103,6 +108,7 @@ def power_reconstruct_kernel(energy: torch.Tensor, times: torch.Tensor, *,
         return reconstruct_power_ref(energy, times, wrap_period=wrap_period)
     if dev.type != "cuda":
         raise ValueError(f"power_reconstruct: unsupported device {dev}")
+    refuse_detached("power_reconstruct", energy, times, item="B3")
     f, s = energy.shape
     for x, what in ((energy, "energy"), (times, "times")):
         build.check_tensor(x, what, dtype=torch.float32, shape=(f, s),

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import refuse_detached
 from repro_torch.kernels import build
 from repro_torch.kernels.squarewave.ref import squarewave_ref
 
@@ -27,6 +28,7 @@ def squarewave_kernel(x: torch.Tensor, *, fma_chain: int) -> torch.Tensor:
         return squarewave_ref(x, fma_chain=fma_chain)
     if dev.type != "cuda":
         raise ValueError(f"squarewave: unsupported device {dev}")
+    refuse_detached("squarewave", x, item="B8")
     if x.dtype not in _ENTRY:
         raise TypeError(f"squarewave: dtype {x.dtype}, expected one of "
                         f"{sorted(map(str, _ENTRY))}")

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import refuse_detached
 from repro_torch.kernels import build
 from repro_torch.kernels.ssm_scan.ref import selective_scan_ref
 
@@ -31,6 +32,7 @@ def selective_scan_kernel(dt: torch.Tensor, x: torch.Tensor,
         return selective_scan_ref(dt, x, b_mat, c_mat, a, h0)
     if dev.type != "cuda":
         raise ValueError(f"selective_scan: unsupported device {dev}")
+    refuse_detached("selective_scan", dt, x, b_mat, c_mat, a, h0, item="A4c")
     bsz, seq, d = x.shape
     n = a.shape[1]
     if not 1 <= n <= MAX_STATE:

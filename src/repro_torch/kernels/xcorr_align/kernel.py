@@ -7,6 +7,7 @@ import math
 
 import torch
 
+from repro_torch.device import refuse_detached
 from repro_torch.kernels import build
 from repro_torch.kernels.xcorr_align.ref import xcorr_scores_ref
 
@@ -57,6 +58,7 @@ def xcorr_align_kernel(x, m, refbank, *, n_lags: int,
         return xcorr_scores_ref(x, m, refbank)
     if dev.type != "cuda":
         raise ValueError(f"xcorr_align: unsupported device {dev}")
+    refuse_detached("xcorr_align", x, m, refbank, item="B4")
     f, g = x.shape
     lags = refbank.shape[0]
     if not 0 <= n_lags <= lags:

@@ -6,10 +6,12 @@ with the reference's parameter layout.  On a CUDA tensor, attention
 from position 0 without a ``kv_len_mask`` is the hand-written
 ``flash_attention`` kernel (B9): causal with or without a sliding
 window, or non-causal with a key length of its own (whisper's encoder
-and cross-attention); ``q_offset`` and ``kv_len_mask`` on the card
-raise instead of falling back (no model path passes them).  On a CPU
-tensor the plain form runs in full, query chunks and all, as the
-reference's jnp form.
+and cross-attention); while autograd records (training) it goes through
+``FlashAttention``, whose backward is B9's backward kernel.
+``q_offset`` and ``kv_len_mask`` on the card raise instead of falling
+back (no model path passes them).  On a CPU tensor the plain form runs
+in full, query chunks and all, as the reference's jnp form, and
+autograd differentiates it.
 
 KV caches are updated in place (the reference returns new ones): the
 returned cache is the given one, written.
@@ -73,11 +75,24 @@ class ParamSpec:
         return w.mul_(scale).to(dtype).to(out)
 
 
-def map_tree(fn, tree, path=()):
-    """``fn(path, leaf)`` over a nested dict, keeping its structure."""
+def tree_map(fn, tree, *rest, path=None):
+    """``fn(leaf, *leaves of rest)`` over a nested dict's leaves (``rest``
+    shaped like ``tree`` down to its leaves), keeping its structure.
+    Given a ``path`` (``()`` at the root), ``fn`` takes the leaf's key
+    path first: ``fn(path, leaf, *leaves of rest)``."""
     if isinstance(tree, dict):
-        return {k: map_tree(fn, v, path + (k,)) for k, v in tree.items()}
-    return fn(path, tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest),
+                            path=None if path is None else path + (k,))
+                for k, v in tree.items()}
+    return fn(tree, *rest) if path is None else fn(path, tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """A nested dict's leaves in the reference's flattening order (keys
+    sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
 
 
 def init_params(specs, generator: torch.Generator, param_dtype="float32",
@@ -87,11 +102,11 @@ def init_params(specs, generator: torch.Generator, param_dtype="float32",
     keep a leaf in (None keeps ``param_dtype``); it is applied leaf by
     leaf, so the full-precision copy of the whole tree never exists at
     once."""
-    return map_tree(
+    return tree_map(
         lambda path, s: s.initializer(
             generator, param_dtype,
             None if store_dtype is None else store_dtype(path)),
-        specs)
+        specs, path=())
 
 
 # ---------------------------------------------------------------------------

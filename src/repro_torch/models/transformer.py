@@ -9,18 +9,25 @@ leading group dimension, so weights carry across 1:1.  The reference's
 here.
 
 Entry points:
+  * ``forward_train(params, batch) -> (loss, {"ce", "aux"})``
   * ``prefill(params, batch, cache) -> (logits, cache)``
   * ``decode_step(params, batch, cache, pos) -> (logits, cache)``
-Both write ``cache`` in place (the reference returns a new one) and
-return it.  ``batch`` may carry ``audio_frames`` (whisper: the encoder
-runs in prefill and its cross-attention keys/values go into the cache)
-and ``vision_embeds`` (qwen2-vl: they replace the first positions'
-token embeddings).  Not ported yet: ``forward_train`` (raises
-``NotImplementedError`` naming ROADMAP A4b).
+The last two write ``cache`` in place (the reference returns a new one)
+and return it.  ``batch`` may carry ``audio_frames`` (whisper: the
+encoder runs in prefill and its cross-attention keys/values go into the
+cache) and ``vision_embeds`` (qwen2-vl: they replace the first
+positions' token embeddings).  ``forward_train`` is differentiable with
+autograd: with ``cfg.remat`` each pattern group is recomputed in the
+backward (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint`` of its scan body), and each 512-token chunk of the
+cross-entropy too.  On the card attention is B9 with its backward
+kernel; a Mamba block's B10 has no backward yet and refuses to record
+(ROADMAP A4c).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ArchConfig, ATTN, ATTN_LOCAL, MAMBA,
                                       MLSTM, SLSTM)
@@ -29,7 +36,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import xlstm as X
-from repro_torch.models.layers import ParamSpec, map_tree, torch_dtype
+from repro_torch.models.layers import ParamSpec, torch_dtype, tree_map
 
 # Weights that every use casts to the compute dtype: ``Model.init`` may
 # store these cast once (the experts' and shared experts' w_gate / w_up /
@@ -44,9 +51,13 @@ COMPUTE_CAST = frozenset({"embed", "lm_head", "wq", "wk", "wv", "wo", "bq",
                           "up", "down", "up_gate", "w_in", "pos_embed"})
 
 
-def _unported(what: str):
-    raise NotImplementedError(f"repro_torch's Model does not run {what} "
-                              f"yet (ROADMAP A4b)")
+CE_CHUNK = 512              # tokens of the cross-entropy's logits at once
+
+
+def _recompute(fn, *args):
+    """``fn(*args)``, recomputed in the backward instead of saved."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def _block_specs(cfg: ArchConfig, kind: str, layer_pos: int, *,
@@ -85,14 +96,14 @@ def _is_moe_layer(cfg, layer_pos):
 
 def _stack_specs(specs, n):
     """Prefix every ParamSpec shape with the group dimension n."""
-    return map_tree(
-        lambda _, s: ParamSpec((n,) + s.shape, ("layers",) + s.axes, s.init),
+    return tree_map(
+        lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.axes, s.init),
         specs)
 
 
 def _group(tree, gi):
     """Views of group ``gi`` of a stacked tree (parameters or caches)."""
-    return map_tree(lambda _, t: t[gi], tree)
+    return tree_map(lambda t: t[gi], tree)
 
 
 def _write_back(cache, new):
@@ -252,10 +263,15 @@ class Model:
     def _run_stack(self, stacked_params, x, positions, *, caches=None,
                    cache_index=None, enc_out=None, with_aux=False):
         """-> (x, aux, caches): ``aux`` summed over the blocks in the
-        reference's order (None unless ``with_aux``)."""
+        reference's order (None unless ``with_aux``).  With ``cfg.remat``
+        each pattern group is recomputed in the backward when autograd
+        records and no cache is written."""
+        remat = (self.cfg.remat and caches is None
+                 and torch.is_grad_enabled())
         aux_sum = (torch.zeros((), dtype=torch.float32, device=x.device)
                    if with_aux else None)
-        for gi in range(self.n_groups):
+
+        def group(gi, x, aux_sum):
             for p_idx, kind in enumerate(self.pattern):
                 key = f"pos{p_idx}"
                 cg = (_group(caches[key], gi) if caches is not None
@@ -268,6 +284,13 @@ class Model:
                     _write_back(cg, nc)
                 if with_aux:
                     aux_sum = aux_sum + aux
+            return x, aux_sum
+
+        for gi in range(self.n_groups):
+            if remat:
+                x, aux_sum = _recompute(group, gi, x, aux_sum)
+            else:
+                x, aux_sum = group(gi, x, aux_sum)
         return x, aux_sum, caches
 
     # ------------------------------------------------------------------
@@ -298,12 +321,40 @@ class Model:
             pos = pos[None].expand(3, b, seq)
         return pos
 
-    def _logits(self, params, x):
-        cfg = self.cfg
-        head = (params["embed"].T if cfg.tie_embeddings
+    def _head(self, params):
+        return (params["embed"].T if self.cfg.tie_embeddings
                 else params["lm_head"]).to(self.compute_dtype)
-        logits = x @ head
-        return L.softcap(logits.float(), cfg.final_softcap)
+
+    def _logits(self, params, x):
+        return L.softcap((x @ self._head(params)).float(),
+                         self.cfg.final_softcap)
+
+    def _chunk_ce(self, xc, lc, head):
+        """Sum over a chunk's tokens of logsumexp - gold logit."""
+        logits = L.softcap((xc @ head).float(), self.cfg.final_softcap)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc[..., None])[..., 0]
+        return torch.sum(logz - gold)
+
+    def _ce_loss(self, params, x, labels):
+        """The reference's chunked cross-entropy (``_logits`` with
+        ``chunked_labels``): chunks of ``min(512, S)`` tokens, each
+        chunk's logits recomputed in the backward, the sums added in
+        chunk order and divided by B * S.  The gold logit is a gather
+        (the reference's masked sum over the vocabulary: the same
+        value)."""
+        head = self._head(params)
+        b, s, _ = x.shape
+        chunk = min(CE_CHUNK, s)
+        assert s % chunk == 0
+        labels = torch.as_tensor(labels, device=x.device).long()
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, s, chunk):
+            args = (x[:, i:i + chunk], labels[:, i:i + chunk], head)
+            total = total + (_recompute(self._chunk_ce, *args)
+                             if torch.is_grad_enabled()
+                             else self._chunk_ce(*args))
+        return total / (b * s)
 
     # ------------------------------------------------------------------
     # Encoder (whisper)
@@ -330,7 +381,20 @@ class Model:
     # Public entry points
     # ------------------------------------------------------------------
     def forward_train(self, params, batch):
-        _unported("forward_train (training)")
+        """-> (loss, {"ce", "aux"}): the chunked cross-entropy of
+        ``batch["labels"]`` (the tokens where there are none) plus the
+        MoE aux loss (zero without experts), float32 scalars."""
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        positions = self._positions(batch, x.shape[1], device=x.device)
+        enc_out = self._encode(params, batch) if cfg.encoder_layers else None
+        x, aux, _ = self._run_stack(params["layers"], x, positions,
+                                    enc_out=enc_out, with_aux=True)
+        x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
+        labels = batch.get("labels", batch["tokens"])
+        ce = self._ce_loss(params, x, labels)
+        loss = ce + aux
+        return loss, {"ce": ce, "aux": aux}
 
     def cache_specs(self, batch_size, max_len):
         """{pos: {name: (shape, dtype)}} of the decode cache."""
@@ -370,8 +434,8 @@ class Model:
     def init_cache(self, batch_size, max_len, *, device=None):
         """A zero cache on ``device`` (None means CUDA)."""
         dev = resolve_device(device)
-        return map_tree(
-            lambda _, sd: torch.zeros(sd[0], dtype=sd[1], device=dev),
+        return tree_map(
+            lambda sd: torch.zeros(sd[0], dtype=sd[1], device=dev),
             self.cache_specs(batch_size, max_len))
 
     def prefill(self, params, batch, cache):

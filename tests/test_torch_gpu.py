@@ -6,6 +6,7 @@ card and no JAX:
 
 Without a card every test here skips (the kernels have no CPU mode).
 """
+import numpy as np
 import pytest
 import torch
 
@@ -1064,3 +1065,221 @@ def test_cuda_scan_eight_sensor_groups_stay_small():
     assert peak < unrolled
     e, ew = out["scan"], out["windowed"]
     assert (np.abs(e - ew) <= 1e-5 * np.maximum(np.abs(ew), 1.0)).all()
+
+
+# ------------------------------------------------- B9's backward kernel
+
+def _grads(fn, q, k, v, do):
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    out = fn(qg, kg, vg)
+    return out, torch.autograd.grad(out, (qg, kg, vg), do)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    # (B, Hq, Hkv, Sq, Sk, causal, window, cap)
+    (1, 4, 2, 200, 200, True, 0, 0.0),
+    (2, 6, 2, 65, 65, True, 0, 50.0),
+    (1, 4, 4, 1, 1, True, 0, 0.0),
+    (1, 4, 2, 17, 1500, False, 0, 0.0),
+    (2, 2, 2, 130, 63, False, 0, 30.0),
+    (1, 4, 2, 300, 300, True, 100, 50.0),
+    (1, 8, 2, 129, 129, True, 7, 0.0)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_backward_matches_plain_gradient(dtype, d,
+                                                              case):
+    """``FlashAttention`` (the forward with its lse, then the backward
+    kernel) against autograd through the plain version: dq/dk/dv within
+    1e-5 (float32) or 4 x 2**-8 (bfloat16, chip_smoke.BF16_BWD_TOL) of
+    each gradient's largest magnitude, at tile edges, GQA groups 1-4,
+    causal, windowed, non-causal with a key length of its own, with and
+    without the cap; a second backward gives the same bits, and each
+    call counts one launch of each kernel."""
+    from repro_torch.kernels.flash_attention import (
+        FlashAttention, flash_attention_bwd_kernel)
+    dev = _cuda()
+    b, hq, hkv, sq, sk, causal, window, cap = case
+    q = torch.from_numpy(_attention_case(20, b=b, hq=hq, hkv=hkv, s=sq,
+                                         d=d)[0]).to(dev, dtype)
+    _, k, v = (torch.from_numpy(a).to(dev, dtype)
+               for a in _attention_case(21, b=b, hq=hq, hkv=hkv, s=sk,
+                                        d=d))
+    do = torch.randn(q.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(3), device=dev).to(dtype)
+    n0 = (flash_attention_kernel.launches,
+          flash_attention_bwd_kernel.launches)
+    got_out, got = _grads(lambda a, b_, c: FlashAttention.apply(
+        a, b_, c, causal, cap, window), q, k, v, do)
+    assert (flash_attention_kernel.launches,
+            flash_attention_bwd_kernel.launches) == (n0[0] + 1, n0[1] + 1)
+    _, again = _grads(lambda a, b_, c: FlashAttention.apply(
+        a, b_, c, causal, cap, window), q, k, v, do)
+    want_out, want = _grads(lambda a, b_, c: flash_attention_ref(
+        a, b_, c, causal=causal, logit_cap=cap, window=window), q, k, v, do)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 4 * 2.0 ** -8
+    assert _rel(got_out, want_out) <= (1e-5 if dtype == torch.float32
+                                       else 8e-3)
+    # a single key makes dq and dk identically zero (dP = delta): there
+    # the kernel's rounding of dP - delta is held to the largest plain
+    # gradient instead
+    top = max(w.float().abs().max().item() for w in want)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g, a)
+        scale = w.float().abs().max().item() or top
+        assert (g.float() - w.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_lse_matches_logsumexp(dtype):
+    """The forward's log-sum-exp rows against ``logsumexp`` of the plain
+    scores (float32, the window and cap applied): 1e-5 of the largest."""
+    from repro_torch.kernels.flash_attention.kernel import _forward
+    dev = _cuda()
+    q, k, v = (torch.from_numpy(a).to(dev, dtype)
+               for a in _attention_case(22, b=1, hq=4, hkv=2, s=150, d=64))
+    out, lse = _forward(q, k, v, True, 50.0, 40, True)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                     k.float().repeat_interleave(2, dim=1)) / 8.0
+    s = 50.0 * torch.tanh(s / 50.0)
+    i = torch.arange(150, device=dev)[:, None]
+    j = torch.arange(150, device=dev)[None, :]
+    s = torch.where((i >= j) & (i - j < 40), s, -1e30)
+    assert lse.shape == (1, 4, 150) and lse.dtype == torch.float32
+    assert _rel(lse, torch.logsumexp(s, dim=-1)) <= 1e-5
+    assert torch.equal(out, flash_attention_kernel(q, k, v, logit_cap=50.0,
+                                                   window=40))
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_backward_takes_any_output_gradient():
+    """The incoming gradient may be any view (a broadcast from
+    ``out.sum()``, a transposed layout): the wrapper copies it to a
+    layout the kernel takes, and the result equals the contiguous
+    gradient's."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    dev = _cuda()
+    q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
+               .requires_grad_() for a in _attention_case(23, s=70, d=64))
+    out = flash_attention(q, k, v)
+    (g_sum,) = torch.autograd.grad(out.float().sum(), (q,))
+    (g_ones,) = torch.autograd.grad(
+        flash_attention(q, k, v), (q,), torch.ones_like(out))
+    assert torch.equal(g_sum, g_ones)
+
+
+# ---------------------------------------- kernels that drop gradients
+
+@pytest.mark.gpu
+def test_cuda_kernels_without_backward_refuse_to_record():
+    """Each ctypes kernel without a backward, given a CUDA input that
+    requires a gradient with grad enabled, raises naming its ROADMAP
+    item instead of returning a detached result; under ``no_grad`` the
+    same call launches."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    dev = _cuda()
+    q, k, v = (torch.from_numpy(a).to(dev) for a in _attention_case(
+        24, s=40))
+    dt, x, bm, cm, a, h0 = (torch.from_numpy(t).to(dev)
+                            for t in _scan_case(6, seq=20))
+    e, t, w = (torch.from_numpy(z).to(dev) for z in _counter_rows(0))
+    cases = [
+        ("A4c", lambda r: selective_scan_kernel(dt, x.requires_grad_(r),
+                                                bm, cm, a, h0)),
+        ("B9", lambda r: flash_attention_kernel(q.requires_grad_(r), k, v)),
+        ("B1", lambda r: power_reconstruct_rows_kernel(
+            e.requires_grad_(r), t, w)),
+        ("B3", lambda r: power_reconstruct_kernel(e.requires_grad_(r), t)),
+        ("B8", lambda r: squarewave_kernel(
+            torch.ones((8, 64), device=dev).requires_grad_(r),
+            fma_chain=2)),
+    ]
+    for item, call in cases:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            call(True)
+        with torch.no_grad():
+            call(True)
+        call(False)
+    # the public op takes a gradient through FlashAttention instead
+    out = flash_attention(q.requires_grad_(True), k, v)
+    assert out.grad_fn is not None
+
+
+@pytest.mark.gpu
+def test_cuda_hybrid_forward_train_refuses_naming_a4c():
+    """The attention+Mamba hybrid's ``forward_train`` on the card reaches
+    B10, which has no backward yet: it raises naming A4c (under
+    ``no_grad`` the same call runs; heads of 64, which B9 takes)."""
+    import dataclasses
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import Model
+    from repro_torch.train.loop import loss_and_grads
+    _cuda()
+    cfg = dataclasses.replace(reduced(get_arch("jamba-1.5-large-398b")),
+                              head_dim=64)
+    model = Model(cfg)
+    params = model.init(0)
+    toks = torch.zeros((1, 16), dtype=torch.int32, device="cuda")
+    with pytest.raises(NotImplementedError, match="A4c"):
+        loss_and_grads(model, params, {"tokens": toks})
+    with torch.no_grad():
+        loss, _ = model.forward_train(params, {"tokens": toks})
+    assert torch.isfinite(loss)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["whisper-base", "gemma2-27b",
+                                  "moonshot-v1-16b-a3b", "xlstm-1.3b"])
+def test_cuda_zoo_training_matches_cpu(arch):
+    """``loss_and_grads`` on the card against the CPU on the same
+    weights and batch, float32, at ``reduced()`` widths with heads of 64
+    (B9's): whisper's encoder and its cross-attention (non-causal, 16
+    keys to 64 queries, dk/dv flowing back into the encoder), gemma2's
+    window and caps, MoE's router and experts, xLSTM's torch ops.  Loss
+    within 1e-5, each gradient leaf within 1e-4 of its largest
+    magnitude (the card's float32 sums in other orders, the bounds the
+    port is held to against the reference); B9 once forward and once
+    backward per attention call (never for xLSTM), and no other
+    kernel."""
+    import dataclasses
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_kernel)
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.train.loop import loss_and_grads
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduced(get_arch(arch)), head_dim=64,
+                              compute_dtype="float32")
+    model = Model(cfg)
+    host = model.init(0, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))
+                                 .astype(np.int32))
+             for k in ("tokens", "labels")}
+    if cfg.family == "audio":
+        batch["audio_frames"] = torch.from_numpy(rng.normal(
+            0.0, 1.0, (2, cfg.num_audio_frames, cfg.d_model))
+            .astype(np.float32))
+    f0, s0 = flash_attention_kernel.launches, selective_scan_kernel.launches
+    b0 = flash_attention_bwd_kernel.launches
+    loss_c, _, grads_c = loss_and_grads(
+        model, tree_map(lambda t: t.to(dev), host),
+        {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    fwd = flash_attention_kernel.launches - f0
+    bwd = flash_attention_bwd_kernel.launches - b0
+    assert fwd == bwd and (bwd > 0) == (cfg.family != "ssm")
+    assert selective_scan_kernel.launches == s0
+    loss_h, _, grads_h = loss_and_grads(model, host, batch)
+    assert abs(loss_c.item() / loss_h.item() - 1.0) <= 1e-5
+    for path, g, w in tree_leaves(tree_map(
+            lambda p, g, w: ("/".join(p), g.cpu(), w), grads_c, grads_h,
+            path=())):
+        assert torch.isfinite(g).all(), path
+        err = (g - w).abs().max() / w.abs().max().clamp_min(1e-30)
+        assert err <= 1e-4, (path, err.item())

@@ -313,7 +313,8 @@ def test_kernel_build_flags_and_path():
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("libreprotorch_")
     srcs = sorted(p.name for p in build.CSRC.glob("*.cu"))
-    assert srcs == ["empty.cu", "flash_attention.cu", "fleet_attribute.cu",
+    assert srcs == ["empty.cu", "flash_attention.cu",
+                    "flash_attention_bwd.cu", "fleet_attribute.cu",
                     "grid_resample.cu", "phase_integrate.cu",
                     "power_reconstruct.cu", "power_reconstruct_fleet.cu",
                     "power_reconstruct_rows.cu", "selective_scan.cu",
@@ -361,3 +362,31 @@ def test_spawned_worker_imports_nothing_of_jax_or_the_reference():
                          text=True, timeout=200, env=env)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.strip().endswith("clean")
+
+
+_TRAIN_MODULES = ("repro_torch.data", "repro_torch.data.pipeline",
+                  "repro_torch.train", "repro_torch.train.loop",
+                  "repro_torch.train.optimizer",
+                  "repro_torch.train.instrumented",
+                  "repro_torch.distributed.compression",
+                  "repro_torch.distributed.fault_tolerance",
+                  "repro_torch.launch.train")
+
+
+@pytest.mark.parametrize("module", _TRAIN_MODULES)
+def test_train_module_imports_with_jax_and_repro_blocked(module):
+    """Each module of the training path loads on its own with JAX and
+    the reference blocked (the data pipeline and fault tolerance are the
+    port's own copies, not imports)."""
+    test_case_study_module_imports_with_jax_and_repro_blocked(module)
+
+
+def test_train_entry_points_default_to_cuda(monkeypatch):
+    """The training launcher's ``build`` and ``main`` ask for the card
+    without a device; with no card they raise instead of training on the
+    CPU."""
+    from repro_torch.launch.train import build, main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: build("llama3.2-3b"), lambda: main(["--steps", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.align.delay import estimate_delays as jax_estimate_delays
@@ -646,3 +647,80 @@ def test_selective_scan_bf16_input_rounds_y_once():
     assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
     assert torch.equal(y, y32.to(torch.bfloat16))
     assert torch.equal(h, h32)
+
+
+# ------------------------------------------------------- B9's gradient
+
+def _cotangent(shape, seed):
+    return np.random.default_rng(seed).normal(0, 1, shape).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("case", [
+    # (form, Sq, Sk, causal, window, cap)
+    ("ref", 40, 40, True, 0, 0.0), ("ref", 40, 40, True, 0, 50.0),
+    ("ref", 33, 33, False, 0, 50.0),
+    ("attend", 40, 40, True, 7, 0.0), ("attend", 40, 40, True, 16, 50.0),
+    ("attend", 17, 40, False, 0, 0.0), ("attend", 40, 7, False, 0, 0.0)])
+def test_flash_attention_plain_gradient_matches_reference(case):
+    """The port's CPU gradient of B9 (autograd through its plain version,
+    the backward the card's kernel is held to) against ``jax.grad`` of
+    the reference's jnp forms: its ``flash_attention_ref`` (causal or
+    not, cap) and its models' ``attention`` (a window; non-causal with a
+    key length of its own), GQA 4/2, float32: dq/dk/dv within 1e-5 of
+    each gradient's largest magnitude."""
+    form, sq, sk, causal, window, cap = case
+    q = _attention_case(30, s=sq)[0]
+    _, k, v = _attention_case(31, s=sk)
+    w = _cotangent(q.shape, 32)
+
+    def jax_out(q, k, v):
+        if form == "ref":
+            return jax_flash_attention_ref(q, k, v, causal=causal,
+                                           logit_cap=cap)
+        return jax_attention(*(x.swapaxes(1, 2) for x in (q, k, v)),
+                             causal=causal, window=window,
+                             logit_cap=cap).swapaxes(1, 2)
+
+    want = jax.grad(lambda q, k, v: jnp.sum(jax_out(q, k, v) * w),
+                    argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = flash_attention(tq, tk, tv, causal=causal, logit_cap=cap,
+                          window=window if causal else 0)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(w))
+    for g, x in zip(got, want):
+        x = np.asarray(x)
+        assert g.shape == x.shape
+        assert np.abs(g.numpy() - x).max() <= 1e-5 * np.abs(x).max()
+
+
+def test_refuse_detached_raises_only_while_recording():
+    """The guard every gradient-less kernel wrapper calls before a CUDA
+    launch: it raises naming the ROADMAP item when autograd records and
+    an input requires a gradient, and passes otherwise."""
+    from repro_torch.device import refuse_detached
+    x = torch.ones(3, requires_grad=True)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A4c"):
+        refuse_detached("selective_scan", x, None, item="A4c")
+    with torch.no_grad():
+        refuse_detached("selective_scan", x, item="A4c")
+    refuse_detached("selective_scan", x.detach(), 3, item="A4c")
+
+
+def test_flash_attention_cpu_gradient_is_the_plain_versions():
+    """On CPU tensors ``flash_attention`` is its plain version, autograd
+    included: the same gradient, bit for bit, and no launch counted."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel)
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _attention_case(33, s=24))
+    n0 = (flash_attention_kernel.launches,
+          flash_attention_bwd_kernel.launches)
+    g1 = torch.autograd.grad(flash_attention(q, k, v, logit_cap=50.0).sum(),
+                             (q, k, v))
+    g2 = torch.autograd.grad(
+        flash_attention_ref(q, k, v, logit_cap=50.0).sum(), (q, k, v))
+    for a, b in zip(g1, g2):
+        assert torch.equal(a, b)
+    assert (flash_attention_kernel.launches,
+            flash_attention_bwd_kernel.launches) == n0
