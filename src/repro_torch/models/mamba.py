@@ -3,12 +3,16 @@
 
 The multi-token scan is one call of the ``selective_scan`` kernel (B10)
 over the whole sequence, carrying ``h0`` in: on a CUDA tensor the
-hand-written kernel, on a CPU tensor its plain version.  The reference
-chunks the scan into ``chunk``-step associative scans to bound its
-memory on a TPU; a sequential scan needs no chunks, so ``chunk`` is
-accepted and changes nothing (the results agree up to rounding).  The
-single-token decode step stays PyTorch ops, as it is jnp in the
-reference.
+hand-written kernel, on a CPU tensor its plain version.  In training
+(autograd recording, the parameters behind dt, B, C and A requiring a
+gradient) the call goes through ``SelectiveScan``: the forward kernel
+keeps the state every 32 steps and B10's backward kernel walks the
+sequence back from them; the CPU's gradient is autograd through the
+plain version.  The reference chunks the scan into ``chunk``-step
+associative scans to bound its memory on a TPU; a sequential scan needs
+no chunks, so ``chunk`` is accepted and changes nothing (the results
+agree up to rounding).  The single-token decode step stays PyTorch ops,
+as it is jnp in the reference.
 """
 from __future__ import annotations
 

@@ -20,9 +20,8 @@ positions' token embeddings).  ``forward_train`` is differentiable with
 autograd: with ``cfg.remat`` each pattern group is recomputed in the
 backward (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint`` of its scan body), and each 512-token chunk of the
-cross-entropy too.  On the card attention is B9 with its backward
-kernel; a Mamba block's B10 has no backward yet and refuses to record
-(ROADMAP A4c).
+cross-entropy too.  On the card attention is B9 and a Mamba block's
+scan is B10, each with its backward kernel.
 """
 from __future__ import annotations
 

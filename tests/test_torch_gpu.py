@@ -30,7 +30,9 @@ from repro_torch.kernels.xcorr_align import (LAG_ALIGN, make_refbank,
                                              xcorr_scores, xcorr_scores_ref)
 from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                  flash_attention_ref)
-from repro_torch.kernels.ssm_scan import (selective_scan_kernel,
+from repro_torch.kernels.ssm_scan import (selective_scan,
+                                          selective_scan_bwd_kernel,
+                                          selective_scan_kernel,
                                           selective_scan_ref)
 from repro_torch.kernels import build
 from torch_cases import (FA_EDGES, PHASE_EDGES, PR_EDGES, REGRID_EDGES,
@@ -681,6 +683,97 @@ def test_cuda_selective_scan_refuses_large_state():
         selective_scan_kernel(dt, x, bm, cm, a, h0)
 
 
+# B10's backward against autograd through the plain version at phase 11's
+# bounds: float32 gradients within 1e-5 of each one's largest magnitude;
+# a gradient returned in bfloat16 (dx for a bf16 x, ddt for a bf16 dt)
+# within two bf16 ulps of its largest (2 x 2**-8: each side rounds once)
+SCAN_BWD_TOL = 1e-5
+SCAN_BWD_BF16_TOL = 7.8125e-3
+
+
+def _scan_grads(fn, args, dy, dh):
+    """(y, h_last) of ``fn`` on fresh leaves of ``args`` and the six
+    gradients of (y, h_last) against (dy, dh; dh may be None)."""
+    ins = [t.detach().clone().requires_grad_() for t in args]
+    y, h = fn(*ins)
+    outs, cots = (y, h), (dy, dh)
+    if dh is None:
+        outs, cots = (y,), (dy,)
+    return torch.autograd.grad(outs, ins, cots)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_dh", [True, False], ids=["dh", "no_dh"])
+@pytest.mark.parametrize("seq", [1, 31, 32, 67])
+@pytest.mark.parametrize("n", [1, 16, 40, 64])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.bfloat16)])
+def test_cuda_selective_scan_backward_matches_plain(dtypes, n, seq,
+                                                    with_dh):
+    """``ops.selective_scan`` on CUDA leaves that require a gradient goes
+    through ``SelectiveScan``: one forward launch (with checkpoints) and
+    one backward launch; D = 75 (not a multiple of a block's channels),
+    L at the 32-step chunk's edges, N from 1 to 64.  The six gradients
+    against autograd through the plain version on the same CUDA tensors
+    (float32 1e-5, bfloat16 outputs SCAN_BWD_BF16_TOL of the largest),
+    and a second backward ``torch.equal`` to the first."""
+    dev = _cuda()
+    args = [torch.from_numpy(v).to(dev)
+            for v in _scan_case(7, b=2, seq=seq, d=75, n=n)]
+    args[0], args[1] = args[0].to(dtypes[0]), args[1].to(dtypes[1])
+    gen = torch.Generator(device=dev).manual_seed(seq * 100 + n)
+    dy = torch.randn(args[1].shape, generator=gen,
+                     device=dev).to(dtypes[1])
+    dh = (torch.randn(args[5].shape, generator=gen, device=dev)
+          if with_dh else None)
+    n0 = selective_scan_kernel.launches
+    b0 = selective_scan_bwd_kernel.launches
+    got = _scan_grads(selective_scan, args, dy, dh)
+    torch.cuda.synchronize()
+    assert selective_scan_kernel.launches == n0 + 1
+    assert selective_scan_bwd_kernel.launches == b0 + 1
+    again = _scan_grads(selective_scan, args, dy, dh)
+    want = _scan_grads(selective_scan_ref, args, dy, dh)
+    torch.cuda.synchronize()
+    for name, g, r, w in zip(("ddt", "dx", "dB", "dC", "dA", "dh0"), got,
+                             again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        assert torch.equal(g, r), name
+        tol = (SCAN_BWD_TOL if g.dtype == torch.float32
+               else SCAN_BWD_BF16_TOL)
+        assert _rel(g, w) <= tol, (name, _rel(g, w))
+
+
+@pytest.mark.gpu
+def test_cuda_selective_scan_backward_at_the_hybrid_width():
+    """The training step's shape, cut to 2 x 256 tokens: (2, 256, 16384,
+    16), dt float32 and x bfloat16, as the hybrid's Mamba layers call it;
+    the same bounds, and two runs ``torch.equal``."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    b, seq, d, n = 2, 256, 16384, 16
+    args = [torch.nn.functional.softplus(randn(b, seq, d) - 1.0),
+            randn(b, seq, d).to(torch.bfloat16), randn(b, seq, n),
+            randn(b, seq, n), -torch.exp(0.5 * randn(d, n)),
+            torch.zeros((b, d, n), device=dev)]
+    dy = randn(b, seq, d).to(torch.bfloat16)
+    got = _scan_grads(selective_scan, args, dy, None)
+    again = _scan_grads(selective_scan, args, dy, None)
+    want = _scan_grads(selective_scan_ref, args, dy, None)
+    torch.cuda.synchronize()
+    for name, g, r, w in zip(("ddt", "dx", "dB", "dC", "dA", "dh0"), got,
+                             again, want):
+        assert torch.equal(g, r), name
+        tol = (SCAN_BWD_TOL if g.dtype == torch.float32
+               else SCAN_BWD_BF16_TOL)
+        assert _rel(g, w) <= tol, (name, _rel(g, w))
+
+
 def _hybrid_smoke(head_dim=64):
     """The reduced Jamba hybrid with MoE dropped and B9's head width."""
     import dataclasses
@@ -1187,8 +1280,9 @@ def test_cuda_kernels_without_backward_refuse_to_record():
                             for t in _scan_case(6, seq=20))
     e, t, w = (torch.from_numpy(z).to(dev) for z in _counter_rows(0))
     cases = [
-        ("A4c", lambda r: selective_scan_kernel(dt, x.requires_grad_(r),
-                                                bm, cm, a, h0)),
+        ("B10: call ops.selective_scan",
+         lambda r: selective_scan_kernel(dt, x.requires_grad_(r), bm, cm, a,
+                                         h0)),
         ("B9", lambda r: flash_attention_kernel(q.requires_grad_(r), k, v)),
         ("B1", lambda r: power_reconstruct_rows_kernel(
             e.requires_grad_(r), t, w)),
@@ -1203,49 +1297,33 @@ def test_cuda_kernels_without_backward_refuse_to_record():
         with torch.no_grad():
             call(True)
         call(False)
-    # the public op takes a gradient through FlashAttention instead
+    # the public ops take a gradient through FlashAttention and
+    # SelectiveScan instead
     out = flash_attention(q.requires_grad_(True), k, v)
     assert out.grad_fn is not None
-
-
-@pytest.mark.gpu
-def test_cuda_hybrid_forward_train_refuses_naming_a4c():
-    """The attention+Mamba hybrid's ``forward_train`` on the card reaches
-    B10, which has no backward yet: it raises naming A4c (under
-    ``no_grad`` the same call runs; heads of 64, which B9 takes)."""
-    import dataclasses
-    from repro_torch.configs import get_arch, reduced
-    from repro_torch.models import Model
-    from repro_torch.train.loop import loss_and_grads
-    _cuda()
-    cfg = dataclasses.replace(reduced(get_arch("jamba-1.5-large-398b")),
-                              head_dim=64)
-    model = Model(cfg)
-    params = model.init(0)
-    toks = torch.zeros((1, 16), dtype=torch.int32, device="cuda")
-    with pytest.raises(NotImplementedError, match="A4c"):
-        loss_and_grads(model, params, {"tokens": toks})
-    with torch.no_grad():
-        loss, _ = model.forward_train(params, {"tokens": toks})
-    assert torch.isfinite(loss)
+    y, _ = selective_scan(dt, x.requires_grad_(True), bm, cm, a, h0)
+    assert y.grad_fn is not None
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["whisper-base", "gemma2-27b",
-                                  "moonshot-v1-16b-a3b", "xlstm-1.3b"])
+                                  "moonshot-v1-16b-a3b", "xlstm-1.3b",
+                                  "jamba-1.5-large-398b"])
 def test_cuda_zoo_training_matches_cpu(arch):
     """``loss_and_grads`` on the card against the CPU on the same
     weights and batch, float32, at ``reduced()`` widths with heads of 64
     (B9's): whisper's encoder and its cross-attention (non-causal, 16
     keys to 64 queries, dk/dv flowing back into the encoder), gemma2's
-    window and caps, MoE's router and experts, xLSTM's torch ops.  Loss
-    within 1e-5, each gradient leaf within 1e-4 of its largest
-    magnitude (the card's float32 sums in other orders, the bounds the
-    port is held to against the reference); B9 once forward and once
-    backward per attention call (never for xLSTM), and no other
-    kernel."""
+    window and caps, MoE's router and experts, xLSTM's torch ops, the
+    Mamba hybrid's scans (with its reduced MoE).  Loss within 1e-5, each
+    gradient leaf within 1e-4 of its largest magnitude (the card's
+    float32 sums in other orders, the bounds the port is held to against
+    the reference); B9 once forward and once backward per attention call
+    (never for xLSTM), B10 once forward and once backward per Mamba
+    layer (the hybrid's only), and no other kernel."""
     import dataclasses
     from repro_torch.configs import get_arch, reduced
+    from repro_torch.configs.base import ATTN, MAMBA
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_kernel)
     from repro_torch.models import Model
@@ -1267,6 +1345,7 @@ def test_cuda_zoo_training_matches_cpu(arch):
             .astype(np.float32))
     f0, s0 = flash_attention_kernel.launches, selective_scan_kernel.launches
     b0 = flash_attention_bwd_kernel.launches
+    sb0 = selective_scan_bwd_kernel.launches
     loss_c, _, grads_c = loss_and_grads(
         model, tree_map(lambda t: t.to(dev), host),
         {k: v.to(dev) for k, v in batch.items()})
@@ -1274,7 +1353,12 @@ def test_cuda_zoo_training_matches_cpu(arch):
     fwd = flash_attention_kernel.launches - f0
     bwd = flash_attention_bwd_kernel.launches - b0
     assert fwd == bwd and (bwd > 0) == (cfg.family != "ssm")
-    assert selective_scan_kernel.launches == s0
+    if cfg.family == "hybrid":
+        assert bwd == cfg.blocks.count(ATTN)
+    n_mamba = cfg.blocks.count(MAMBA)
+    assert selective_scan_kernel.launches - s0 == n_mamba
+    assert selective_scan_bwd_kernel.launches - sb0 == n_mamba
+    assert (n_mamba > 0) == (cfg.family == "hybrid")
     loss_h, _, grads_h = loss_and_grads(model, host, batch)
     assert abs(loss_c.item() / loss_h.item() - 1.0) <= 1e-5
     for path, g, w in tree_leaves(tree_map(

@@ -318,7 +318,8 @@ def test_kernel_build_flags_and_path():
                     "grid_resample.cu", "phase_integrate.cu",
                     "power_reconstruct.cu", "power_reconstruct_fleet.cu",
                     "power_reconstruct_rows.cu", "selective_scan.cu",
-                    "squarewave.cu", "xcorr_align.cu"]
+                    "selective_scan_bwd.cu", "squarewave.cu",
+                    "xcorr_align.cu"]
     assert "--use_fast_math" not in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
 

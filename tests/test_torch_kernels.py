@@ -700,11 +700,12 @@ def test_refuse_detached_raises_only_while_recording():
     an input requires a gradient, and passes otherwise."""
     from repro_torch.device import refuse_detached
     x = torch.ones(3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A4c"):
-        refuse_detached("selective_scan", x, None, item="A4c")
+    item = "B10: call ops.selective_scan"
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}"):
+        refuse_detached("selective_scan", x, None, item=item)
     with torch.no_grad():
-        refuse_detached("selective_scan", x, item="A4c")
-    refuse_detached("selective_scan", x.detach(), 3, item="A4c")
+        refuse_detached("selective_scan", x, item=item)
+    refuse_detached("selective_scan", x.detach(), 3, item=item)
 
 
 def test_flash_attention_cpu_gradient_is_the_plain_versions():

@@ -212,6 +212,81 @@ def test_optimizer_updates_match_reference(kind):
         assert abs(float(tn) / float(jn) - 1.0) <= OPT_TOL
 
 
+def test_adafactor_bf16_leaves_match_reference():
+    """Adafactor on bfloat16 parameters and gradients (the hybrid's
+    masters at full width): float32 arithmetic, the result rounded back
+    to bfloat16, as the reference's ``.astype(p.dtype)``.  Three updates
+    on the same bf16 arrays into both: every parameter within one bf16
+    ulp of the reference's, the float32 state and the gradient norm
+    within 1e-6."""
+    params, grads = _opt_case(4)
+    bf = jnp.bfloat16
+
+    def jtree(t):
+        return jax.tree.map(lambda v: jnp.asarray(v).astype(bf), t)
+
+    def ttree(t):
+        return TO.tree_map(lambda v: torch.from_numpy(np.array(v))
+                           .to(torch.bfloat16), t)
+    jopt, topt = JO.adafactor(), TO.adafactor()
+    jp, tp = jtree(params), ttree(params)
+    js, ts = jopt.init(jp), topt.init(tp)
+    for i, g in enumerate(grads):
+        lr = 1e-2 * (i + 1)
+        jp, js, jn = jopt.update(jtree(g), js, jp, jnp.float32(lr))
+        tp, ts, tn = topt.update(ttree(g), ts, tp,
+                                 torch.tensor(lr, dtype=torch.float32))
+        for got, want in zip(TO.tree_leaves(tp), jax.tree.leaves(jp)):
+            assert got.dtype == torch.bfloat16 and want.dtype == bf
+            w = np.asarray(want.astype(jnp.float32), np.float64)
+            d = np.abs(got.float().numpy().astype(np.float64) - w)
+            ulp = np.exp2(np.floor(np.log2(np.maximum(np.abs(w),
+                                                      2.0 ** -126))) - 7)
+            assert (d <= ulp).all(), (i, float((d / ulp).max()))
+        state_err = _leaf_errors(ts["slots"], _np_tree(js["slots"]))
+        assert max(state_err.values()) <= OPT_TOL, state_err
+        assert abs(float(tn) / float(jn) - 1.0) <= OPT_TOL
+
+
+def test_hybrid_bf16_masters_take_a_step():
+    """The reduced hybrid with ``param_dtype="bfloat16"`` (the masters of
+    the full-width run on the card) takes Adafactor steps through
+    ``make_train_step`` on the CPU: a finite loss, every leaf's first
+    gradient finite and not all zero (the Mamba leaves behind dt, B, C
+    and A among them), every leaf still bfloat16 after the updates (the
+    step refuses no bf16 master), and the zero-initialized ``A_log`` and
+    ``dt_bias``, which only the scan reaches, moved."""
+    cfg = dataclasses.replace(reduced(get_arch("jamba-1.5-large-398b")),
+                              param_dtype="bfloat16", moe=None)
+    model = Model(cfg)
+    params = model.init(0, device=CPU)
+    before = TO.tree_map(torch.clone, params)
+    opt = TO.optimizer_for(cfg)
+    first = []
+
+    def hook(grads):
+        if not first:
+            first.append(TO.tree_map(torch.clone, grads))
+        return grads
+    step = TL.make_train_step(model, opt, TO.schedule_for(cfg.name, 3e-3,
+                                                          1000),
+                              grad_hook=hook)
+    state = opt.init(params)
+    batch = _torch(_batch(cfg, 2, 16, 38))
+    for s in range(2):
+        params, state, m = step(params, state, batch, s)
+        assert torch.isfinite(m["loss"])
+    for path, g in TO.tree_leaves(TO.tree_map(
+            lambda p, g: ("/".join(p), g), first[0], path=())):
+        assert torch.isfinite(g).all() and g.ne(0).any(), path
+    assert all(t.dtype == torch.bfloat16 for t in TO.tree_leaves(params))
+    for pos in range(1, len(cfg.block_pattern)):
+        core, was = (t["layers"][f"pos{pos}"]["core"]
+                     for t in (params, before))
+        for leaf in ("A_log", "dt_bias"):
+            assert not torch.equal(core[leaf], was[leaf]), (pos, leaf)
+
+
 def test_optimizers_minimize_quadratic():
     """The reference's own check (``tests/test_system.py``) on the
     port."""
