@@ -6,7 +6,7 @@ on one CUDA card.
     python3 scripts/kernel_ab.py --against build/ab_old [--only b2,b6,b7]
 
 Builds the other tree's sources of the chosen kernels (``--only``, any of
-b2, b4, b5, b6, b7, b9, b10; all seven by default) into a library of
+b2, b4, b5, b6, b7, b9, b10, b9bwd, b10bwd; all by default) into a library of
 their own (the same nvcc flags) and calls both libraries through this
 tree's wrappers (the C entries take the same arguments; B4's entry before
 its redesign did not, see below).  Shapes and data:
@@ -45,7 +45,16 @@ its redesign did not, see below).  Shapes and data:
   1 J), NaN at the same places;
 - B9 bf16 causal at llama's (1, 24/8, 1000, 128) and the hybrid's
   (1, 64/8, 1000, 128), B10 at (1, 1000, 16384, 16) with dt float32 and
-  x bf16, inputs drawn as ``chip_smoke.check_serve_kernels`` draws them.
+  x bf16, inputs drawn as ``chip_smoke.check_serve_kernels`` draws them;
+- b9bwd, b10bwd: the backward kernels, B9's in bf16 at every
+  ``chip_smoke.TRAIN_ATTENTION`` shape and B10's at every
+  ``SCAN_BWD_SHAPES`` shape, inputs drawn as
+  ``chip_smoke.check_attention_backward`` / ``check_scan_backward`` draw
+  them; gate: chip_smoke's (the plain gradient, two runs torch.equal).
+  The other tree's B9 backward entry of 20 arguments (before the dQ key
+  split, 8140ab9) is called without dq_part and part_keys; its B10
+  backward of the first version (no cluster) is called through its entry
+  with that version's scratch (parts of 32 channels).
 Each kernel is timed with ``chip_smoke.timed`` in the order other, this,
 this, other; the ratio of the means is printed with the card's SM clock
 before and after.  With b9, the bf16 edge cases of
@@ -77,7 +86,9 @@ ROOT = Path(__file__).resolve().parent.parent
 SOURCES = {"b2": "power_reconstruct_fleet.cu", "b4": "xcorr_align.cu",
            "b5": "grid_resample.cu",
            "b6": "phase_integrate.cu", "b7": "fleet_attribute.cu",
-           "b9": "flash_attention.cu", "b10": "selective_scan.cu"}
+           "b9": "flash_attention.cu", "b10": "selective_scan.cu",
+           "b9bwd": "flash_attention_bwd.cu",
+           "b10bwd": "selective_scan_bwd.cu"}
 
 
 def build_other(tree: Path, build, names) -> Path:
@@ -113,6 +124,25 @@ FA_OLD_ARGS = 12       # B9's entry before the key length and the window:
                        # stream (this tree's adds Sk after S, window after
                        # causal, and the lse pointer before the stream)
 FA_NO_LSE_ARGS = 14    # the entry with Sk and the window, before the lse
+FA_BWD_OLD_ARGS = 20   # B9's backward entry before the dQ key split
+                       # (8140ab9): this tree's adds dq_part and part_keys
+                       # before the stream
+
+
+def entry_args(tree: Path, key: str) -> int:
+    """The number of arguments of the C entry macro (``extern "C" int
+    NAME(...)``) in ``tree``'s source of ``key`` (0 where not found)."""
+    path = tree / "src" / "repro_torch" / "csrc" / SOURCES[key]
+    src = path.read_text() if path.is_file() else ""
+    hit = re.search(r'extern "C" int NAME\(([^)]*)\)', src)
+    return hit.group(1).count(",") + 1 if hit else 0
+
+
+def scan_bwd_old_geometry(tree: Path) -> bool:
+    """Whether ``tree``'s B10 backward is the first version (8140ab9):
+    32 channels a dB/dC part (16 at N > 32), no cluster."""
+    path = tree / "src" / "repro_torch" / "csrc" / SOURCES["b10bwd"]
+    return path.is_file() and "kCluster" not in path.read_text()
 
 
 def fa_entry_args(tree: Path) -> int:
@@ -125,17 +155,23 @@ def fa_entry_args(tree: Path) -> int:
 
 
 @contextlib.contextmanager
-def using(lib, build, fa_old=0):
+def using(lib, build, fa_old=0, fa_bwd_old=False):
     """Route the wrappers' C entries to ``lib`` (None: this tree's);
     ``fa_old``: the argument count of ``lib``'s B9 entries where they
     are older than this tree's: ``FA_NO_LSE_ARGS`` (no lse pointer: this
     tree's call must pass none) or ``FA_OLD_ARGS`` (also neither the key
-    length nor the window: it must pass Sk == S and no window)."""
+    length nor the window: it must pass Sk == S and no window);
+    ``fa_bwd_old``: ``lib``'s B9 backward entries take the 20 arguments
+    of the entry before the dQ key split."""
     saved = build.c_function
 
     def entry(name, argtypes):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
+        if fa_bwd_old and name.startswith("fa_bwd_launch_"):
+            # the old entry has no key split: drop dq_part and part_keys
+            fn.argtypes = argtypes[:19] + argtypes[21:]
+            return lambda *a: fn(*(a[:19] + a[21:]))
         if fa_old and name.startswith("fa_launch_"):
             keep = [i for i in range(len(argtypes)) if i != 13
                     and (fa_old == FA_NO_LSE_ARGS or i not in (8, 11))]
@@ -327,6 +363,166 @@ def flash_edges(cs, other, build, dev, fa_old=0) -> dict:
     return edges
 
 
+def old_scan_bwd(lib, dt, x, bm, cm, a, h_chunk, dy, dh):
+    """The other tree's B10 backward through its own entry with the first
+    version's scratch (8140ab9): parts of 32 channels (16 at N > 32), the
+    entry's arguments otherwise this tree's."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssm_scan.kernel import _BWD_ARGS, _BWD_ENTRY
+    fn = getattr(lib, _BWD_ENTRY[(dt.dtype, x.dtype)])
+    fn.argtypes = _BWD_ARGS
+    fn.restype = ctypes.c_int
+    bsz, seq, d = x.shape
+    n = a.shape[1]
+    f32, dev = torch.float32, x.device
+    parts = -(-d // (16 if n > 32 else 32))
+    ddt, dx = torch.empty_like(dt), torch.empty_like(x)
+    db, dc = (torch.empty((bsz, seq, n), dtype=f32, device=dev)
+              for _ in range(2))
+    da = torch.empty((d, n), dtype=f32, device=dev)
+    dh0 = torch.empty((bsz, d, n), dtype=f32, device=dev)
+    part_b, part_c = (torch.empty((parts, bsz, seq, n), dtype=f32,
+                                  device=dev) for _ in range(2))
+    part_a = torch.empty((bsz, d, n), dtype=f32, device=dev)
+    build.check_launch(fn(
+        dt.data_ptr(), x.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+        a.data_ptr(), h_chunk.data_ptr(), dy.data_ptr(),
+        None if dh is None else dh.data_ptr(), ddt.data_ptr(),
+        dx.data_ptr(), db.data_ptr(), dc.data_ptr(), da.data_ptr(),
+        dh0.data_ptr(), part_b.data_ptr(), part_c.data_ptr(),
+        part_a.data_ptr(), bsz, seq, d, n, parts, build.stream_ptr(dev)),
+        "other B10 backward")
+    return ddt, dx, db, dc, da, dh0
+
+
+def backward_ab(cs, other, want, fa_bwd_old: bool, scan_old: bool,
+                seed: int, dev) -> tuple:
+    """B9's backward (bf16) at every ``chip_smoke.TRAIN_ATTENTION`` shape
+    and B10's at every ``chip_smoke.SCAN_BWD_SHAPES`` shape, inputs drawn
+    as chip_smoke draws them, the other tree's kernel beside this tree's:
+    each held to chip_smoke's gates against the plain gradient (B9 bf16
+    BF16_BWD_TOL; B10 float32 KERNEL_TOL, bf16 SCAN_BWD_BF16_TOL) and to
+    two runs torch.equal, then timed other, this, this, other ->
+    (result, failed names)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel, flash_attention_ref)
+    from repro_torch.kernels.flash_attention.kernel import _forward
+    from repro_torch.kernels.ssm_scan import (selective_scan_bwd_kernel,
+                                              selective_scan_ref)
+    from repro_torch.kernels.ssm_scan.kernel import _forward as scan_forward
+    randn = cs.seeded_randn(dev, seed)
+    result, failed = {}, []
+
+    def run(name, sides, gate):
+        """sides: {"other": fn, "this": fn} -> the gates, then timings."""
+        checks, ok = {}, True
+        for side, fn in sides.items():
+            got, again = fn(), fn()
+            torch.cuda.synchronize()
+            checks[side] = dict(gate(got), two_runs_equal=all(
+                torch.equal(g, r) for g, r in zip(got, again)))
+            if side == "this" and not (checks[side]["passed"]
+                                       and checks[side]["two_runs_equal"]):
+                ok = False
+            del got, again
+        if not ok:
+            failed.append(name)
+        before = cs.gpu_clocks()
+        ms = {"other": [], "this": []}
+        for side in ("other", "this", "this", "other"):
+            ms[side].append(cs.timed(sides[side], reps=10)["device_ms"])
+        after = cs.gpu_clocks()
+        mean = {k: sum(v) / len(v) for k, v in ms.items()}
+        result[name] = dict(ms=ms, ratio=mean["other"] / mean["this"],
+                            checks=checks, clocks_before=before,
+                            clocks_after=after)
+        print(f"{name}: other {ms['other']} ms, this {ms['this']} ms, "
+              f"other/this {mean['other'] / mean['this']:.3f}; {checks}; "
+              f"card before {before}, after {after}", flush=True)
+
+    bf16 = torch.bfloat16
+    if "b9bwd" in want:
+        for (label, b, hq, hkv, sq, sk, d, causal, window,
+             cap) in cs.TRAIN_ATTENTION:
+            q = randn(b, hq, sq, d, scale=3.0).to(bf16)
+            k = randn(b, hkv, sk, d, scale=3.0).to(bf16)
+            v = randn(b, hkv, sk, d).to(bf16)
+            do = randn(b, hq, sq, d).to(bf16)
+            opts = dict(causal=causal, logit_cap=cap, window=window)
+            with torch.no_grad():
+                out, lse = _forward(q, k, v, causal, cap, window, True)
+            qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+            want_g = torch.autograd.grad(
+                flash_attention_ref(qg, kg, vg, **opts), (qg, kg, vg), do)
+
+            def gate(got, want_g=want_g):
+                rels = [cs._rel_err(g, w) for g, w in zip(got, want_g)]
+                return {"rel_dq_dk_dv": rels,
+                        "passed": max(rels) <= cs.BF16_BWD_TOL}
+
+            def this(q=q, k=k, v=v, out=out, do=do, lse=lse, opts=opts):
+                return flash_attention_bwd_kernel(q, k, v, out, do, lse,
+                                                  **opts)
+
+            def theirs(q=q, k=k, v=v, out=out, do=do, lse=lse, opts=opts):
+                with using(other, build, fa_bwd_old=fa_bwd_old):
+                    return flash_attention_bwd_kernel(q, k, v, out, do, lse,
+                                                      **opts)
+            run(f"B9 backward {label} ({b},{hq}/{hkv},{sq}->{sk},{d}) bf16 "
+                f"causal={causal} window={window} cap={cap:g}",
+                {"other": theirs, "this": this}, gate)
+            del q, k, v, do, out, lse, qg, kg, vg, want_g
+            torch.cuda.empty_cache()
+    if "b10bwd" in want:
+        for label, b, seq, d, n, dtn, xn, given in cs.SCAN_BWD_SHAPES:
+            dtd, xd = getattr(torch, dtn), getattr(torch, xn)
+            dt = F.softplus(randn(b, seq, d) - 1.0).to(dtd)
+            x = randn(b, seq, d).to(xd)
+            bm, cm = randn(b, seq, n), randn(b, seq, n)
+            a = -torch.exp(randn(d, n, scale=0.5))
+            h0 = (randn(b, d, n) if given
+                  else torch.zeros((b, d, n), device=dev))
+            dy = randn(b, seq, d).to(xd)
+            dh = randn(b, d, n) if given else None
+            with torch.no_grad():
+                _, _, h_chunk = scan_forward(dt, x, bm, cm, a, h0, True)
+            ins = [t.clone().requires_grad_()
+                   for t in (dt, x, bm, cm, a, h0)]
+            y, h = selective_scan_ref(*ins)
+            want_g = torch.autograd.grad((y, h) if given else (y,), ins,
+                                         (dy, dh) if given else (dy,))
+            del ins, y, h
+
+            def gate(got, want_g=want_g):
+                rels = {k: cs._rel_err(g, w)
+                        for k, g, w in zip(cs.SCAN_GRADS, got, want_g)}
+                passed = all(
+                    r <= (cs.KERNEL_TOL if g.dtype == torch.float32
+                          else cs.SCAN_BWD_BF16_TOL)
+                    for r, g in zip(rels.values(), got))
+                return {"rel": rels, "passed": passed}
+            args = (dt, x, bm, cm, a, h_chunk, dy, dh)
+
+            def this(args=args):
+                return selective_scan_bwd_kernel(*args)
+
+            def theirs(args=args):
+                if scan_old:
+                    return old_scan_bwd(other, *args)
+                with using(other, build):
+                    return selective_scan_bwd_kernel(*args)
+            run(f"B10 backward {label} ({b},{seq},{d},{n}) dt {dtn} x {xn}"
+                + (" with dh_last" if given else ""),
+                {"other": theirs, "this": this}, gate)
+            del dt, x, bm, cm, a, h0, dy, dh, h_chunk, want_g, args
+            torch.cuda.empty_cache()
+    return result, failed
+
+
 XCORR_OLD_ARGS = 12    # the entry before the redesign: x, m, bank, xc,
                        # den_x, den_r, out, F, G, L_out, L_real, stream
 
@@ -464,6 +660,16 @@ def main(argv=None) -> int:
             ap.error(f"b4: the other tree's xcorr_align_launch takes "
                      f"{n_other} arguments, neither this tree's nor the "
                      f"{XCORR_OLD_ARGS} of the entry before the redesign")
+    fa_bwd_old = False
+    if "b9bwd" in want:
+        n_bwd = entry_args(args.against, "b9bwd")
+        if n_bwd not in (FA_BWD_OLD_ARGS, entry_args(ROOT, "b9bwd")):
+            ap.error(f"b9bwd: the other tree's entries take {n_bwd} "
+                     f"arguments, neither this tree's nor the "
+                     f"{FA_BWD_OLD_ARGS} of the entry before the dQ key "
+                     f"split")
+        fa_bwd_old = n_bwd == FA_BWD_OLD_ARGS
+    scan_old = "b10bwd" in want and scan_bwd_old_geometry(args.against)
     fa_old = 0
     if "b9" in want:
         n_fa = fa_entry_args(args.against)
@@ -499,6 +705,10 @@ def main(argv=None) -> int:
     if "b4" in want:
         result["xcorr"], failed = xcorr_ab(
             cs, other, n_other == XCORR_OLD_ARGS, args.seed, dev)
+    if {"b9bwd", "b10bwd"} & set(want):
+        result["backward"], bwd_failed = backward_ab(
+            cs, other, want, fa_bwd_old, scan_old, args.seed, dev)
+        failed += bwd_failed
     for name, (fn, ref, compare, *same_bits) in calls.items():
         want_out = ref()
         checks, outs = {}, {}

@@ -22,42 +22,73 @@
 // or without a window (Sk == Sq), non-causal with any Sk, the cap, D in
 // {64, 128}.
 //
-// Three kernels, launched in order on one stream:
-//   1. delta: one warp a row (float32 products, a fixed shuffle tree);
-//   2. dK/dV: one block a (batch, kv head, 64-key tile).  It loops over
+// Kernels, launched in order on one stream:
+//   1. delta: a warp a row (float32), or in bf16 D/8 lanes a row with
+//      16-byte loads (float32 products, a fixed shuffle tree);
+//   2. dK/dV: one block a (batch, kv head, tile of keys).  It loops over
 //      the Hq/Hkv query heads of its group and, for each, over the query
 //      tiles that can see its keys (from the diagonal tile when causal, up
 //      to the window's last when windowed), in that fixed order, and
 //      keeps dK and dV in registers throughout: GQA's sum over the query
 //      heads is a loop, not atomics;
-//   3. dQ: one block a (batch, query head, 64-row query tile), looping
-//      over the key tiles the forward visits.
+//   3. dQ: one block a (batch, query head, tile of rows, key part),
+//      looping over the key tiles the forward visits;
+//   4. (bf16, non-causal with Sk > 512 only) the fold of dQ's key parts.
 // No atomics anywhere and every sum in a fixed order: two runs give the
 // same bits (ROADMAP "Fold-order determinism").
 //
-// bfloat16 -> the tensor cores (mma.sync.m16n8k16, bf16 in, float32
-// accumulate), 4 warps of 16 own rows a block; the loop steps 32 rows of
-// the other side at a time, so a thread holds 16 score and 16 dP
-// accumulators beside its 2 x D/2 gradient accumulators (dK and dV, or
-// dQ) and no operand fragments between products: every fragment is read
-// from shared memory by ldmatrix where it is used.  P and dS are rounded
-// to bf16 as the A operands of their products (dV += P^T dO, dK += dS^T
-// Q, dQ += dS K), as the forward rounds P for P V; dP, delta and the
-// gradients' sums stay float32.  Tiles are copied with cp.async, not
-// double-buffered.
+// bfloat16 -> warpgroups on the tensor cores (wgmma, bf16 in, float32
+// accumulate; helpers in wgmma_bf16.cuh).  A block is a producer
+// warpgroup and one or two consumer warpgroups of 64 own rows each (two
+// where that still leaves a block for each of the 132 SMs: 128 keys or
+// rows a block at the training shapes, 64 at whisper's).  The producer
+// copies the block's own tiles once (K and V, or Q and dO) and then the
+// other side, 64 rows a stage, into a ring of 3 slots by TMA
+// (tensor maps built on the host; each box one 8 KB panel of 64 rows
+// in the 128-byte swizzle, rows past the end read as zeros) and, for
+// dK/dV, the rows' lse and delta by cp.async, completing each slot on
+// its `full` mbarrier; the consumers' warps mark it empty when their
+// products are done, so copies run ahead of the products.  setmaxnreg
+// gives the consumers the producer's registers (40 / 232, or 240 with
+// one consumer).  Every
+// product is a wgmma: dK/dV computes S^T = K Q^T and dP^T = V dO^T with
+// both operands in shared memory, turns the accumulators into P^T and
+// dS^T in place and, rounded to bf16 as register A operands, into dV +=
+// P^T dO and dK += dS^T Q, dO and Q read from the same slot as
+// MN-major (transposed) B operands; dQ computes S = Q K^T and dP = dO
+// V^T, then dQ += dS K.  So the design runs 7 products where the
+// function needs 5 (S and dP are recomputed in dQ).  Masks are applied
+// only to tiles that cross the causal diagonal, the window's edge or a
+// ragged end (a loop of its own: a mask test in the one loop cost more
+// than a third of the kernel); tiles that score nothing are skipped.
+// P = 2^x on the SFU (ex2.approx, 2 ulp; P is rounded to bf16 for its
+// product), computed while the dP product still runs; the cap's tanh is
+// compiled in only for a capped call.  The two
+// warpgroups run in step: tried and not kept (slower, PERF.md section
+// 6): letting them take turns on named barriers, and issuing the next
+// stage's S and dP before this stage's exponentials in dQ (ptxas then
+// serializes the wgmma).  Under causal
+// masking dQ's row blocks start longest first.  Non-causal calls with
+// more than 512 keys split dQ's keys into parts of whole 64-key tiles,
+// whose points are a function of Sk alone (kernel.py dq_key_parts), so
+// a short grid (cross-attention: 8 heads x 128 rows) still fills the
+// card; the parts' float32 partials are added in part order.  P and dS
+// are rounded to bf16 as the A operands of their products (dV += P^T
+// dO, dK += dS^T Q, dQ += dS K), as the forward rounds P for P V; dP,
+// delta and the gradients' sums stay float32.
 // float32 -> SIMT kernels (float32 FMAs), 256 threads a block, each
 // thread 4 own rows x 4 columns of a 64 x 64 score tile and 4 rows x D/16
 // columns of the gradients; tiles in shared memory at a pitch of D + 1
 // floats, so both a row-wise and a column-wise walk are free of bank
 // conflicts (149 KB at D = 128, one block an SM).
 //
-// Bound on the H100: five S x S products of D, 10 B Hq Sq Sk D
-// operations, halved when causal: 2.58e11 at the training shape (2,
-// 24/8, 2048, 128), 0.26 ms at the bf16 dense rate (989 TFLOP/s), far
-// above the bytes.  This first version is simple: the tiles are small,
-// ldmatrix feeds every mma from shared memory and nothing overlaps the
-// copies, so it sits well above that bound (PERF.md section 6).
+// Bound on the H100: five products of D a scored pair, 10 B Hq D x the
+// scored pairs operations: 1.29e11 at the training shape (2, 24/8, 2048,
+// 128) causal (2.10e6 scored pairs a head), 0.1304 ms at the bf16 dense
+// rate (989 TFLOP/s), far above the bytes (chip_smoke.py
+// check_attention_backward computes it from each call's shape).
 #include "flash_attention.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -407,214 +438,406 @@ fa_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ------------------------------------ bfloat16: tensor cores (mma.sync)
+// ----------------------------------- bfloat16: warpgroups on wgmma
 
-constexpr int kMmaThreads = 128;     // 4 warps x 16 own rows
-constexpr int kMmaStep = 32;         // rows of the other side a step
+constexpr int kTile = 64;            // rows a consumer warpgroup owns, and
+                                     // rows of the streamed side a stage
+constexpr int kStages = 3;           // ring slots of the streamed side
 
-template <int D>
-__host__ __device__ constexpr int bwd_pitch() { return D + 8; }
+// A block: warpgroup 0 copies (the producer), warpgroups 1 .. NWG multiply
+// (consumers, 64 own rows each).  Shared memory: the two own tiles, then
+// the ring; every tile in the swizzled layout of wgmma_bf16.cuh.
+template <int D, int NWG>
+struct WgGeom {
+  static constexpr int kThreads = 128 * (NWG + 1);
+  static constexpr int kOwn = kTile * NWG;
+  static constexpr int kOwnBytes = kOwn * D * 2;
+  static constexpr int kStepBytes = kTile * D * 2;
+  // a dK/dV stage: Q, dO, then the rows' lse and delta
+  static constexpr int kKvStage =
+      (2 * kStepBytes + 2 * kTile * 4 + 1023) / 1024 * 1024;
+  static constexpr int kQStage = 2 * kStepBytes;   // a dQ stage: K, V
+  static constexpr int kKvSmem = 2 * kOwnBytes + kStages * kKvStage + 1024;
+  static constexpr int kQSmem = 2 * kOwnBytes + kStages * kQStage + 1024;
+  // the block's registers at launch (65,536 / (kThreads kMinBlocks), at
+  // most 248 a thread), moved to the consumers by setmaxnreg; one
+  // warpgroup of D = 64 fits two blocks an SM
+  static constexpr int kMinBlocks = NWG == 1 && D == 64 ? 2 : 1;
+  static constexpr int kProducerRegs = 40;
+  static constexpr int kConsumerRegs =
+      NWG == 2 ? 232 : (kMinBlocks == 2 ? 216 : 240);
+  static constexpr int kLaunchRegs =
+      65536 / kMinBlocks / kThreads / 8 * 8 < 248
+          ? 65536 / kMinBlocks / kThreads / 8 * 8 : 248;
+  static_assert(kProducerRegs + NWG * kConsumerRegs <=
+                    kLaunchRegs * (NWG + 1),
+                "setmaxnreg within the block's registers");
+};
 
-template <int D>
-constexpr int mma_bwd_smem_bytes() {  // 2 x own, 2 x step tiles, lse/delta
-  return 2 * (kOwn + kMmaStep) * bwd_pitch<D>() *
-             static_cast<int>(sizeof(bf16)) +
-         2 * kMmaStep * static_cast<int>(sizeof(float));
+// the four operands' tensor maps (wgmma_bf16.cuh bf16_map)
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+__device__ __forceinline__ unsigned char* align_1k(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t{1023});
 }
 
-// rows r0.. of a (rows x D) bf16 tile at pitch D + 8, by cp.async, zeros
-// past n (not committed: the caller commits)
-template <int D>
-__device__ __forceinline__ void mma_rows(bf16* dst, const bf16* src,
-                                         long long stride, int r0, int n,
-                                         int rows) {
-  constexpr int CH = D / 8;            // 16-byte chunks a row
-  for (int c = threadIdx.x; c < rows * CH; c += kMmaThreads) {
-    const int r = c / CH, cc = c % CH;
-    const bool ok = r0 + r < n;
-    const bf16* from = ok ? src + (r0 + r) * stride + cc * 8 : src;
-    cp_async16(smem_u32(dst + r * bwd_pitch<D>() + cc * 8), from, ok);
-  }
+// The query tiles (kTile rows) that see keys k0 .. k0 + own - 1.
+__device__ __forceinline__ void wg_query_tiles(int k0, int own, int S,
+                                               int causal, int window,
+                                               int& first, int& end) {
+  first = causal ? k0 / kTile : 0;
+  end = (S + kTile - 1) / kTile;
+  if (window > 0) end = min(end, (k0 + own - 1 + window - 1) / kTile + 1);
 }
 
-// P and dS (scaled to the raw product) of one accumulator element,
-// from its score and dP; Lg is the row's lse times log2(e)
-__device__ __forceinline__ void mma_p_ds(float& s, float& dp, float Lg,
-                                         float dl, bool ok, float rsd,
-                                         float cap) {
+// Does a (rows r0 .. r0 + 63) x (keys c0 .. c0 + 63) tile score nothing
+// (dead), or everything (interior: no mask to apply)?
+__device__ __forceinline__ bool tile_dead(int r0, int c0, int S, int Sk,
+                                          int causal, int window) {
+  return r0 >= S || c0 >= Sk || (causal && c0 > r0 + kTile - 1) ||
+         (window > 0 && r0 - (c0 + kTile - 1) >= window);
+}
+__device__ __forceinline__ bool tile_interior(int r0, int c0, int S, int Sk,
+                                              int causal, int window) {
+  return r0 + kTile <= S && c0 + kTile <= Sk &&
+         (!causal || c0 + kTile - 1 <= r0) &&
+         (window <= 0 || r0 + kTile - 1 - c0 < window);
+}
+
+// 2^x on the special-function unit (ex2.approx: 2 ulp; P is rounded to
+// bf16 before its product anyway)
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// P and dS (scaled to the raw product) of one accumulator element, from
+// its score s and dP; Lg is the row's lse times log2(e), rcap 1 / cap.
+// The cap's tanh is compiled in only where kCap (a kernel with it pays
+// for it on every element even where the branch is not taken).
+template <bool kCap>
+__device__ __forceinline__ void wg_p_ds(float& s, float& dp, float Lg,
+                                        float dl, bool ok, float rsd,
+                                        float cap, float rcap) {
   float x = s * rsd;
   float dc = 1.0f;
-  if (cap > 0.0f) {
-    const float t = tanhf(x / cap);
+  if constexpr (kCap) {
+    const float t = tanhf(x * rcap);
     x = cap * t;
     dc = 1.0f - t * t;
   }
-  const float p = ok ? exp2f(x * kLog2e - Lg) : 0.0f;
+  const float p = ok ? exp2_sfu(x * kLog2e - Lg) : 0.0f;
   s = p;
-  dp = p * (dp - dl) * dc * rsd;
+  dp = kCap ? p * (dp - dl) * dc * rsd : p * (dp - dl) * rsd;
 }
 
-// the A fragments of columns 16kk.. from a 16 x 32 accumulator tile
-__device__ __forceinline__ void acc_to_a(const float (&x)[4][4], int kk,
-                                         uint32_t (&a)[4]) {
-  a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
-  a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
-  a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-  a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+// Without a cap the element-wise work goes in two halves: P (from S)
+// while the product for dP still runs, then dS.  P's half:
+__device__ __forceinline__ float wg_p(float s, float Lg, bool ok,
+                                      float rsd) {
+  const float x = s * rsd;
+  return ok ? exp2_sfu(x * kLog2e - Lg) : 0.0f;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-fa_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, bf16* __restrict__ dk,
-                bf16* __restrict__ dv, int Hq, int Hkv, int S, int Sk,
-                Strides sq, Strides sk, Strides sv, Strides sdo,
-                Strides sdk, Strides sdv, int causal, int window, float rsd,
-                float cap) {
-  constexpr int P = bwd_pitch<D>();
-  constexpr int KD = D / 16;           // k-steps over the head dimension
-  constexpr int ND = D / 8;            // n-tiles of a gradient row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);   // [kOwn][P]
-  bf16* Vs = Ks + kOwn * P;
-  bf16* Qs = Vs + kOwn * P;                       // [kMmaStep][P]
-  bf16* Os = Qs + kMmaStep * P;                   // dO
-  float* Ls = reinterpret_cast<float*>(Os + kMmaStep * P);
-  float* Dl = Ls + kMmaStep;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, c4 = lane & 3;
+// P and dS in place on a 64 x 64 tile: with a cap both at once (S and dP
+// have landed), without one P alone (dS follows once dP has landed).
+// Masked only where kEdge: edge tiles and interior tiles take loops of
+// their own, since a mask test in one loop would be a branch taken apart
+// element by element.  dK/dV's tile is transposed: element 4j + r is key
+// key0 + 8 (r / 2), query q0 + 8j + 2 t4 + r % 2 (Ls, Dl the queries' lse
+// and delta).
+template <bool kEdge, bool kCap>
+__device__ __forceinline__ void kv_elements(
+    float (&s)[32], float (&dp)[32], const float* Ls, const float* Dl,
+    int q0, int key0, int t4, int S, int Sk, int causal, int window,
+    float rsd, float cap, float rcap) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int col = 8 * j + 2 * t4 + (r & 1);
+      const bool ok = !kEdge || scored(q0 + col, key0 + 8 * (r >> 1), S,
+                                       Sk, causal, window);
+      if constexpr (kCap)
+        wg_p_ds<true>(s[4 * j + r], dp[4 * j + r], Ls[col] * kLog2e,
+                      Dl[col], ok, rsd, cap, rcap);
+      else
+        s[4 * j + r] = wg_p(s[4 * j + r], Ls[col] * kLog2e, ok, rsd);
+    }
+}
+
+// dQ's tile: element 4j + r is row row0 + 8 (r / 2), key c0 + 8j + 2 t4 +
+// r % 2 (lg, dl the two rows' lse times log2(e) and delta)
+template <bool kEdge, bool kCap>
+__device__ __forceinline__ void q_elements(
+    float (&s)[32], float (&dp)[32], const float (&lg)[2],
+    const float (&dl)[2], int row0, int c0, int t4, int S, int Sk,
+    int causal, int window, float rsd, float cap, float rcap) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const bool ok = !kEdge || scored(row0 + 8 * (r >> 1),
+                                       c0 + 8 * j + 2 * t4 + (r & 1), S,
+                                       Sk, causal, window);
+      if constexpr (kCap)
+        wg_p_ds<true>(s[4 * j + r], dp[4 * j + r], lg[r >> 1], dl[r >> 1],
+                      ok, rsd, cap, rcap);
+      else
+        s[4 * j + r] = wg_p(s[4 * j + r], lg[r >> 1], ok, rsd);
+    }
+}
+
+// every consumer warp's arrival on a barrier initialised with 4 NWG
+__device__ __forceinline__ void warp_arrive(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) wg::mbar_arrive(bar);
+}
+
+// dK/dV: block (b * Hkv + kv head, key block of kOwn keys).  The
+// producer copies the block's K and V once (TMA), then for each query
+// head of the group and each query tile that can see the keys, in that
+// order, Q and dO (TMA) and the rows' lse and delta (cp.async) into the
+// ring.  Consumer c (keys kw0 .. kw0 + 63) for each stage: S^T = K Q^T
+// and dP^T = V dO^T (wgmma, both operands in shared memory, K-major), P^T
+// and dS^T in place in the accumulators (masked only on tiles that cross
+// the diagonal, the window's edge or the ragged ends; tiles that score
+// nothing are skipped), rounded to bf16 as register A operands, then dV
+// += P^T dO and dK += dS^T Q (dO and Q read MN-major from the same slot).
+// dK and dV stay in registers.
+template <int D, int NWG, bool kCap>
+__global__ void __launch_bounds__(WgGeom<D, NWG>::kThreads,
+                                  WgGeom<D, NWG>::kMinBlocks)
+fa_bwd_dkdv_wg(const __grid_constant__ Maps maps,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta, bf16* __restrict__ dk,
+               bf16* __restrict__ dv, int Hq, int Hkv, int S, int Sk,
+               Strides sdk, Strides sdv, int causal, int window, float rsd,
+               float cap) {
+  using G = WgGeom<D, NWG>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[kStages], empty[kStages], own_full;
+  unsigned char* Ks = align_1k(smem_raw);
+  unsigned char* Vs = Ks + G::kOwnBytes;
+  unsigned char* ring = Vs + G::kOwnBytes;
   const int hk = blockIdx.x % Hkv;
   const int b = blockIdx.x / Hkv;
   const int group = Hq / Hkv;
-  const int k0 = blockIdx.y * kOwn;
-  mma_rows<D>(Ks, k + b * sk.b + hk * sk.h, sk.s, k0, Sk, kOwn);
-  mma_rows<D>(Vs, v + b * sv.b + hk * sv.h, sv.s, k0, Sk, kOwn);
-  cp_async_commit();
-  float dka[ND][4], dva[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.0f;
-  const int key0 = k0 + warp * 16 + g;   // this thread's keys: +0, +8
+  const int k0 = blockIdx.y * G::kOwn;
   int qt_first, qt_end;
-  query_tiles(k0, kMmaStep, S, causal, window, qt_first, qt_end);
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = hk * group + hh;
-    const long long lrow = (static_cast<long long>(b) * Hq + h) * S;
-    for (int qt = qt_first; qt < qt_end; ++qt) {
-      const int q0 = qt * kMmaStep;
-      mma_rows<D>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, kMmaStep);
-      mma_rows<D>(Os, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S,
-                  kMmaStep);
-      cp_async_commit();
-      if (tid < kMmaStep) {
-        const bool in = q0 + tid < S;
-        Ls[tid] = in ? lse[lrow + q0 + tid] * kLog2e : 0.0f;
-        Dl[tid] = in ? delta[lrow + q0 + tid] : 0.0f;
-      }
-      cp_async_wait<0>();
-      __syncthreads();                   // the tiles are in shared memory
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries a warp
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t ka[4], va[4];
-        ld_a(Ks, P, warp * 16, kk * 16, lane, ka);
-        ld_a(Vs, P, warp * 16, kk * 16, lane, va);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t qf[4], of[4];
-          ld_b_nk(Qs, P, np * 16, kk * 16, lane, qf);
-          ld_b_nk(Os, P, np * 16, kk * 16, lane, of);
-          mma_bf16(s[2 * np], ka, qf[0], qf[1]);
-          mma_bf16(s[2 * np + 1], ka, qf[2], qf[3]);
-          mma_bf16(dp[2 * np], va, of[0], of[1]);
-          mma_bf16(dp[2 * np + 1], va, of[2], of[3]);
-        }
-      }
-      // P^T and dS^T in place
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * n + 2 * c4 + (e & 1);
-          const int key = key0 + 8 * (e >> 1);
-          mma_p_ds(s[n][e], dp[n][e], Ls[col], Dl[col],
-                   scored(q0 + col, key, S, Sk, causal, window), rsd, cap);
-        }
-      // dV += P^T dO and dK += dS^T Q, over the 32 queries
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        uint32_t pa[4], da[4];
-        acc_to_a(s, kk, pa);
-        acc_to_a(dp, kk, da);
-#pragma unroll
-        for (int dn = 0; dn < D / 16; ++dn) {
-          uint32_t of[4], qf[4];
-          ld_b_kn(Os, P, kk * 16, dn * 16, lane, of);
-          mma_bf16(dva[2 * dn], pa, of[0], of[1]);
-          mma_bf16(dva[2 * dn + 1], pa, of[2], of[3]);
-          ld_b_kn(Qs, P, kk * 16, dn * 16, lane, qf);
-          mma_bf16(dka[2 * dn], da, qf[0], qf[1]);
-          mma_bf16(dka[2 * dn + 1], da, qf[2], qf[3]);
-        }
-      }
-      __syncthreads();                   // Qs, Os, Ls, Dl are free
+  wg_query_tiles(k0, G::kOwn, S, causal, window, qt_first, qt_end);
+  const int n_tiles = max(qt_end - qt_first, 0);
+  const int n = group * n_tiles;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      wg::mbar_init(&full[i], 128 + 1);    // the lse copies, the TMA
+      wg::mbar_init(&empty[i], 4 * NWG);
     }
+    wg::mbar_init(&own_full, 1);
   }
-  cp_async_wait<0>();                    // no tile was loaded (no query)
+  __syncthreads();
+  if (threadIdx.x < 128) {                 // the producer
+    wg::setmaxnreg_dec<G::kProducerRegs>();
+    const int p = threadIdx.x;
+    if (p == 0) {
+      wg::mbar_expect_tx(&own_full, 2 * G::kOwnBytes);
+      wg::tma_tile<G::kOwn, D>(Ks, &maps.k, k0, hk, b, &own_full);
+      wg::tma_tile<G::kOwn, D>(Vs, &maps.v, k0, hk, b, &own_full);
+    }
+    for (int i = 0; i < n; ++i) {
+      const int slot = i % kStages;
+      if (i >= kStages) wg::mbar_wait(&empty[slot], (i / kStages - 1) & 1);
+      const int h = hk * group + i / n_tiles;
+      const int q0 = (qt_first + i % n_tiles) * kTile;
+      unsigned char* st = ring + slot * G::kKvStage;
+      if (p == 0) {
+        wg::mbar_expect_tx(&full[slot], 2 * G::kStepBytes);
+        wg::tma_tile<kTile, D>(st, &maps.q, q0, h, b, &full[slot]);
+        wg::tma_tile<kTile, D>(st + G::kStepBytes, &maps.dout, q0, h, b,
+                               &full[slot]);
+      }
+      const long long at = (static_cast<long long>(b) * Hq + h) * S + q0;
+      float* L = reinterpret_cast<float*>(st + 2 * G::kStepBytes);
+      wg::load_floats(L, lse + at, S - q0, kTile, p);
+      wg::load_floats(L + kTile, delta + at, S - q0, kTile, p - kTile);
+      wg::cp_arrive(&full[slot]);        // when this thread's have landed
+    }
+    wg::cp_wait_all();
+    return;
+  }
+  wg::setmaxnreg_inc<G::kConsumerRegs>();
+  const float rcap = kCap ? 1.0f / cap : 0.0f;
+  const int c = (threadIdx.x >> 7) - 1;
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kw0 = k0 + kTile * c;          // this warpgroup's keys
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dka[e] = dva[e] = 0.0f;
+  wg::mbar_wait(&own_full, 0);
+  for (int i = 0; i < n; ++i) {
+    const int slot = i % kStages;
+    const int q0 = (qt_first + i % n_tiles) * kTile;
+    const unsigned char* st = ring + slot * G::kKvStage;
+    wg::mbar_wait(&full[slot], (i / kStages) & 1);
+    // (the products are issued and waited for within one branch: ptxas
+    // serializes wgmma whose wait lies on another path)
+    if (!tile_dead(q0, kw0, S, Sk, causal, window)) {
+      const bool edge = !tile_interior(q0, kw0, S, Sk, causal, window);
+      float s[32], dp[32];
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wg::mma_ss_n64(s, wg::sw128_kmajor<G::kOwn>(Ks, kTile * c, kk),
+                       wg::sw128_kmajor<kTile>(st, 0, kk), kk > 0);
+      wg::commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wg::mma_ss_n64(dp, wg::sw128_kmajor<G::kOwn>(Vs, kTile * c, kk),
+                       wg::sw128_kmajor<kTile>(st + G::kStepBytes, 0, kk),
+                       kk > 0);
+      wg::commit();
+      const float* Ls = reinterpret_cast<const float*>(st + 2 * G::kStepBytes);
+      const float* Dl = Ls + kTile;
+      // P^T and dS^T in place (keys kw0 + 16 warp + g + 8 (r / 2))
+      if constexpr (kCap) {
+        wg::wait<0>();
+        wg::fence_regs(s);
+        wg::fence_regs(dp);
+      } else {
+        wg::wait<1>();                     // S^T (dP^T still running)
+        wg::fence_regs(s);
+      }
+      const int key0 = kw0 + 16 * warp + g;
+      if (edge)
+        kv_elements<true, kCap>(s, dp, Ls, Dl, q0, key0, t4, S, Sk, causal,
+                                window, rsd, cap, rcap);
+      else
+        kv_elements<false, kCap>(s, dp, Ls, Dl, q0, key0, t4, S, Sk, causal,
+                                 window, rsd, cap, rcap);
+      if constexpr (!kCap) {
+        wg::wait<0>();
+        wg::fence_regs(dp);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            dp[4 * j + r] = s[4 * j + r]
+                * (dp[4 * j + r] - Dl[8 * j + 2 * t4 + (r & 1)]) * rsd;
+      }
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wg::acc_to_a(s, kk, pa[kk]);
+        wg::acc_to_a(dp, kk, da[kk]);
+      }
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wg::mma_rs<D>(dva, pa[kk],
+                      wg::sw128_mnmajor<kTile>(st + G::kStepBytes, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wg::mma_rs<D>(dka, da[kk], wg::sw128_mnmajor<kTile>(st, kk), 1);
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_regs(dva);
+      wg::fence_regs(dka);
+    }
+    warp_arrive(&empty[slot]);
+  }
   bf16* dkb = dk + b * sdk.b + hk * sdk.h;
   bf16* dvb = dv + b * sdv.b + hk * sdv.h;
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int col = 8 * n + 2 * c4;
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t4;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int key = key0 + 8 * r;
+      const int key = kw0 + 16 * warp + g + 8 * r;
       if (key >= Sk) continue;
       *reinterpret_cast<__nv_bfloat162*>(dkb + key * sdk.s + col) =
-          __floats2bfloat162_rn(dka[n][2 * r], dka[n][2 * r + 1]);
+          __floats2bfloat162_rn(dka[4 * j + 2 * r], dka[4 * j + 2 * r + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dvb + key * sdv.s + col) =
-          __floats2bfloat162_rn(dva[n][2 * r], dva[n][2 * r + 1]);
+          __floats2bfloat162_rn(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
     }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-fa_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dq, int Hq, int Hkv, int S, int Sk,
-              Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq,
-              int causal, int window, float rsd, float cap) {
-  constexpr int P = bwd_pitch<D>();
-  constexpr int KD = D / 16;
-  constexpr int ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // [kOwn][P]
-  bf16* Os = Qs + kOwn * P;                       // dO
-  bf16* Ks = Os + kOwn * P;                       // [kMmaStep][P]
-  bf16* Vs = Ks + kMmaStep * P;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, c4 = lane & 3;
+// dQ: block (b * Hq + head, row block, key part).  Under causal masking
+// the row blocks go last first (the longest first).  The key range is
+// the part's [z part_keys, (z + 1) part_keys) when part_keys > 0 (a
+// function of Sk alone, kernel.py dq_key_parts), else all keys.  The
+// producer copies the block's Q and dO once, then K and V a key tile a
+// stage (TMA).  Consumer c (rows rw0 .. rw0 + 63): S = Q K^T and dP = dO
+// V^T (both operands K-major), P and dS in place, dQ += dS K (K
+// MN-major).  dQ leaves as bf16, or as the part's float32 partial
+// (dq_part: (parts, B, Hq, S, D)) that dq_fold adds in part order.
+template <int D, int NWG, bool kCap>
+__global__ void __launch_bounds__(WgGeom<D, NWG>::kThreads,
+                                  WgGeom<D, NWG>::kMinBlocks)
+fa_bwd_dq_wg(const __grid_constant__ Maps maps,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             bf16* __restrict__ dq, float* __restrict__ dq_part, int Hq,
+             int Hkv, int S, int Sk, Strides sdq, int causal, int window,
+             float rsd, float cap, int part_keys) {
+  using G = WgGeom<D, NWG>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[kStages], empty[kStages], own_full;
+  unsigned char* Qs = align_1k(smem_raw);
+  unsigned char* Os = Qs + G::kOwnBytes;
+  unsigned char* ring = Os + G::kOwnBytes;
   const int h = blockIdx.x % Hq;
   const int b = blockIdx.x / Hq;
   const int hk = h / (Hq / Hkv);
-  const int q0 = blockIdx.y * kOwn;
+  const int rb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = rb * G::kOwn;
+  const int key_lo = part_keys > 0 ? blockIdx.z * part_keys : 0;
+  const int key_hi = part_keys > 0 ? min(Sk, key_lo + part_keys) : Sk;
+  const int n_keys = min(causal ? min(Sk, q0 + G::kOwn) : Sk, key_hi);
+  const int t_first = max(
+      window > 0 ? max(q0 - window + 1, 0) / kTile : 0, key_lo / kTile);
+  const int n = max((n_keys + kTile - 1) / kTile - t_first, 0);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      wg::mbar_init(&full[i], 1);
+      wg::mbar_init(&empty[i], 4 * NWG);
+    }
+    wg::mbar_init(&own_full, 1);
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {                 // the producer: one thread
+    wg::setmaxnreg_dec<G::kProducerRegs>();
+    if (threadIdx.x != 0) return;
+    wg::mbar_expect_tx(&own_full, 2 * G::kOwnBytes);
+    wg::tma_tile<G::kOwn, D>(Qs, &maps.q, q0, h, b, &own_full);
+    wg::tma_tile<G::kOwn, D>(Os, &maps.dout, q0, h, b, &own_full);
+    for (int i = 0; i < n; ++i) {
+      const int slot = i % kStages;
+      if (i >= kStages)
+        wg::mbar_wait(&empty[slot], (i / kStages - 1) & 1);
+      const int c0 = (t_first + i) * kTile;
+      unsigned char* st = ring + slot * G::kQStage;
+      wg::mbar_expect_tx(&full[slot], 2 * G::kStepBytes);
+      wg::tma_tile<kTile, D>(st, &maps.k, c0, hk, b, &full[slot]);
+      wg::tma_tile<kTile, D>(st + G::kStepBytes, &maps.v, c0, hk, b,
+                             &full[slot]);
+    }
+    return;
+  }
+  wg::setmaxnreg_inc<G::kConsumerRegs>();
+  const float rcap = kCap ? 1.0f / cap : 0.0f;
+  const int c = (threadIdx.x >> 7) - 1;
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rw0 = q0 + kTile * c;          // this warpgroup's rows
+  const int row0 = rw0 + 16 * warp + g;    // this thread's: +0, +8
   const long long lrow = static_cast<long long>(blockIdx.x) * S;
-  mma_rows<D>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, kOwn);
-  mma_rows<D>(Os, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S, kOwn);
-  cp_async_commit();
-  const int row0 = q0 + warp * 16 + g;   // this thread's rows: +0, +8
   float lg[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -622,81 +845,159 @@ fa_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     lg[r] = row < S ? lse[lrow + row] * kLog2e : 0.0f;
     dl[r] = row < S ? delta[lrow + row] : 0.0f;
   }
-  float acc[ND][4];
+  float acc[D / 2];
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.0f;
+  wg::mbar_wait(&own_full, 0);
+  for (int i = 0; i < n; ++i) {
+    const int slot = i % kStages;
+    const int c0 = (t_first + i) * kTile;
+    const unsigned char* st = ring + slot * G::kQStage;
+    wg::mbar_wait(&full[slot], (i / kStages) & 1);
+    // (the products are issued and waited for within one branch: ptxas
+    // serializes wgmma whose wait lies on another path)
+    if (!tile_dead(rw0, c0, S, Sk, causal, window)) {
+      const bool edge = !tile_interior(rw0, c0, S, Sk, causal, window);
+      float s[32], dp[32];
+      wg::fence();
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-  const bf16* kb = k + b * sk.b + hk * sk.h;
-  const bf16* vb = v + b * sv.b + hk * sv.h;
-  int t_first, t_end;
-  key_tiles(q0, kMmaStep, Sk, causal, window, t_first, t_end);
-  for (int t = t_first; t < t_end; ++t) {
-    const int k0 = t * kMmaStep;
-    mma_rows<D>(Ks, kb, sk.s, k0, Sk, kMmaStep);
-    mma_rows<D>(Vs, vb, sv.s, k0, Sk, kMmaStep);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();                     // the tiles are in shared memory
-    // S = Q K^T and dP = dO V^T: 16 rows x 32 keys a warp
-    float s[4][4], dp[4][4];
+      for (int kk = 0; kk < D / 16; ++kk)
+        wg::mma_ss_n64(s, wg::sw128_kmajor<G::kOwn>(Qs, kTile * c, kk),
+                       wg::sw128_kmajor<kTile>(st, 0, kk), kk > 0);
+      wg::commit();
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t qa[4], oa[4];
-      ld_a(Qs, P, warp * 16, kk * 16, lane, qa);
-      ld_a(Os, P, warp * 16, kk * 16, lane, oa);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t kf[4], vf[4];
-        ld_b_nk(Ks, P, np * 16, kk * 16, lane, kf);
-        ld_b_nk(Vs, P, np * 16, kk * 16, lane, vf);
-        mma_bf16(s[2 * np], qa, kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qa, kf[2], kf[3]);
-        mma_bf16(dp[2 * np], oa, vf[0], vf[1]);
-        mma_bf16(dp[2 * np + 1], oa, vf[2], vf[3]);
+      for (int kk = 0; kk < D / 16; ++kk)
+        wg::mma_ss_n64(dp, wg::sw128_kmajor<G::kOwn>(Os, kTile * c, kk),
+                       wg::sw128_kmajor<kTile>(st + G::kStepBytes, 0, kk),
+                       kk > 0);
+      wg::commit();
+      // P and dS in place
+      if constexpr (kCap) {
+        wg::wait<0>();
+        wg::fence_regs(s);
+        wg::fence_regs(dp);
+      } else {
+        wg::wait<1>();                     // S (dP still running)
+        wg::fence_regs(s);
       }
+      if (edge)
+        q_elements<true, kCap>(s, dp, lg, dl, row0, c0, t4, S, Sk, causal,
+                               window, rsd, cap, rcap);
+      else
+        q_elements<false, kCap>(s, dp, lg, dl, row0, c0, t4, S, Sk, causal,
+                                window, rsd, cap, rcap);
+      if constexpr (!kCap) {
+        wg::wait<0>();
+        wg::fence_regs(dp);
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          dp[e] = s[e] * (dp[e] - dl[(e >> 1) & 1]) * rsd;
+      }
+      uint32_t da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wg::acc_to_a(dp, kk, da[kk]);
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wg::mma_rs<D>(acc, da[kk], wg::sw128_mnmajor<kTile>(st, kk), 1);
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_regs(acc);
     }
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * n + 2 * c4 + (e & 1);
-        const int row = row0 + 8 * (e >> 1);
-        mma_p_ds(s[n][e], dp[n][e], lg[e >> 1], dl[e >> 1],
-                 scored(row, key, S, Sk, causal, window), rsd, cap);
-      }
-    // dQ += dS K, over the 32 keys
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      uint32_t da[4];
-      acc_to_a(dp, kk, da);
-#pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
-        uint32_t kf[4];
-        ld_b_kn(Ks, P, kk * 16, dn * 16, lane, kf);
-        mma_bf16(acc[2 * dn], da, kf[0], kf[1]);
-        mma_bf16(acc[2 * dn + 1], da, kf[2], kf[3]);
-      }
-    }
-    __syncthreads();                     // Ks, Vs are free
+    warp_arrive(&empty[slot]);
   }
-  cp_async_wait<0>();
+  if (dq_part != nullptr) {
+    float* out = dq_part + (static_cast<long long>(blockIdx.z) * gridDim.x
+                            + blockIdx.x) * S * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 8 * r;
+        if (row < S)
+          *reinterpret_cast<float2*>(out + static_cast<long long>(row) * D
+                                     + 8 * j + 2 * t4) =
+              make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      }
+    return;
+  }
   bf16* dqb = dq + b * sdq.b + h * sdq.h;
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int col = 8 * n + 2 * c4;
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t4;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
       if (row >= S) continue;
       *reinterpret_cast<__nv_bfloat162*>(dqb + row * sdq.s + col) =
-          __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
+          __floats2bfloat162_rn(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
     }
   }
+}
+
+// delta for bf16: each row's 16-byte pieces over D / 8 lanes (2 rows a
+// warp at D = 128, 4 at 64), float32 products, a fixed shuffle tree
+template <int D>
+__global__ void __launch_bounds__(256)
+fa_bwd_delta_bf16(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                  float* __restrict__ delta, int Hq, int S,
+                  long long n_rows, Strides so, Strides sdo) {
+  constexpr int kLanesRow = D / 8;
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      (static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5))
+          * (32 / kLanesRow) + lane / kLanesRow;
+  const int piece = lane % kLanesRow;
+  float acc = 0.0f;
+  if (row < n_rows) {
+    const int i = static_cast<int>(row % S);
+    const long long bh = row / S;
+    const int h = static_cast<int>(bh % Hq);
+    const long long b = bh / Hq;
+    const uint4 a = *reinterpret_cast<const uint4*>(
+        o + b * so.b + h * so.h + i * so.s + 8 * piece);
+    const uint4 c = *reinterpret_cast<const uint4*>(
+        dout + b * sdo.b + h * sdo.h + i * sdo.s + 8 * piece);
+    const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* pc = reinterpret_cast<const __nv_bfloat162*>(&c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = __bfloat1622float2(pa[e]);
+      const float2 y = __bfloat1622float2(pc[e]);
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
+    }
+  }
+#pragma unroll
+  for (int off = kLanesRow / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < n_rows && piece == 0) delta[row] = acc;
+}
+
+// dq = the parts' float32 partials added in part order, rounded to bf16;
+// a thread a pair of columns
+__global__ void dq_fold(const float* __restrict__ part, bf16* __restrict__ dq,
+                        int parts, int Hq, int S, int D, Strides sdq,
+                        long long n_pairs) {
+  const long long m = static_cast<long long>(blockIdx.x) * blockDim.x
+                      + threadIdx.x;
+  if (m >= n_pairs) return;
+  const long long plane = 2 * n_pairs;
+  const long long e = 2 * m;
+  const int d = static_cast<int>(e % D);
+  const long long row = e / D;
+  const int i = static_cast<int>(row % S);
+  const long long bh = row / S;
+  const int h = static_cast<int>(bh % Hq);
+  const long long b = bh / Hq;
+  float2 s = *reinterpret_cast<const float2*>(part + e);
+  for (int p = 1; p < parts; ++p) {
+    const float2 x = *reinterpret_cast<const float2*>(part + p * plane + e);
+    s.x = __fadd_rn(s.x, x.x);
+    s.y = __fadd_rn(s.y, x.y);
+  }
+  *reinterpret_cast<__nv_bfloat162*>(dq + b * sdq.b + h * sdq.h + i * sdq.s
+                                     + d) = __floats2bfloat162_rn(s.x, s.y);
 }
 
 // ------------------------------------------------------------ launchers
@@ -720,7 +1021,8 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
                    float* delta, void* dq, void* dk, void* dv, int B, int Hq,
                    int Hkv, int S, int Sk, const long long* st, int causal,
-                   int window, float cap, void* stream_ptr) {
+                   int window, float cap, float* /*dq_part*/,
+                   int /*part_keys*/, void* stream_ptr) {
   const auto stream = static_cast<cudaStream_t>(stream_ptr);
   int rc = launch_delta<float>(o, dout, delta, B, Hq, S, D, st, stream);
   if (rc) return rc;
@@ -750,38 +1052,125 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr int kSms = 132;            // an H100's SMs: a grid below
+                                     // this takes one warpgroup a block
+
+template <int D, int NWG, bool kCap>
+cudaError_t launch_dkdv(const Maps& maps, const float* lse,
+                        const float* delta, bf16* dk, bf16* dv, int B,
+                        int Hq, int Hkv, int S, int Sk, const long long* st,
+                        int causal, int window, float rsd, float cap,
+                        cudaStream_t stream) {
+  using G = WgGeom<D, NWG>;
+  static bool opted[kMaxDevices] = {};
+  cudaError_t err = opt_in(fa_bwd_dkdv_wg<D, NWG, kCap>, G::kKvSmem, opted);
+  if (err != cudaSuccess) return err;
+  fa_bwd_dkdv_wg<D, NWG, kCap>
+      <<<dim3(B * Hkv, (Sk + G::kOwn - 1) / G::kOwn), G::kThreads,
+         G::kKvSmem, stream>>>(maps, lse, delta, dk, dv, Hq, Hkv, S, Sk,
+                               strides_of(st, 6), strides_of(st, 7), causal,
+                               window, rsd, cap);
+  return cudaGetLastError();
+}
+
+template <int D, int NWG, bool kCap>
+cudaError_t launch_dq(const Maps& maps, const float* lse, const float* delta,
+                      bf16* dq, float* dq_part, int parts, int part_keys,
+                      int B, int Hq, int Hkv, int S, int Sk,
+                      const long long* st, int causal, int window, float rsd,
+                      float cap, cudaStream_t stream) {
+  using G = WgGeom<D, NWG>;
+  static bool opted[kMaxDevices] = {};
+  cudaError_t err = opt_in(fa_bwd_dq_wg<D, NWG, kCap>, G::kQSmem, opted);
+  if (err != cudaSuccess) return err;
+  fa_bwd_dq_wg<D, NWG, kCap>
+      <<<dim3(B * Hq, (S + G::kOwn - 1) / G::kOwn, parts), G::kThreads,
+         G::kQSmem, stream>>>(maps, lse, delta, dq,
+                              parts > 1 ? dq_part : nullptr, Hq, Hkv, S, Sk,
+                              strides_of(st, 5), causal, window, rsd, cap,
+                              parts > 1 ? part_keys : 0);
+  return cudaGetLastError();
+}
+
+// the two kernels with one warpgroup or two a block, with the cap or not
+template <int D, bool kCap>
+cudaError_t launch_wg(const Maps& maps, const float* lse, const float* delta,
+                      bf16* dq, bf16* dk, bf16* dv, float* dq_part,
+                      int parts, int part_keys, int B, int Hq, int Hkv,
+                      int S, int Sk, const long long* st, int causal,
+                      int window, float rsd, float cap,
+                      cudaStream_t stream) {
+  // two consumer warpgroups a block where that leaves a block for every
+  // SM, else one (a row's arithmetic is the same either way)
+  const bool kv2 = static_cast<long long>(B) * Hkv * ((Sk + 127) / 128)
+                   >= kSms;
+  cudaError_t err =
+      kv2 ? launch_dkdv<D, 2, kCap>(maps, lse, delta, dk, dv, B, Hq, Hkv, S,
+                                    Sk, st, causal, window, rsd, cap, stream)
+          : launch_dkdv<D, 1, kCap>(maps, lse, delta, dk, dv, B, Hq, Hkv, S,
+                                    Sk, st, causal, window, rsd, cap,
+                                    stream);
+  if (err != cudaSuccess) return err;
+  const bool q2 = static_cast<long long>(B) * Hq * ((S + 127) / 128) * parts
+                  >= kSms;
+  return q2 ? launch_dq<D, 2, kCap>(maps, lse, delta, dq, dq_part, parts,
+                                    part_keys, B, Hq, Hkv, S, Sk, st, causal,
+                                    window, rsd, cap, stream)
+            : launch_dq<D, 1, kCap>(maps, lse, delta, dq, dq_part, parts,
+                                    part_keys, B, Hq, Hkv, S, Sk, st, causal,
+                                    window, rsd, cap, stream);
+}
+
 template <int D>
 int launch_bwd_bf16(const void* q, const void* k, const void* v,
                     const void* o, const void* dout, const float* lse,
                     float* delta, void* dq, void* dk, void* dv, int B,
                     int Hq, int Hkv, int S, int Sk, const long long* st,
-                    int causal, int window, float cap, void* stream_ptr) {
+                    int causal, int window, float cap, float* dq_part,
+                    int part_keys, void* stream_ptr) {
   const auto stream = static_cast<cudaStream_t>(stream_ptr);
-  int rc = launch_delta<bf16>(o, dout, delta, B, Hq, S, D, st, stream);
-  if (rc) return rc;
-  const int smem = mma_bwd_smem_bytes<D>();
-  static bool opted_kv[kMaxDevices] = {}, opted_q[kMaxDevices] = {};
-  cudaError_t err = opt_in(fa_bwd_dkdv_mma<D>, smem, opted_kv);
-  if (err == cudaSuccess) err = opt_in(fa_bwd_dq_mma<D>, smem, opted_q);
+  const int parts = part_keys > 0 ? (Sk + part_keys - 1) / part_keys : 1;
+  if (part_keys < 0 || part_keys % kTile ||
+      (parts > 1 && (causal || dq_part == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // libcuda's encoder makes the tensor maps, and needs the tensors'
+  // context current on this thread: autograd runs a backward on a thread
+  // of its own, where no runtime call may have made it so yet
+  cudaPointerAttributes where;
+  cudaError_t err = cudaPointerGetAttributes(&where, q);
+  if (err == cudaSuccess) err = cudaSetDevice(where.device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Maps maps;
+  const Strides sq = strides_of(st, 0), sk = strides_of(st, 1),
+                sv = strides_of(st, 2), sdo = strides_of(st, 4);
+  if (!wg::bf16_map(&maps.q, q, B, Hq, S, D, sq.b, sq.h, sq.s) ||
+      !wg::bf16_map(&maps.k, k, B, Hkv, Sk, D, sk.b, sk.h, sk.s) ||
+      !wg::bf16_map(&maps.v, v, B, Hkv, Sk, D, sv.b, sv.h, sv.s) ||
+      !wg::bf16_map(&maps.dout, dout, B, Hq, S, D, sdo.b, sdo.h, sdo.s))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_rows = static_cast<long long>(B) * Hq * S;
+  const long long n_warps = (n_rows + 32 / (D / 8) - 1) / (32 / (D / 8));
+  fa_bwd_delta_bf16<D><<<static_cast<unsigned>((n_warps + 7) / 8), 256, 0,
+                         stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta,
+      Hq, S, n_rows, strides_of(st, 3), strides_of(st, 4));
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const float rsd = 1.0f / sqrtf(static_cast<float>(D));
-  const auto* qb = static_cast<const bf16*>(q);
-  const auto* kb = static_cast<const bf16*>(k);
-  const auto* vb = static_cast<const bf16*>(v);
-  const auto* db = static_cast<const bf16*>(dout);
-  fa_bwd_dkdv_mma<D><<<dim3(B * Hkv, (Sk + kOwn - 1) / kOwn), kMmaThreads,
-                       smem, stream>>>(
-      qb, kb, vb, db, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), Hq, Hkv, S, Sk, strides_of(st, 0),
-      strides_of(st, 1), strides_of(st, 2), strides_of(st, 4),
-      strides_of(st, 6), strides_of(st, 7), causal, window, rsd, cap);
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc) return rc;
-  fa_bwd_dq_mma<D><<<dim3(B * Hq, (S + kOwn - 1) / kOwn), kMmaThreads, smem,
-                     stream>>>(
-      qb, kb, vb, db, lse, delta, static_cast<bf16*>(dq), Hq, Hkv, S, Sk,
-      strides_of(st, 0), strides_of(st, 1), strides_of(st, 2),
-      strides_of(st, 4), strides_of(st, 5), causal, window, rsd, cap);
+  auto* dqb = static_cast<bf16*>(dq);
+  err = cap > 0.0f
+          ? launch_wg<D, true>(maps, lse, delta, dqb, static_cast<bf16*>(dk),
+                               static_cast<bf16*>(dv), dq_part, parts,
+                               part_keys, B, Hq, Hkv, S, Sk, st, causal,
+                               window, rsd, cap, stream)
+          : launch_wg<D, false>(maps, lse, delta, dqb, static_cast<bf16*>(dk),
+                                static_cast<bf16*>(dv), dq_part, parts,
+                                part_keys, B, Hq, Hkv, S, Sk, st, causal,
+                                window, rsd, cap, stream);
+  if (err != cudaSuccess || parts == 1) return static_cast<int>(err);
+  const long long n_pairs = static_cast<long long>(B) * Hq * S * D / 2;
+  dq_fold<<<static_cast<unsigned>((n_pairs + 255) / 256), 256, 0, stream>>>(
+      dq_part, dqb, parts, Hq, S, D, strides_of(st, 5), n_pairs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -789,20 +1178,26 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
 
 // S: query rows, Sk: keys; lse: the forward's (B, Hq, S) float32; delta:
 // (B, Hq, S) float32 scratch; strides: 24 int64 (see launch_delta);
-// window: 0 for none.  dq, dk, dv are written whole (no accumulation).
+// window: 0 for none; dq_part, part_keys: bf16 only, the dQ key split
+// (kernel.py dq_key_parts): part_keys > 0 (a multiple of 64, non-causal
+// only) splits the keys into parts of that many, whose float32 partials
+// go to dq_part (ceil(Sk / part_keys), B, Hq, S, D) and are folded in
+// order; 0: no split (dq_part unused).  dq, dk, dv are written whole.
 #define FA_BWD_ENTRY(NAME, LAUNCH)                                           \
   extern "C" int NAME(const void* q, const void* k, const void* v,           \
                       const void* o, const void* dout, const float* lse,     \
                       float* delta, void* dq, void* dk, void* dv, int B,     \
                       int Hq, int Hkv, int S, int Sk,                        \
                       const long long* strides, int causal, int window,      \
-                      float cap, void* stream) {                             \
+                      float cap, float* dq_part, int part_keys,              \
+                      void* stream) {                                        \
     if (B <= 0 || S <= 0 || Hq <= 0) return 0;                               \
     if (Sk <= 0 || Hkv <= 0 || Hq % Hkv || (causal && Sk != S) ||            \
         (window > 0 && !causal))                                             \
       return static_cast<int>(cudaErrorInvalidValue);                        \
     return LAUNCH(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, S,   \
-                  Sk, strides, causal, window, cap, stream);                 \
+                  Sk, strides, causal, window, cap, dq_part, part_keys,      \
+                  stream);                                                   \
   }
 
 FA_BWD_ENTRY(fa_bwd_launch_f32_d64, launch_bwd_f32<64>)

@@ -44,12 +44,21 @@ __device__ __forceinline__ float ss_abar(float dt, float a) {
   return expf(__fmul_rn(dt, a));
 }
 
+// one state's step given its decay ab = ss_abar(dt, a): uncontracted
+// multiplies and add, as the plain version steps it
+__device__ __forceinline__ float ss_step_abar(float h, float ab, float dx,
+                                              float b) {
+  return __fadd_rn(__fmul_rn(ab, h), __fmul_rn(dx, b));
+}
+
 // one state's step, h_t = exp(dt a) h_{t-1} + (dt x) B_t: the IEEE expf
 // (the build has no fast math) and uncontracted multiplies and add, as
-// the plain version steps it, so every caller gets the same bits
+// the plain version steps it, so every caller gets the same bits (the
+// backward, which keeps each decay for its walk, takes ss_abar and
+// ss_step_abar apart)
 __device__ __forceinline__ float ss_step(float h, float dt, float dx,
                                          float a, float b) {
-  return __fadd_rn(__fmul_rn(ss_abar(dt, a), h), __fmul_rn(dx, b));
+  return ss_step_abar(h, ss_abar(dt, a), dx, b);
 }
 
 }  // namespace

@@ -24,7 +24,28 @@ _ARGS = (build.PTR,) * 4 + (build.INT,) * 5 + (
 _BWD_ENTRY = {key: name.replace("fa_launch", "fa_bwd_launch")
               for key, name in _ENTRY.items()}
 _BWD_ARGS = (build.PTR,) * 10 + (build.INT,) * 5 + (
-    build.PTR, build.INT, build.INT, ctypes.c_float, build.PTR)
+    build.PTR, build.INT, build.INT, ctypes.c_float, build.PTR, build.INT,
+    build.PTR)
+
+KEY_TILE = 64          # keys a tile of the backward kernels (csrc kTile)
+DQ_PART_KEYS = 512     # the most keys a part of dQ's key split holds
+
+
+def dq_key_parts(sk: int, causal: bool, dtype) -> list:
+    """The backward's dQ key split: [(start, end), ...] covering [0, sk)
+    in order, without overlap.  The bfloat16 kernels split a non-causal
+    call with more than ``DQ_PART_KEYS`` keys into ceil(sk /
+    DQ_PART_KEYS) parts of equal whole 64-key tiles (the last one
+    short); every other call (causal, few keys, or float32, whose SIMT
+    kernels do not split) is one part.  A function of sk alone, never of
+    the batch, the heads or the query length, so a row's dq does not
+    depend on what else is computed with it."""
+    if dtype != torch.bfloat16 or causal or sk <= DQ_PART_KEYS:
+        return [(0, sk)]
+    tiles = -(-sk // KEY_TILE)
+    n = -(-sk // DQ_PART_KEYS)
+    per = -(-tiles // n) * KEY_TILE
+    return [(a, min(sk, a + per)) for a in range(0, sk, per)]
 
 
 def _check(x: torch.Tensor, what: str, dtype, shape, dev):
@@ -168,8 +189,13 @@ def flash_attention_bwd_kernel(q, k, v, out, dout, lse, *, causal=True,
     each in its input's dtype and layout.  CUDA tensors only (the CPU's
     gradient is autograd through the plain version): the delta pre-pass,
     the dK/dV kernel and the dQ kernel on the current stream, float32 on
-    the SIMT kernels, bfloat16 on the tensor cores (P and dS rounded to
-    bfloat16 for their products).  Deterministic: no atomics."""
+    the SIMT kernels, bfloat16 on warpgroups of the tensor cores (wgmma;
+    P and dS rounded to bfloat16 for their products), where a
+    non-causal call with more than 512 keys splits dQ's keys by
+    ``dq_key_parts`` (float32 partials, then a fold in part order; the
+    algorithm is ``flash_attention_bwd_ref``).  Deterministic: no
+    atomics.  ``flash_attention_bwd_kernel.dq_parts`` holds the parts of
+    the last launch."""
     window = _check_options(q, k, causal, window)
     b, hq, hkv, s, sk, d = _check_cuda(q, k, v)
     dev = q.device
@@ -180,6 +206,10 @@ def flash_attention_bwd_kernel(q, k, v, out, dout, lse, *, causal=True,
                        shape=(b, hq, s), device=dev)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     delta = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+    parts = dq_key_parts(sk, causal, q.dtype)
+    part_keys = parts[0][1] if len(parts) > 1 else 0
+    dq_part = (torch.empty((len(parts), b, hq, s, d), dtype=torch.float32,
+                           device=dev) if part_keys else None)
     strides = _strides(q, k, v, out, dout, dq, dk, dv)
     fn = build.c_function(_BWD_ENTRY[(q.dtype, d)], _BWD_ARGS)
     with torch.cuda.device(dev):
@@ -187,13 +217,17 @@ def flash_attention_bwd_kernel(q, k, v, out, dout, lse, *, causal=True,
                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, s,
                 sk, ctypes.addressof(strides), int(bool(causal)), window,
-                float(logit_cap or 0.0), build.stream_ptr(dev))
+                float(logit_cap or 0.0),
+                None if dq_part is None else dq_part.data_ptr(), part_keys,
+                build.stream_ptr(dev))
     build.check_launch(rc, "flash_attention_bwd")
     flash_attention_bwd_kernel.launches += 1
+    flash_attention_bwd_kernel.dq_parts = len(parts)
     return dq, dk, dv
 
 
 flash_attention_bwd_kernel.launches = 0
+flash_attention_bwd_kernel.dq_parts = 0
 
 
 class FlashAttention(torch.autograd.Function):

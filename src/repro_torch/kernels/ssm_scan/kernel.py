@@ -26,10 +26,38 @@ _BWD_ENTRY = {k: v.replace("ss_launch", "ssb_launch")
 _BWD_ARGS = (build.PTR,) * 17 + (build.INT,) * 5 + (build.PTR,)
 
 
+BWD_CLUSTER = 8                   # blocks whose dB/dC one part sums
+
+
+def bwd_lanes(n: int) -> int:
+    """Threads sharing a channel's states in the backward (two states a
+    thread, at least four lanes): 4 up to N = 8, then 8, 16, 32."""
+    return 4 if n <= 8 else 8 if n <= 16 else 16 if n <= 32 else 32
+
+
 def bwd_channels(n: int) -> int:
-    """Channels a block of the backward holds (csrc/selective_scan_bwd.cu
-    ``Geom``): 32, or 16 where a thread holds 16 states."""
-    return 16 if n > 32 else 32
+    """Channels whose dB/dC partial sums one part of the backward's
+    scratch holds (csrc/selective_scan_bwd.cu): a cluster of BWD_CLUSTER
+    blocks of 128 / bwd_lanes(n) channels (128 channels at N = 16)."""
+    return BWD_CLUSTER * (128 // bwd_lanes(n))
+
+
+def bwd_scratch_shapes(bsz: int, seq: int, d: int, n: int) -> dict:
+    """The float32 scratch the backward's wrapper allocates: the dB and dC
+    partials, (parts, B, L, N) each with parts = ceil(D / bwd_channels),
+    and dA's per-row sums, (B, D, N)."""
+    parts = -(-d // bwd_channels(n))
+    return {"part_b": (parts, bsz, seq, n), "part_c": (parts, bsz, seq, n),
+            "part_a": (bsz, d, n)}
+
+
+def bwd_blocks_per_sm(dt_dtype, x_dtype, n: int) -> int:
+    """Blocks of the backward kernel that fit on one SM of the current
+    card (cudaOccupancyMaxActiveBlocksPerMultiprocessor with its shared
+    memory): CUDA only, builds the kernels."""
+    fn = build.c_function("ssb_blocks_per_sm", (build.INT,) * 3)
+    return fn(int(dt_dtype == torch.bfloat16),
+              int(x_dtype == torch.bfloat16), n)
 
 
 def _check(dt, x, b_mat, c_mat, a, h0=None):
@@ -130,15 +158,15 @@ def selective_scan_bwd_kernel(dt, x, b_mat, c_mat, a, h_chunk, dy,
     if dh_last is not None:
         build.check_tensor(dh_last, "dh_last", dtype=f32, shape=(bsz, d, n),
                            device=dev)
-    parts = -(-d // bwd_channels(n))
+    scratch = bwd_scratch_shapes(bsz, seq, d, n)
+    parts = scratch["part_b"][0]
     ddt, dx = torch.empty_like(dt), torch.empty_like(x)
     db, dc = (torch.empty((bsz, seq, n), dtype=f32, device=dev)
               for _ in range(2))
     da = torch.empty((d, n), dtype=f32, device=dev)
     dh0 = torch.empty((bsz, d, n), dtype=f32, device=dev)
-    part_b, part_c = (torch.empty((parts, bsz, seq, n), dtype=f32,
-                                  device=dev) for _ in range(2))
-    part_a = torch.empty((bsz, d, n), dtype=f32, device=dev)
+    part_b, part_c, part_a = (torch.empty(shape, dtype=f32, device=dev)
+                              for shape in scratch.values())
     fn = build.c_function(_BWD_ENTRY[(dt.dtype, x.dtype)], _BWD_ARGS)
     with torch.cuda.device(dev):
         rc = fn(dt.data_ptr(), x.data_ptr(), b_mat.data_ptr(),

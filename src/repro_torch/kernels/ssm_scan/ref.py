@@ -34,13 +34,16 @@ def selective_scan_bwd_ref(dt, x, b_mat, c_mat, a, h0, dy, dh_last, *,
     """The gradient of ``selective_scan_ref`` by the backward kernel's
     algorithm (``csrc/selective_scan_bwd.cu``): the forward steps ``h``
     and keeps the state entering every ``chunk``-th step; then, from the
-    last chunk, each chunk's states are recomputed from its checkpoint
-    and the chunk is walked backwards with ``g``, the gradient of the
-    state (``dh_last``, or zero, at the start).  ``dy``: (B, L, D), the
-    gradient of y (None: zero).  -> (ddt in dt's dtype, dx in x's, dB,
-    dC (B, L, N), dA (D, N), dh0 (B, D, N) float32); dB and dC summed
-    over the channels, dA over the steps of each batch row, then over
-    the rows in order.  Never divides by exp(dt A), which underflows."""
+    last chunk, each chunk's states are recomputed from its checkpoint,
+    taking each decay exp(dt A) once and keeping it for the walk; dC of
+    the chunk is summed over the channels from those states; the chunk is
+    walked backwards with ``g``, the gradient of the state (``dh_last``,
+    or zero, at the start), keeping each step's g; and dB of the chunk is
+    summed over the channels from them.  ``dy``: (B, L, D), the gradient
+    of y (None: zero).  -> (ddt in dt's dtype, dx in x's, dB, dC (B, L,
+    N), dA (D, N), dh0 (B, D, N) float32); dA summed over the steps of
+    each batch row, then over the rows in order.  Never divides by
+    exp(dt A), which underflows."""
     dtf = dt.float()
     xf = x.float()
     dxf = dtf * xf
@@ -63,22 +66,27 @@ def selective_scan_bwd_ref(dt, x, b_mat, c_mat, a, h0, dy, dh_last, *,
     da_rows = torch.zeros_like(h)
     for k in reversed(range(len(ckpt))):
         t0, t1 = k * chunk, min(seq, (k + 1) * chunk)
-        hs = [ckpt[k]]
+        # recompute: the states and the decays, each exponential once
+        hs, abars = [ckpt[k]], []
         for t in range(t0, t1):
-            hs.append(torch.exp(dtf[:, t, :, None] * af[None]) * hs[-1]
+            abars.append(torch.exp(dtf[:, t, :, None] * af[None]))
+            hs.append(abars[-1] * hs[-1]
                       + dxf[:, t, :, None] * bf[:, t, None, :])
-        for t in reversed(range(t0, t1)):
-            h_prev, h_t = hs[t - t0], hs[t - t0 + 1]
-            abar = torch.exp(dtf[:, t, :, None] * af[None])
+        for t in range(t0, t1):                 # dC from the states
+            dc[:, t] = (dyf[:, t, :, None] * hs[t - t0 + 1]).sum(dim=1)
+        gs = [None] * (t1 - t0)
+        for t in reversed(range(t0, t1)):       # the walk back
+            h_prev, abar = hs[t - t0], abars[t - t0]
             g = g + dyf[:, t, :, None] * cf[:, t, None, :]
-            dc[:, t] = (dyf[:, t, :, None] * h_t).sum(dim=1)
-            db[:, t] = (g * dxf[:, t, :, None]).sum(dim=1)
+            gs[t - t0] = g
             s = (g * bf[:, t, None, :]).sum(dim=-1)
             dx[:, t] = s * dtf[:, t]
             gh = g * h_prev * abar
             ddt[:, t] = s * xf[:, t] + (gh * af[None]).sum(dim=-1)
             da_rows = da_rows + gh * dtf[:, t, :, None]
             g = abar * g
+        for t in range(t0, t1):                 # dB from the walk's g
+            db[:, t] = (gs[t - t0] * dxf[:, t, :, None]).sum(dim=1)
     da = da_rows[0].clone() if bsz else torch.zeros_like(af)
     for i in range(1, bsz):
         da = da + da_rows[i]

@@ -747,6 +747,50 @@ def test_cuda_selective_scan_backward_matches_plain(dtypes, n, seq,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 16, 17, 33, 64])
+@pytest.mark.parametrize("d", [75, 200])
+@pytest.mark.parametrize("seq", [1, 31, 33, 1000])
+def test_cuda_selective_scan_backward_edges(seq, d, n):
+    """B10's backward at its edges: L of one step, one short of a chunk,
+    one past it and many chunks; D not a multiple of a block's channels
+    (75: odd, staged element by element; 200: even, staged by 16-byte
+    pieces); N of 1, 16 and just past 16 and 32 (8, 16 and 32 lanes a
+    channel) and 64; dt float32 with x bf16 (as trained), with dh_last
+    and h0.  The six gradients against autograd through the plain
+    version (float32 1e-5, bf16 SCAN_BWD_BF16_TOL of the largest), two
+    runs torch.equal."""
+    dev = _cuda()
+    args = [torch.from_numpy(v).to(dev)
+            for v in _scan_case(9, b=2, seq=seq, d=d, n=n)]
+    args[1] = args[1].to(torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(seq + 1000 * n + d)
+    dy = torch.randn(args[1].shape, generator=gen,
+                     device=dev).to(torch.bfloat16)
+    dh = torch.randn(args[5].shape, generator=gen, device=dev)
+    got = _scan_grads(selective_scan, args, dy, dh)
+    again = _scan_grads(selective_scan, args, dy, dh)
+    want = _scan_grads(selective_scan_ref, args, dy, dh)
+    torch.cuda.synchronize()
+    for name, g, r, w in zip(("ddt", "dx", "dB", "dC", "dA", "dh0"), got,
+                             again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, r), name
+        tol = (SCAN_BWD_TOL if g.dtype == torch.float32
+               else SCAN_BWD_BF16_TOL)
+        assert _rel(g, w) <= tol, (name, _rel(g, w))
+
+
+@pytest.mark.gpu
+def test_cuda_selective_scan_backward_fits_four_blocks_an_sm():
+    """At N = 16 with x in bf16 (the hybrid's training step) the backward
+    kernel fits four blocks (16 warps) on an SM, its shared memory
+    included."""
+    from repro_torch.kernels.ssm_scan.kernel import bwd_blocks_per_sm
+    _cuda()
+    assert bwd_blocks_per_sm(torch.float32, torch.bfloat16, 16) >= 4
+
+
+@pytest.mark.gpu
 def test_cuda_selective_scan_backward_at_the_hybrid_width():
     """The training step's shape, cut to 2 x 256 tokens: (2, 256, 16384,
     16), dt float32 and x bfloat16, as the hybrid's Mamba layers call it;
@@ -1223,6 +1267,106 @@ def test_cuda_flash_attention_backward_matches_plain_gradient(dtype, d,
         assert torch.equal(g, a)
         scale = w.float().abs().max().item() or top
         assert (g.float() - w.float()).abs().max().item() <= tol * scale
+
+
+def _bwd_check(q, k, v, causal, window, cap):
+    """FlashAttention's gradient (bf16) against autograd through the plain
+    version on the same tensors, BF16_BWD_TOL (4 x 2**-8) of each
+    gradient's largest magnitude; where one query or one key makes dq a
+    sum that cancels (one key: dq = dk = 0; one query: sum_k dS_k = 0)
+    it is held to the largest of the three gradients.  A second backward
+    gives the same bits; one launch of each kernel a call."""
+    from repro_torch.kernels.flash_attention import (
+        FlashAttention, flash_attention_bwd_kernel)
+    dev = q.device
+    do = torch.randn(q.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(q.shape[2] + 7 * k.shape[2]),
+                     device=dev).to(q.dtype)
+    n0 = flash_attention_bwd_kernel.launches
+    _, got = _grads(lambda a, b_, c: FlashAttention.apply(
+        a, b_, c, causal, cap, window), q, k, v, do)
+    assert flash_attention_bwd_kernel.launches == n0 + 1
+    _, again = _grads(lambda a, b_, c: FlashAttention.apply(
+        a, b_, c, causal, cap, window), q, k, v, do)
+    _, want = _grads(lambda a, b_, c: flash_attention_ref(
+        a, b_, c, causal=causal, logit_cap=cap, window=window), q, k, v, do)
+    torch.cuda.synchronize()
+    top = max(w.float().abs().max().item() for w in want)
+    degenerate = 1 in (q.shape[2], k.shape[2])
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == q.dtype and g.shape == w.shape
+        assert torch.isfinite(g).all()
+        assert torch.equal(g, a)
+        scale = top if degenerate else w.float().abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= \
+            4 * 2.0 ** -8 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sk", [63, 1500, 4097])
+@pytest.mark.parametrize("sq", [1, 17, 128])
+def test_cuda_flash_attention_backward_key_split(sq, sk, d):
+    """bf16, non-causal, GQA 6/2: 63 keys take one dQ part, 1500 three and
+    4097 nine (kernel.dq_key_parts; the parts' float32 partials folded in
+    order), against the plain gradient, at query counts of 1, 17 (not a
+    multiple of a 64-row tile) and 128 (one block of two warpgroups)."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        dq_key_parts, flash_attention_bwd_kernel)
+    dev = _cuda()
+    parts = {63: 1, 1500: 3, 4097: 9}[sk]
+    assert len(dq_key_parts(sk, False, torch.bfloat16)) == parts
+    q = torch.from_numpy(_attention_case(25, b=1, hq=6, hkv=2, s=sq,
+                                         d=d)[0]).to(dev, torch.bfloat16)
+    _, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
+               for a in _attention_case(26, b=1, hq=6, hkv=2, s=sk, d=d))
+    _bwd_check(q, k, v, False, 0, 0.0)
+    assert flash_attention_bwd_kernel.dq_parts == parts
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_backward_on_a_fresh_thread():
+    """The bf16 backward makes its TMA tensor maps through libcuda's
+    encoder, which needs the card's context current on the calling thread;
+    autograd runs a backward on a thread of its own. A thread that has
+    made no CUDA call yet gets the same gradients as the main thread."""
+    import threading
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel)
+    from repro_torch.kernels.flash_attention.kernel import _forward
+    dev = _cuda()
+    q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
+               for a in _attention_case(28, b=1, hq=4, hkv=2, s=130, d=128))
+    do = torch.randn(q.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(4), device=dev).to(torch.bfloat16)
+    out, lse = _forward(q, k, v, True, 0.0, 0, True)
+    want = flash_attention_bwd_kernel(q, k, v, out, do, lse)
+    got = []
+    worker = threading.Thread(target=lambda: got.append(
+        flash_attention_bwd_kernel(q, k, v, out, do, lse)))
+    worker.start()
+    worker.join(timeout=120)
+    assert not worker.is_alive()
+    torch.cuda.synchronize()
+    assert len(got) == 1
+    for g, w in zip(got[0], want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("window", [0, 77])
+@pytest.mark.parametrize("group", [1, 3, 8])
+def test_cuda_flash_attention_backward_groups_and_window(group, window, d):
+    """bf16, causal, S = 333 (neither a multiple of 64 nor of 128), GQA
+    groups of 1, 3 and 8 query heads a kv head (dK/dV's sum over the
+    group is the block's loop), with and without a window of 77 (its edge
+    falls inside a 64-key tile), cap 30 where windowed."""
+    dev = _cuda()
+    q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
+               for a in _attention_case(27, b=2, hq=2 * group, hkv=2,
+                                        s=333, d=d))
+    _bwd_check(q, k, v, True, window, 30.0 if window else 0.0)
 
 
 @pytest.mark.gpu
