@@ -6,7 +6,8 @@ on one CUDA card.
     python3 scripts/kernel_ab.py --against build/ab_old [--only b2,b6,b7]
 
 Builds the other tree's sources of the chosen kernels (``--only``, any of
-b2, b4, b5, b6, b7, b9, b10, b9bwd, b10bwd; all by default) into a library of
+b2, b4, b5, b6, b7, b9, b10, b9bwd, b10bwd, b9f32, b9bwdf32; all by
+default) into a library of
 their own (the same nvcc flags) and calls both libraries through this
 tree's wrappers (the C entries take the same arguments; B4's entry before
 its redesign did not, see below).  Shapes and data:
@@ -46,6 +47,16 @@ its redesign did not, see below).  Shapes and data:
 - B9 bf16 causal at llama's (1, 24/8, 1000, 128) and the hybrid's
   (1, 64/8, 1000, 128), B10 at (1, 1000, 16384, 16) with dt float32 and
   x bf16, inputs drawn as ``chip_smoke.check_serve_kernels`` draws them;
+- b9f32: B9's float32 forward at every float32 shape ``chip_smoke.py``
+  times: the serving shapes (llama's, the hybrid's and moonshot's, 1000
+  tokens, causal) and every ``chip_smoke.ZOO_ATTENTION`` shape, inputs
+  drawn as ``chip_smoke.check_serve_kernels`` draws them; gate: KERNEL_TOL
+  (1e-5) of the plain output's largest magnitude.  The other tree's
+  forward entry of 15 arguments (before the float32 key split, 5f94b93)
+  is called without the split's scratch and part length;
+- b9bwdf32: B9's float32 backward at every ``TRAIN_ATTENTION`` shape, as
+  b9bwd below with chip_smoke's float32 gate (KERNEL_TOL of each
+  gradient's largest magnitude, two runs torch.equal);
 - b9bwd, b10bwd: the backward kernels, B9's in bf16 at every
   ``chip_smoke.TRAIN_ATTENTION`` shape and B10's at every
   ``SCAN_BWD_SHAPES`` shape, inputs drawn as
@@ -88,7 +99,9 @@ SOURCES = {"b2": "power_reconstruct_fleet.cu", "b4": "xcorr_align.cu",
            "b6": "phase_integrate.cu", "b7": "fleet_attribute.cu",
            "b9": "flash_attention.cu", "b10": "selective_scan.cu",
            "b9bwd": "flash_attention_bwd.cu",
-           "b10bwd": "selective_scan_bwd.cu"}
+           "b10bwd": "selective_scan_bwd.cu",
+           "b9f32": "flash_attention.cu",
+           "b9bwdf32": "flash_attention_bwd.cu"}
 
 
 def build_other(tree: Path, build, names) -> Path:
@@ -122,8 +135,11 @@ def build_other(tree: Path, build, names) -> Path:
 FA_OLD_ARGS = 12       # B9's entry before the key length and the window:
                        # q, k, v, o, B, Hq, Hkv, S, strides, causal, cap,
                        # stream (this tree's adds Sk after S, window after
-                       # causal, and the lse pointer before the stream)
+                       # causal, the lse pointer, then the float32 key
+                       # split's scratch and part length before the stream)
 FA_NO_LSE_ARGS = 14    # the entry with Sk and the window, before the lse
+FA_NO_SPLIT_ARGS = 15  # the entry with the lse, before the key split
+                       # (5f94b93)
 FA_BWD_OLD_ARGS = 20   # B9's backward entry before the dQ key split
                        # (8140ab9): this tree's adds dq_part and part_keys
                        # before the stream
@@ -158,9 +174,11 @@ def fa_entry_args(tree: Path) -> int:
 def using(lib, build, fa_old=0, fa_bwd_old=False):
     """Route the wrappers' C entries to ``lib`` (None: this tree's);
     ``fa_old``: the argument count of ``lib``'s B9 entries where they
-    are older than this tree's: ``FA_NO_LSE_ARGS`` (no lse pointer: this
-    tree's call must pass none) or ``FA_OLD_ARGS`` (also neither the key
-    length nor the window: it must pass Sk == S and no window);
+    are older than this tree's: ``FA_NO_SPLIT_ARGS`` (no key split: its
+    scratch and part length are dropped, the old kernel computes every
+    key in one block), ``FA_NO_LSE_ARGS`` (nor an lse pointer: this
+    tree's call must pass none) or ``FA_OLD_ARGS`` (nor the key length
+    and the window: it must pass Sk == S and no window);
     ``fa_bwd_old``: ``lib``'s B9 backward entries take the 20 arguments
     of the entry before the dQ key split."""
     saved = build.c_function
@@ -173,12 +191,18 @@ def using(lib, build, fa_old=0, fa_bwd_old=False):
             fn.argtypes = argtypes[:19] + argtypes[21:]
             return lambda *a: fn(*(a[:19] + a[21:]))
         if fa_old and name.startswith("fa_launch_"):
-            keep = [i for i in range(len(argtypes)) if i != 13
-                    and (fa_old == FA_NO_LSE_ARGS or i not in (8, 11))]
+            # this tree's: q k v o B Hq Hkv S Sk(8) strides causal
+            # window(11) cap lse(13) part(14) part_keys(15) stream
+            drop = {14, 15}
+            if fa_old in (FA_NO_LSE_ARGS, FA_OLD_ARGS):
+                drop.add(13)
+            if fa_old == FA_OLD_ARGS:
+                drop |= {8, 11}
+            keep = [i for i in range(len(argtypes)) if i not in drop]
             fn.argtypes = [argtypes[i] for i in keep]
 
             def call(*a):
-                if a[13]:
+                if 13 in drop and a[13]:
                     raise ValueError("the other tree's B9 writes no lse")
                 if fa_old == FA_OLD_ARGS and (a[8] != a[7] or a[11]):
                     raise ValueError("the other tree's B9 takes neither "
@@ -307,8 +331,33 @@ def serve_calls(cs, gen, dev, want) -> dict:
                "h_last_equal": torch.equal(got[1], want[1])}
         return res, res["y_rel"] <= cs.BF16_TOL and res["h_last_equal"]
 
+    def rel_f32(got, want):
+        r = cs._rel_err(got, want)
+        return {"rel": r}, r <= cs.KERNEL_TOL
+
     bf16 = torch.bfloat16
     calls = {}
+    if "b9f32" in want:
+        for label, hq, hkv in (("llama", 24, 8), ("hybrid", 64, 8),
+                               ("moonshot", 16, 16)):
+            q = randn(1, hq, 1000, 128, scale=3.0)
+            k = randn(1, hkv, 1000, 128, scale=3.0)
+            v = randn(1, hkv, 1000, 128)
+            calls[f"B9 {label} (1,{hq}/{hkv},1000,128) float32 causal"] = (
+                lambda q=q, k=k, v=v: flash_attention_kernel(q, k, v),
+                lambda q=q, k=k, v=v: flash_attention_ref(q, k, v), rel_f32)
+        for label, hq, hkv, sq, sk, d, causal, window, cap in \
+                cs.ZOO_ATTENTION:
+            q = randn(1, hq, sq, d, scale=3.0)
+            k = randn(1, hkv, sk, d, scale=3.0)
+            v = randn(1, hkv, sk, d)
+            opts = dict(causal=causal, logit_cap=cap, window=window)
+            calls[f"B9 {label} (1,{hq}/{hkv},{sq}->{sk},{d}) float32 "
+                  f"causal={causal} window={window} cap={cap:g}"] = (
+                lambda q=q, k=k, v=v, o=opts: flash_attention_kernel(
+                    q, k, v, **o),
+                lambda q=q, k=k, v=v, o=opts: flash_attention_ref(
+                    q, k, v, **o), rel_f32)
     if "b9" in want:
         for label, hq in (("llama", 24), ("hybrid", 64)):
             q = randn(1, hq, 1000, 128, scale=3.0).to(bf16)
@@ -398,12 +447,13 @@ def old_scan_bwd(lib, dt, x, bm, cm, a, h_chunk, dy, dh):
 
 def backward_ab(cs, other, want, fa_bwd_old: bool, scan_old: bool,
                 seed: int, dev) -> tuple:
-    """B9's backward (bf16) at every ``chip_smoke.TRAIN_ATTENTION`` shape
-    and B10's at every ``chip_smoke.SCAN_BWD_SHAPES`` shape, inputs drawn
-    as chip_smoke draws them, the other tree's kernel beside this tree's:
-    each held to chip_smoke's gates against the plain gradient (B9 bf16
-    BF16_BWD_TOL; B10 float32 KERNEL_TOL, bf16 SCAN_BWD_BF16_TOL) and to
-    two runs torch.equal, then timed other, this, this, other ->
+    """B9's backward (bf16 for b9bwd, float32 for b9bwdf32) at every
+    ``chip_smoke.TRAIN_ATTENTION`` shape and B10's at every
+    ``chip_smoke.SCAN_BWD_SHAPES`` shape, inputs drawn as chip_smoke draws
+    them, the other tree's kernel beside this tree's: each held to
+    chip_smoke's gates against the plain gradient (B9 bf16 BF16_BWD_TOL,
+    float32 KERNEL_TOL; B10 float32 KERNEL_TOL, bf16 SCAN_BWD_BF16_TOL)
+    and to two runs torch.equal, then timed other, this, this, other ->
     (result, failed names)."""
     import torch
     import torch.nn.functional as F
@@ -445,13 +495,16 @@ def backward_ab(cs, other, want, fa_bwd_old: bool, scan_old: bool,
               f"card before {before}, after {after}", flush=True)
 
     bf16 = torch.bfloat16
-    if "b9bwd" in want:
+    for key, dtype, tol in (("b9bwd", bf16, cs.BF16_BWD_TOL),
+                            ("b9bwdf32", torch.float32, cs.KERNEL_TOL)):
+        if key not in want:
+            continue
         for (label, b, hq, hkv, sq, sk, d, causal, window,
              cap) in cs.TRAIN_ATTENTION:
-            q = randn(b, hq, sq, d, scale=3.0).to(bf16)
-            k = randn(b, hkv, sk, d, scale=3.0).to(bf16)
-            v = randn(b, hkv, sk, d).to(bf16)
-            do = randn(b, hq, sq, d).to(bf16)
+            q = randn(b, hq, sq, d, scale=3.0).to(dtype)
+            k = randn(b, hkv, sk, d, scale=3.0).to(dtype)
+            v = randn(b, hkv, sk, d).to(dtype)
+            do = randn(b, hq, sq, d).to(dtype)
             opts = dict(causal=causal, logit_cap=cap, window=window)
             with torch.no_grad():
                 out, lse = _forward(q, k, v, causal, cap, window, True)
@@ -459,10 +512,9 @@ def backward_ab(cs, other, want, fa_bwd_old: bool, scan_old: bool,
             want_g = torch.autograd.grad(
                 flash_attention_ref(qg, kg, vg, **opts), (qg, kg, vg), do)
 
-            def gate(got, want_g=want_g):
+            def gate(got, want_g=want_g, tol=tol):
                 rels = [cs._rel_err(g, w) for g, w in zip(got, want_g)]
-                return {"rel_dq_dk_dv": rels,
-                        "passed": max(rels) <= cs.BF16_BWD_TOL}
+                return {"rel_dq_dk_dv": rels, "passed": max(rels) <= tol}
 
             def this(q=q, k=k, v=v, out=out, do=do, lse=lse, opts=opts):
                 return flash_attention_bwd_kernel(q, k, v, out, do, lse,
@@ -472,9 +524,9 @@ def backward_ab(cs, other, want, fa_bwd_old: bool, scan_old: bool,
                 with using(other, build, fa_bwd_old=fa_bwd_old):
                     return flash_attention_bwd_kernel(q, k, v, out, do, lse,
                                                       **opts)
-            run(f"B9 backward {label} ({b},{hq}/{hkv},{sq}->{sk},{d}) bf16 "
-                f"causal={causal} window={window} cap={cap:g}",
-                {"other": theirs, "this": this}, gate)
+            run(f"B9 backward {label} ({b},{hq}/{hkv},{sq}->{sk},{d}) "
+                f"{str(dtype)[6:]} causal={causal} window={window} "
+                f"cap={cap:g}", {"other": theirs, "this": this}, gate)
             del q, k, v, do, out, lse, qg, kg, vg, want_g
             torch.cuda.empty_cache()
     if "b10bwd" in want:
@@ -661,7 +713,7 @@ def main(argv=None) -> int:
                      f"{n_other} arguments, neither this tree's nor the "
                      f"{XCORR_OLD_ARGS} of the entry before the redesign")
     fa_bwd_old = False
-    if "b9bwd" in want:
+    if {"b9bwd", "b9bwdf32"} & set(want):
         n_bwd = entry_args(args.against, "b9bwd")
         if n_bwd not in (FA_BWD_OLD_ARGS, entry_args(ROOT, "b9bwd")):
             ap.error(f"b9bwd: the other tree's entries take {n_bwd} "
@@ -671,14 +723,18 @@ def main(argv=None) -> int:
         fa_bwd_old = n_bwd == FA_BWD_OLD_ARGS
     scan_old = "b10bwd" in want and scan_bwd_old_geometry(args.against)
     fa_old = 0
-    if "b9" in want:
+    if {"b9", "b9f32"} & set(want):
         n_fa = fa_entry_args(args.against)
-        if n_fa not in (FA_OLD_ARGS, FA_NO_LSE_ARGS, fa_entry_args(ROOT)):
+        if n_fa not in (FA_OLD_ARGS, FA_NO_LSE_ARGS, FA_NO_SPLIT_ARGS,
+                        fa_entry_args(ROOT)):
             ap.error(f"b9: the other tree's entries take {n_fa} arguments, "
-                     f"neither this tree's nor the {FA_NO_LSE_ARGS} of the "
-                     f"entry before the lse nor the {FA_OLD_ARGS} of the "
-                     f"entry before the key length and the window")
-        fa_old = n_fa if n_fa in (FA_OLD_ARGS, FA_NO_LSE_ARGS) else 0
+                     f"neither this tree's nor the {FA_NO_SPLIT_ARGS} of "
+                     f"the entry before the key split, the "
+                     f"{FA_NO_LSE_ARGS} of the entry before the lse or the "
+                     f"{FA_OLD_ARGS} of the entry before the key length and "
+                     f"the window")
+        fa_old = (n_fa if n_fa in (FA_OLD_ARGS, FA_NO_LSE_ARGS,
+                                   FA_NO_SPLIT_ARGS) else 0)
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -693,8 +749,8 @@ def main(argv=None) -> int:
                          text=True).stdout.strip())
     print(f"this tree's kernels built in "
           f"{build.timed_build(verbose=True):.1f} s")
-    other = ctypes.CDLL(str(build_other(args.against, build,
-                                        [SOURCES[k] for k in want])))
+    other = ctypes.CDLL(str(build_other(
+        args.against, build, list(dict.fromkeys(SOURCES[k] for k in want)))))
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     calls = {**attribution_calls(cs, args.seed, dev, want),
@@ -705,7 +761,7 @@ def main(argv=None) -> int:
     if "b4" in want:
         result["xcorr"], failed = xcorr_ab(
             cs, other, n_other == XCORR_OLD_ARGS, args.seed, dev)
-    if {"b9bwd", "b10bwd"} & set(want):
+    if {"b9bwd", "b9bwdf32", "b10bwd"} & set(want):
         result["backward"], bwd_failed = backward_ab(
             cs, other, want, fa_bwd_old, scan_old, args.seed, dev)
         failed += bwd_failed

@@ -15,11 +15,11 @@
 // (gemma2's local layers).  Strides are arguments (the head dimension
 // must be contiguous), so the model's (B, S, H, D) activations go in as
 // they are, without a transpose, and the output keeps q's layout.  Both
-// kernels take one block per (batch * query head, 64-row query tile),
-// mask keys past Sk and rows past Sq (any Sq, Sk >= 1), stop the causal
-// loop at the diagonal tile and start a windowed one at the tile that
-// holds the first row's first key (q0 - w + 1): tiles wholly left of the
-// window are never loaded.  A row whose keys in a tile are all masked
+// kernels take one block per (batch * query head, 64-row query tile; in
+// float32 also key part), mask keys past Sk and rows past Sq (any Sq,
+// Sk >= 1), stop the causal loop at the diagonal tile and start a
+// windowed one at the tile that holds the first row's first key (q0 - w
+// + 1): tiles wholly left of the window are never loaded.  A row whose keys in a tile are all masked
 // takes p = 1 there with m = -1e30; its first tile with a key in the
 // window rescales that away (exp(-1e30 - m) = 0), and every row has one
 // (its own position).
@@ -72,12 +72,58 @@
 //   The wrapper refuses bf16 pointers or strides that are not 16-byte
 //   aligned (cp.async copies 16 bytes).
 //
-// float32 -> fa_f32_kernel, the SIMT kernel (float32 FMAs): TF32 keeps
-// about 3 digits and would break the 1e-5 gates of the float32 path.
-// Each of its 256 threads owns 4 query rows x 4 keys of a score tile and
-// 4 rows x D/16 output columns; q, k (transposed, padded) and v are
-// float32 in shared memory (113 KB at D = 128); each row's (m, l) is
-// folded by shuffles inside one half-warp.
+// float32 -> fa_tf32_kernel, 3xTF32 on the tensor cores (mma.sync
+// m16n8k8 .tf32, float32 accumulation): TF32 alone keeps about 3 digits
+// and would break the 1e-5 gates of the float32 path, so each operand
+// is split as it is loaded into registers, hi = tf32(v) (cvt.rna's) and
+// lo = tf32(v - hi), and each k-step of 8 runs lo*hi, hi*lo, then hi*hi
+// into the float32 accumulator (lo*lo, ~2^-22 of a product, dropped):
+// ~2^-22 of each product's size against float32's 2^-24 rounding.  The
+// bound of this design is 3 x 4 D operations a scored pair at the TF32
+// rate (495 TFLOP/s): 0.0372 ms at llama's shape, against 0.0917 at the
+// fp32 FMA rate (67 TFLOP/s).
+//   - 64 query rows a block, 64-key tiles, as the bf16 kernel, but 8
+//     warps: 4 pairs of 16 rows, the two warps of a pair taking the two
+//     32-key halves of every tile, each with an online softmax (m, l,
+//     acc) of its own, folded in a fixed order at the end.  mma.sync on
+//     TF32 needs ~5 independent products in flight on an SM
+//     sub-partition to reach its rate (scripts/mma_tf32_rate.py: 319
+//     TFLOP/s, 64% of the dense TF32 peak, with 4 chains a warp at 2 warps
+//     a sub-partition); two warps of a block there, with no exchange
+//     between them a tile, keep it fed.  The tiles are float32 in shared
+//     memory at a pitch of D + 4 floats (no bank conflicts for any
+//     fragment load; flash_attention.cuh).  The Q tile stays in shared
+//     memory (Q's split fragments in registers would take 128 of them at
+//     D = 128), and the A fragments of Q and B fragments of K and V are
+//     scalar loads split in registers: no hi/lo copies in shared memory
+//     (Q split once a block into a hi/lo copy was measured slower: more
+//     loads and spills, PERF.md section 6).
+//     P goes from the S accumulators straight into the A fragments of P V
+//     (split, not rounded), with V's rows read in the matching order
+//     (flash_attention.cuh acc_as_a).
+//   - Every product runs on the tensor cores two k-steps at a time from
+//     zero, added to its float32 sum with IEEE adds (mma.sync's own
+//     accumulation drifts toward zero: flash_attention.cuh
+//     mma_3xtf32_x2): S over D, and O over the keys of a tile and across
+//     tiles, with P's rescaling, in float32 adds.
+//   - K and V double-buffered by cp.async: tile t + 1 copies while tile t
+//     is multiplied, rows past Sk zero-filled, one barrier a tile.  Q + 2
+//     x (K + V) are 169 KB at D = 128 (one block, 8 warps, an SM), 87 KB
+//     at D = 64 (two).  16-byte copies where the operands' rows are
+//     16-byte aligned, else 4-byte ones (float32 views may have any
+//     offset and stride).
+//   - Scores times 1/sqrt(D) (a multiply; the cap's tanhf of x / cap by a
+//     multiply with 1/cap), expf and tanhf IEEE; a warp whose rows all lie
+//     past S, or whose half of a tile scores nothing, skips its products
+//     (one query row: 1 pair in 4 works).
+//   - Non-causal calls with few query rows and many keys (kernel.py
+//     fwd_key_parts: at most 128 rows, more than 512 keys: whisper's
+//     cross-attention) split the keys into parts of whole 64-key tiles,
+//     cut where dQ's key split cuts them (a function of the lengths
+//     alone, never of the batch or heads), one block a part: each part's
+//     (m, l, acc) goes to a float32 scratch and fa_tf32_fold combines the
+//     parts in part order.  No atomics: a row's output depends on its own
+//     q, k and v and the two lengths, not on what else the call computes.
 #include "flash_attention.cuh"
 
 namespace {
@@ -85,143 +131,262 @@ namespace {
 constexpr int kBQ = 64;          // query rows per block
 constexpr int kBK = 64;          // keys per tile
 
-// ------------------------------------------------ float32: SIMT kernel
+// ------------------------------------ float32: 3xTF32 on the tensor cores
 
-constexpr int kKPad = kBK + 1;   // transposed k row: conflict-free stores
-constexpr int kF32Threads = 256;
+constexpr int kF32Threads = 256;       // 4 warp pairs x 16 query rows
+constexpr int kHalfKeys = kBK / 2;     // a warp's keys of a tile
 
 template <int D>
-constexpr int f32_smem_floats() {
-  return kBQ * D + D * kKPad + kBK * D + kBQ * kKPad;
+constexpr int f32_smem_bytes() {       // Q, 2 x (K, V)
+  return 5 * kBQ * f32_pitch<D>() * static_cast<int>(sizeof(float));
 }
 
+// Block (b * Hq + head, query tile, key part), 8 warps: warp w owns query
+// rows q0 + 16 (w % 4) .. and takes half w / 4 of every 64-key tile, with
+// an online softmax (m, l, acc) of its own; the pair's two states are
+// folded in a fixed order at the end (half 0's, then half 1's).  The key
+// range is the part's [z part_keys, (z + 1) part_keys) when part_keys > 0
+// (then the block writes its unnormalized rows with their (m, l) to
+// `part`: (parts, B, Hq, S, D + 2)), else all keys (o and lse written
+// here).
 template <int D>
-__global__ void __launch_bounds__(kF32Threads)
-fa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o,
-              float* __restrict__ lse, int Hq, int group, int S, int Sk,
-              Strides sq, Strides sk, Strides sv, Strides so, int causal,
-              int window, float cap, float sqrt_d) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                    // [kBQ][D]
-  float* Ks = Qs + kBQ * D;            // [D][kKPad], transposed
-  float* Vs = Ks + D * kKPad;          // [kBK][D]
-  float* Ps = Vs + kBK * D;            // [kBQ][kKPad]
-  constexpr int C = D / 16;            // output columns per thread
+__global__ void __launch_bounds__(kF32Threads, D == 64 ? 2 : 1)
+fa_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o,
+               float* __restrict__ lse, float* __restrict__ part, int Hq,
+               int group, int S, int Sk, Strides sq, Strides sk, Strides sv,
+               Strides so, int causal, int window, float rsd, float cap,
+               float rcap, int part_keys, int vec) {
+  constexpr int P = f32_pitch<D>();
+  constexpr int ND = D / 8;            // n-tiles of the output
+  constexpr int NK = kHalfKeys / 8;    // n-tiles of a warp's scores
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;                     // [kBQ][P]
+  float* Ks = Qs + kBQ * P;            // [2][kBK][P]
+  float* Vs = Ks + 2 * kBK * P;        // [2][kBK][P]
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;             // rows 4*ty .. 4*ty+3
-  const int tx = tid & 15;             // keys tx+16j, columns tx+16c
-  const int h = blockIdx.y % Hq;
-  const int b = blockIdx.y / Hq;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int w4 = warp & 3, half = warp >> 2;
+  const int h = blockIdx.x % Hq;
+  const int b = blockIdx.x / Hq;
   const int hk = h / group;
-  const int q0 = blockIdx.x * kBQ;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * kBQ;
+  const int key_lo = part_keys > 0 ? blockIdx.z * part_keys : 0;
+  const int key_hi = part_keys > 0 ? min(Sk, key_lo + part_keys) : Sk;
+  const int n_keys = causal ? min(Sk, q0 + kBQ) : key_hi;
+  const int n_tiles = (n_keys + kBK - 1) / kBK;
+  const int t_first =
+      max(window > 0 ? max(q0 - window + 1, 0) / kBK : 0, key_lo / kBK);
   const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + hk * sk.h;
   const float* vb = v + b * sv.b + hk * sv.h;
-  float* ob = o + b * so.b + h * so.h;
 
-  for (int i = tid; i < kBQ * D; i += kF32Threads) {
-    const int r = i / D, d = i % D;
-    Qs[i] = q0 + r < S ? qb[(q0 + r) * sq.s + d] : 0.0f;
-  }
-  float m[4], l[4], acc[4][C];
+  auto load_kv = [&](int t, int buf) {
+    f32_tile_async<D, kBK, kF32Threads>(Ks + buf * kBK * P, kb, sk.s,
+                                        t * kBK, Sk, vec, tid);
+    f32_tile_async<D, kBK, kF32Threads>(Vs + buf * kBK * P, vb, sv.s,
+                                        t * kBK, Sk, vec, tid);
+  };
+  f32_tile_async<D, kBQ, kF32Threads>(Qs, qb, sq.s, q0, S, vec, tid);
+  load_kv(t_first, 0);
+  cp_async_commit();
+
+  const int rw = q0 + 16 * w4;         // this warp's rows
+  const int row0 = rw + g;             // this thread's rows: +0, +8
+  const float* qa = Qs + (16 * w4 + g) * P + t4;
+  float acc[ND][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.0f;
-  }
-  const int n_keys = causal ? min(Sk, q0 + kBQ) : Sk;
-  const int n_tiles = (n_keys + kBK - 1) / kBK;
-  const int t_first = window > 0 ? max(q0 - window + 1, 0) / kBK : 0;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};           // this thread's share of the sums
   const unsigned full = 0xffffffffu;
+
   for (int t = t_first; t < n_tiles; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();                   // the last tile's k/v are consumed
-    for (int i = tid; i < kBK * D; i += kF32Threads) {
-      const int r = i / D, d = i % D;
-      const bool ok = k0 + r < Sk;
-      Ks[d * kKPad + r] = ok ? kb[(k0 + r) * sk.s + d] : 0.0f;
-      Vs[i] = ok ? vb[(k0 + r) * sv.s + d] : 0.0f;
+    const int buf = (t - t_first) & 1;
+    cp_async_wait<0>();                // tile t has landed, and every warp
+    __syncthreads();                   // is done with tile t - 1
+    if (t + 1 < n_tiles) {             // its buffer takes tile t + 1
+      load_kv(t + 1, buf ^ 1);
+      cp_async_commit();
     }
-    __syncthreads();
-    float s[4][4];
+    const int kc = t * kBK + kHalfKeys * half;   // this warp's keys
+    if (rw >= S || kc >= Sk || (causal && kc > rw + 15) ||
+        (window > 0 && rw - (kc + kHalfKeys - 1) >= window))
+      continue;                        // it scores none of them
+    const float* Kt = Ks + (buf * kBK + kHalfKeys * half) * P;
+    const float* Vt = Vs + (buf * kBK + kHalfKeys * half) * P;
+    float s[NK][4];                    // 16 rows x 32 keys
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int n = 0; n < NK; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+    products_nk<D, NK>(s, qa, Kt, g, t4);    // S = Q K^T
+    // scale (and cap), mask, online softmax (natural-log domain)
+    const bool masked = kc + kHalfKeys > Sk ||
+                        (causal && kc + kHalfKeys - 1 > rw) ||
+                        (window > 0 && rw + 15 - kc >= window);
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(4 * ty + i) * D + d];
+    for (int n = 0; n < NK; ++n) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[d * kKPad + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-    // scale, cap, mask; then the online-softmax update per row
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i;
-      float mt = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        float x = __fdiv_rn(s[i][j], sqrt_d);
-        if (cap > 0.0f) x = cap * tanhf(__fdiv_rn(x, cap));
-        if (key >= Sk || (causal && key > row) ||
-            (window > 0 && row - key >= window))
-          x = kNegInf;
-        s[i][j] = x;
-        mt = fmaxf(mt, x);
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * rsd;
+        if (cap > 0.0f) x = cap * tanhf(x * rcap);
+        if (masked) {
+          const int key = kc + 8 * n + 2 * t4 + (e & 1);
+          const int row = row0 + 8 * (e >> 1);
+          if (key >= Sk || (causal && key > row) ||
+              (window > 0 && row - key >= window))
+            x = kNegInf;
+        }
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
-      for (int off = 8; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(full, mt, off));
-      const float m_new = fmaxf(m[i], mt);
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        Ps[(4 * ty + i) * kKPad + tx + 16 * j] = p;
-        rs += p;
-      }
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(full, rs, off);
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[i][c] *= corr;
     }
-    __syncwarp();                      // rows 4ty.. are this half-warp's
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pv[4];
+    float corr[2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(4 * ty + i) * kKPad + kk];
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(full, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(full, mx[r], 2));
+      corr[r] = expf(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= corr[r];
+    }
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float vv = Vs[kk * D + tx + 16 * c];
+    for (int n = 0; n < NK; ++n) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[n][e] - m[e >> 1]);
+        s[n][e] = p;
+        l[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      acc[n][0] *= corr[0];
+      acc[n][1] *= corr[0];
+      acc[n][2] *= corr[1];
+      acc[n][3] *= corr[1];
+    }
+    // O += P V: P's accumulators of keys 8n.. are the A fragment (k slot
+    // t <- key 2t, t+4 <- key 2t+1), so V's rows 2t and 2t+1
+    products_kn<D, NK>(acc, s, Vt, g, t4);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(full, l[r], 1);
+    l[r] += __shfl_xor_sync(full, l[r], 2);
+  }
+  // the pair's fold: half 1 leaves (m, l, acc) in the K buffers, half 0
+  // adds them to its own with the weights exp(m_half - M)
+  cp_async_wait<0>();
+  __syncthreads();                     // the K/V buffers are free
+  float* red = Ks;                     // [kBQ][D + 2]: acc, m, l
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float* row = red + (16 * w4 + g + 8 * r) * (D + 2);
+    if (half == 1) {
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        row[8 * n + 2 * t4] = acc[n][2 * r];
+        row[8 * n + 2 * t4 + 1] = acc[n][2 * r + 1];
+      }
+      if (t4 == 0) {
+        row[D] = m[r];
+        row[D + 1] = l[r];
       }
     }
   }
+  __syncthreads();
+  if (half == 1 || rw >= S) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
+  for (int r = 0; r < 2; ++r) {
+    const float* row = red + (16 * w4 + g + 8 * r) * (D + 2);
+    const float m1 = row[D];
+    const float mm = fmaxf(m[r], m1);
+    const float w0 = expf(m[r] - mm), w1 = expf(m1 - mm);
+    m[r] = mm;
+    l[r] = __fadd_rn(__fmul_rn(l[r], w0), __fmul_rn(row[D + 1], w1));
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& a = acc[n][2 * r + e];
+        a = __fadd_rn(__fmul_rn(a, w0),
+                      __fmul_rn(row[8 * n + 2 * t4 + e], w1));
+      }
+  }
+  if (part_keys > 0) {                 // this part's rows, unnormalized
+    float* pb = part + (static_cast<long long>(blockIdx.z) * gridDim.x
+                        + blockIdx.x) * S * (D + 2);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= S) continue;
+      float* pr = pb + static_cast<long long>(row) * (D + 2);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        pr[8 * n + 2 * t4] = acc[n][2 * r];
+        pr[8 * n + 2 * t4 + 1] = acc[n][2 * r + 1];
+      }
+      if (t4 == 0) {
+        pr[D] = m[r];
+        pr[D + 1] = l[r];
+      }
+    }
+    return;
+  }
+  float* ob = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
     if (row >= S) continue;
-    const float den = fmaxf(l[i], 1e-30f);
+    const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < C; ++c)
-      ob[row * so.s + tx + 16 * c] = __fdiv_rn(acc[i][c], den);
-    if (lse != nullptr && tx == 0)     // l is the half-warp's full sum
-      lse[static_cast<long long>(blockIdx.y) * S + row] = m[i] + logf(den);
+    for (int n = 0; n < ND; ++n) {
+      ob[row * so.s + 8 * n + 2 * t4] = __fdiv_rn(acc[n][2 * r], den);
+      ob[row * so.s + 8 * n + 2 * t4 + 1] =
+          __fdiv_rn(acc[n][2 * r + 1], den);
+    }
+    if (lse != nullptr && t4 == 0)
+      lse[static_cast<long long>(blockIdx.x) * S + row] = m[r] + logf(den);
   }
+}
+
+// The key parts' rows folded in part order: M = max m_p, w_p = exp(m_p -
+// M), L = sum w_p l_p, o = (sum w_p acc_p) / L, lse = M + log L; a thread
+// an output element (b * Hq + head, row, column)
+__global__ void fa_tf32_fold(const float* __restrict__ part,
+                             float* __restrict__ o, float* __restrict__ lse,
+                             int parts, int Hq, int S, int D, Strides so,
+                             long long n_rows) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x
+                      + threadIdx.x;
+  if (e >= n_rows * D) return;
+  const int d = static_cast<int>(e % D);
+  const long long row = e / D;
+  const long long plane = n_rows * (D + 2);
+  const float* pr = part + row * (D + 2);
+  float mx = pr[D];
+  for (int p = 1; p < parts; ++p) mx = fmaxf(mx, pr[p * plane + D]);
+  float sum_l = 0.0f, sum_a = 0.0f;
+  for (int p = 0; p < parts; ++p) {
+    const float w = expf(pr[p * plane + D] - mx);
+    sum_l = __fadd_rn(sum_l, __fmul_rn(pr[p * plane + D + 1], w));
+    sum_a = __fadd_rn(sum_a, __fmul_rn(pr[p * plane + d], w));
+  }
+  const float den = fmaxf(sum_l, 1e-30f);
+  const int i = static_cast<int>(row % S);
+  const long long bh = row / S;
+  const int h = static_cast<int>(bh % Hq);
+  const long long b = bh / Hq;
+  o[b * so.b + h * so.h + i * so.s + d] = __fdiv_rn(sum_a, den);
+  if (lse != nullptr && d == 0) lse[row] = mx + logf(den);
 }
 
 // ------------------------------------- bfloat16: tensor cores (mma.sync)
@@ -438,18 +603,35 @@ fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                int Hq, int Hkv, int S, int Sk, const long long* st,
-               int causal, int window, float cap, float* lse, void* stream) {
-  const int smem = f32_smem_floats<D>() * static_cast<int>(sizeof(float));
+               int causal, int window, float cap, float* lse, float* part,
+               int part_keys, void* stream_ptr) {
+  const int parts = part_keys > 0 ? (Sk + part_keys - 1) / part_keys : 1;
+  if (part_keys < 0 || part_keys % kBK ||
+      (parts > 1 && (causal || part == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto stream = static_cast<cudaStream_t>(stream_ptr);
+  const int smem = f32_smem_bytes<D>();
   static bool opted[kMaxDevices] = {};
-  const cudaError_t err = opt_in(fa_f32_kernel<D>, smem, opted);
+  cudaError_t err = opt_in(fa_tf32_kernel<D>, smem, opted);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kBQ - 1) / kBQ, B * Hq);
-  fa_f32_kernel<D><<<grid, kF32Threads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
+  const Strides sq = strides_of(st, 0), sk = strides_of(st, 1),
+                sv = strides_of(st, 2), so = strides_of(st, 3);
+  const int vec = f32_rows_aligned(q, sq, B, Hq, S) &&
+                  f32_rows_aligned(k, sk, B, Hkv, Sk) &&
+                  f32_rows_aligned(v, sv, B, Hkv, Sk);
+  const float rsd = 1.0f / sqrtf(static_cast<float>(D));
+  const dim3 grid(B * Hq, (S + kBQ - 1) / kBQ, parts);
+  fa_tf32_kernel<D><<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, Hq,
-      Hq / Hkv, S, Sk, strides_of(st, 0), strides_of(st, 1), strides_of(st, 2),
-      strides_of(st, 3), causal, window, cap, sqrtf(static_cast<float>(D)));
+      static_cast<const float*>(v), static_cast<float*>(o), lse, part, Hq,
+      Hq / Hkv, S, Sk, sq, sk, sv, so, causal, window, rsd, cap,
+      cap > 0.0f ? 1.0f / cap : 0.0f, parts > 1 ? part_keys : 0, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || parts == 1) return static_cast<int>(err);
+  const long long n_rows = static_cast<long long>(B) * Hq * S;
+  fa_tf32_fold<<<static_cast<unsigned>((n_rows * D + 255) / 256), 256, 0,
+                 stream>>>(part, static_cast<float*>(o), lse, parts, Hq, S,
+                           D, so, n_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -457,7 +639,8 @@ template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int Hq, int Hkv, int S, int Sk, const long long* st,
                 int causal, int window, float cap, float* lse,
-                void* stream) {
+                float* /*part*/, int part_keys, void* stream) {
+  if (part_keys != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = mma_smem_bytes<D>();
   static bool opted[kMaxDevices] = {};
   static bool opted_win[kMaxDevices] = {};
@@ -485,17 +668,23 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
 // S: query rows, Sk: keys; strides: 12 int64, (batch, head, seq) for q,
 // k, v and o in turn; window: 0 for none; lse: null, or (B, Hq, S)
 // float32 that takes each row's log-sum-exp of its scaled (and capped)
-// scores, m + log(l), for the backward (flash_attention_bwd.cu).
+// scores, m + log(l), for the backward (flash_attention_bwd.cu);
+// part, part_keys: float32 only, the key split (kernel.py
+// fwd_key_parts): part_keys > 0 (a multiple of 64, non-causal only)
+// splits the keys into parts of that many, whose rows go to part
+// (ceil(Sk / part_keys), B, Hq, S, D + 2) float32 and are folded in
+// order; 0: no split (part unused).
 #define FA_ENTRY(NAME, LAUNCH)                                               \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* o,  \
                       int B, int Hq, int Hkv, int S, int Sk,                 \
                       const long long* strides, int causal, int window,      \
-                      float cap, float* lse, void* stream) {                 \
+                      float cap, float* lse, float* part, int part_keys,     \
+                      void* stream) {                                        \
     if (B <= 0 || S <= 0 || Hq <= 0) return 0;                               \
     if (Sk <= 0 || (causal && Sk != S) || (window > 0 && !causal))           \
       return static_cast<int>(cudaErrorInvalidValue);                        \
     return LAUNCH(q, k, v, o, B, Hq, Hkv, S, Sk, strides, causal, window,    \
-                  cap, lse, stream);                                         \
+                  cap, lse, part, part_keys, stream);                        \
   }
 
 FA_ENTRY(fa_launch_f32_d64, launch_f32<64>)

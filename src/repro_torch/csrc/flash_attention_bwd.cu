@@ -33,7 +33,7 @@
 //      heads is a loop, not atomics;
 //   3. dQ: one block a (batch, query head, tile of rows, key part),
 //      looping over the key tiles the forward visits;
-//   4. (bf16, non-causal with Sk > 512 only) the fold of dQ's key parts.
+//   4. (non-causal with Sk > 512 only) the fold of dQ's key parts.
 // No atomics anywhere and every sum in a fixed order: two runs give the
 // same bits (ROADMAP "Fold-order determinism").
 //
@@ -76,17 +76,40 @@
 // are rounded to bf16 as the A operands of their products (dV += P^T
 // dO, dK += dS^T Q, dQ += dS K), as the forward rounds P for P V; dP,
 // delta and the gradients' sums stay float32.
-// float32 -> SIMT kernels (float32 FMAs), 256 threads a block, each
-// thread 4 own rows x 4 columns of a 64 x 64 score tile and 4 rows x D/16
-// columns of the gradients; tiles in shared memory at a pitch of D + 1
-// floats, so both a row-wise and a column-wise walk are free of bank
-// conflicts (149 KB at D = 128, one block an SM).
+// float32 -> 3xTF32 on the tensor cores (mma.sync m16n8k8 .tf32, the
+// forward's route: flash_attention.cu), 8 warps a block: 4 pairs of 16
+// own rows, the two warps of a pair taking the two halves of each
+// 64-row stage of the other side, their partial sums added in a fixed
+// order at the end (pair_sum; 8 warps an SM where one block fits: a
+// warp's dependent mma.sync chains need a second warp on its SM
+// sub-partition, scripts/mma_tf32_rate.py).  Every product splits its
+// operands into tf32 hi/lo as their fragments are loaded (scalar loads
+// from float32 tiles at a pitch of D + 4: no bank conflicts) and runs
+// lo*hi, hi*lo, hi*hi a k-step of 8, two k-steps at a time from zero,
+// each such sum added to its float32 total with IEEE adds (mma.sync's
+// accumulation drifts toward zero along a long chain:
+// flash_attention.cuh mma_3xtf32_x2; dK, dV and dQ sum thousands of
+// products).  dK/dV: S^T = K Q^T and dP^T = V dO^T (K's and V's rows as
+// A), P^T and dS^T in place, then dV += P^T dO and dK += dS^T Q with the
+// accumulators as A fragments (the S-accumulator handoff of
+// flash_attention.cuh: Q's and dO's rows read in the matching order);
+// dQ: S = Q K^T, dP = dO V^T, dQ += dS K.  The streamed tiles (Q, dO and
+// the rows' lse and delta; or K and V) are double-buffered by cp.async:
+// stage i + 1 copies while stage i is multiplied, rows past the end
+// zero-filled; 203 KB of shared memory at D = 128, 104 KB at D = 64.
+// dQ's keys split as bf16's (kernel.py dq_key_parts: non-causal past 512
+// keys), the parts' float32 partials folded in part order.  Masks only
+// on the warps' blocks that cross the diagonal, the window's edge or a
+// ragged end; blocks that score nothing are skipped.  Scores times
+// 1/sqrt(D), expf and tanhf IEEE.
 //
 // Bound on the H100: five products of D a scored pair, 10 B Hq D x the
 // scored pairs operations: 1.29e11 at the training shape (2, 24/8, 2048,
 // 128) causal (2.10e6 scored pairs a head), 0.1304 ms at the bf16 dense
-// rate (989 TFLOP/s), far above the bytes (chip_smoke.py
-// check_attention_backward computes it from each call's shape).
+// rate (989 TFLOP/s), far above the bytes; in float32 three TF32
+// products each at the TF32 rate (495 TFLOP/s), 0.781 ms, against 1.92
+// ms at the fp32 FMA rate (chip_smoke.py check_attention_backward
+// computes both from each call's shape).
 #include "flash_attention.cuh"
 #include "wgmma_bf16.cuh"
 
@@ -146,295 +169,359 @@ __device__ __forceinline__ void query_tiles(int k0, int rows, int S,
   if (window > 0) end = min(end, (k0 + kOwn - 1 + window - 1) / rows + 1);
 }
 
-// The key tiles of `cols` keys that queries q0 .. q0 + kOwn - 1 see.
-__device__ __forceinline__ void key_tiles(int q0, int cols, int Sk,
-                                          int causal, int window,
-                                          int& first, int& end) {
-  const int n_keys = causal ? min(Sk, q0 + kOwn) : Sk;
-  end = (n_keys + cols - 1) / cols;
-  first = window > 0 ? max(q0 - window + 1, 0) / cols : 0;
-}
+// ------------------------------------ float32: 3xTF32 on the tensor cores
 
-// ------------------------------------------------- float32: SIMT kernels
-
-constexpr int kF32Threads = 256;
-constexpr int kF32Tile = 64;       // rows of the other side a step
-constexpr int kPPad = kF32Tile + 1;
+constexpr int kF32BwdThreads = 256;  // 4 warp pairs x 16 own rows
+constexpr int kF32Tile = 64;         // rows of the other side a stage
 
 template <int D>
-constexpr int f32_bwd_smem_bytes() {
-  return (4 * kOwn * (D + 1) + kOwn * kPPad + 2 * kF32Tile) *
+constexpr int f32_dkdv_smem_bytes() {  // K, V; 2 x (Q, dO); 2 x (lse, delta)
+  return (6 * kOwn * f32_pitch<D>() + 4 * kF32Tile) *
          static_cast<int>(sizeof(float));
 }
-
-// rows r0.. of a (rows x D) tile at pitch D + 1, zeros past n
-__device__ __forceinline__ void f32_rows(float* dst, const float* src,
-                                         long long stride, int r0, int n,
-                                         int rows, int D) {
-  for (int i = threadIdx.x; i < rows * D; i += kF32Threads) {
-    const int r = i / D, d = i % D;
-    dst[r * (D + 1) + d] = r0 + r < n ? src[(r0 + r) * stride + d] : 0.0f;
-  }
+template <int D>
+constexpr int f32_dq_smem_bytes() {    // Q, dO; 2 x (K, V)
+  return 6 * kOwn * f32_pitch<D>() * static_cast<int>(sizeof(float));
 }
 
-// The score-side arithmetic shared by both float32 kernels: from the raw
-// product qk and dP of one (row, key), -> (p, dS).
-__device__ __forceinline__ void f32_p_ds(float qk, float dp, float lse,
-                                         float dl, bool ok, float cap,
-                                         float sqrt_d, float& p,
-                                         float& ds) {
-  float x = __fdiv_rn(qk, sqrt_d);
+// Does a (16 or 64 rows from r0) x (cols from c0) block score nothing
+// (dead), or everything (interior: no mask to apply)?  rows are queries.
+__device__ __forceinline__ bool f32_dead(int r0, int nr, int c0, int nc,
+                                         int S, int Sk, int causal,
+                                         int window) {
+  return r0 >= S || c0 >= Sk || (causal && c0 > r0 + nr - 1) ||
+         (window > 0 && r0 - (c0 + nc - 1) >= window);
+}
+__device__ __forceinline__ bool f32_interior(int r0, int nr, int c0, int nc,
+                                             int S, int Sk, int causal,
+                                             int window) {
+  return r0 + nr <= S && c0 + nc <= Sk && (!causal || c0 + nc - 1 <= r0) &&
+         (window <= 0 || r0 + nr - 1 - c0 < window);
+}
+
+// P and dS of one score, from the raw products s = q.k and dp = dO.v,
+// the row's lse L and delta dl; in place (s <- P, dp <- dS)
+template <bool kEdge>
+__device__ __forceinline__ void f32_p_ds(float& s, float& dp, float L,
+                                         float dl, bool ok, float rsd,
+                                         float cap, float rcap) {
+  float x = s * rsd;
   float dc = 1.0f;
   if (cap > 0.0f) {
-    const float t = tanhf(__fdiv_rn(x, cap));
+    const float t = tanhf(x * rcap);
     x = cap * t;
     dc = 1.0f - t * t;
   }
-  p = ok ? expf(x - lse) : 0.0f;
-  ds = __fdiv_rn(p * (dp - dl) * dc, sqrt_d);
+  const float p = !kEdge || ok ? expf(x - L) : 0.0f;
+  s = p;
+  dp = p * (dp - dl) * dc * rsd;
 }
 
+// The pair's partial sums, combined in a fixed order: warp w + 4 (half 1)
+// leaves its accumulators in `red` (rows r0 .., D floats a row, this
+// warp's 16 rows), warp w (half 0) adds them to its own with IEEE adds
 template <int D>
-__global__ void __launch_bounds__(kF32Threads)
-fa_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, float* __restrict__ dk,
-                float* __restrict__ dv, int Hq, int Hkv, int S, int Sk,
-                Strides sq, Strides sk, Strides sv, Strides sdo,
-                Strides sdk, Strides sdv, int causal, int window, float cap,
-                float sqrt_d) {
-  constexpr int DP = D + 1;
-  constexpr int C = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;                      // [kOwn][DP]
-  float* Vs = Ks + kOwn * DP;
-  float* Qs = Vs + kOwn * DP;            // [kF32Tile][DP]
-  float* Os = Qs + kF32Tile * DP;        // dO
-  float* Ps = Os + kF32Tile * DP;        // [kOwn][kPPad]: P, then dS
-  float* Ls = Ps + kOwn * kPPad;         // the tile's lse
-  float* Dl = Ls + kF32Tile;             // and delta
+__device__ __forceinline__ void pair_sum(float (&acc)[D / 8][4], float* red,
+                                         int rows0, int half, int g,
+                                         int t4) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float* row = red + (rows0 + g + 8 * r) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      if (half == 1) {
+        row[8 * j] = acc[j][2 * r];
+        row[8 * j + 1] = acc[j][2 * r + 1];
+      }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float* row = red + (rows0 + g + 8 * r) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      if (half == 0) {
+        acc[j][2 * r] = __fadd_rn(acc[j][2 * r], row[8 * j]);
+        acc[j][2 * r + 1] = __fadd_rn(acc[j][2 * r + 1], row[8 * j + 1]);
+      }
+  }
+}
+
+// dK/dV: block (b * Hkv + kv head, key tile of kOwn keys; the first key
+// tiles, which causal masking gives the most query tiles, launch first),
+// 8 warps: warp w owns keys k0 + 16 (w % 4) .. and takes half w / 4 of
+// each stage's queries.  For each query head of the group and each query
+// tile that can see the keys, in that order (stage i), the stage's Q, dO
+// and rows' lse and delta are copied into buffer i % 2 while stage i - 1
+// is multiplied.  dK and dV stay in registers: GQA's sum over the group is
+// this loop, not atomics; at the end each pair adds its two halves in a
+// fixed order (pair_sum).
+template <int D>
+__global__ void __launch_bounds__(kF32BwdThreads, 1)
+fa_bwd_dkdv_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v,
+                 const float* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dk,
+                 float* __restrict__ dv, int Hq, int Hkv, int S, int Sk,
+                 Strides sq, Strides sk, Strides sv, Strides sdo,
+                 Strides sdk, Strides sdv, int causal, int window,
+                 float rsd, float cap, float rcap, int vec) {
+  constexpr int P = f32_pitch<D>();
+  constexpr int QW = kF32Tile / 2;         // a warp's queries of a stage
+  constexpr int NQ = QW / 8;               // their n-tiles
+  constexpr int ND = D / 8;
+  constexpr int T = kF32BwdThreads;
+  extern __shared__ __align__(16) float fsm[];
+  float* Ks = fsm;                         // [kOwn][P]
+  float* Vs = Ks + kOwn * P;
+  float* Qs = Vs + kOwn * P;               // [2][kF32Tile][P]
+  float* Os = Qs + 2 * kF32Tile * P;       // dO
+  float* Ls = Os + 2 * kF32Tile * P;       // [2][kF32Tile]: lse
+  float* Dl = Ls + 2 * kF32Tile;           // and delta
   const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;  // keys 4ty.., queries tx+16j
-  const int hk = blockIdx.y % Hkv;
-  const int b = blockIdx.y / Hkv;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int w4 = warp & 3, half = warp >> 2;
+  const int hk = blockIdx.x % Hkv;
+  const int b = blockIdx.x / Hkv;
   const int group = Hq / Hkv;
-  const int k0 = blockIdx.x * kOwn;
-  f32_rows(Ks, k + b * sk.b + hk * sk.h, sk.s, k0, Sk, kOwn, D);
-  f32_rows(Vs, v + b * sv.b + hk * sv.h, sv.s, k0, Sk, kOwn, D);
-  float dka[4][C], dva[4][C];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < C; ++c) dka[i][c] = dva[i][c] = 0.0f;
+  const int k0 = blockIdx.y * kOwn;
+  const int kw = k0 + 16 * w4;             // this warp's keys
   int qt_first, qt_end;
   query_tiles(k0, kF32Tile, S, causal, window, qt_first, qt_end);
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = hk * group + hh;
-    const long long lrow = (static_cast<long long>(b) * Hq + h) * S;
-    for (int qt = qt_first; qt < qt_end; ++qt) {
-      const int q0 = qt * kF32Tile;
-      __syncthreads();                   // the last tile is consumed
-      f32_rows(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, kF32Tile, D);
-      f32_rows(Os, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S, kF32Tile,
-               D);
-      if (tid < kF32Tile) {
-        const bool in = q0 + tid < S;
-        Ls[tid] = in ? lse[lrow + q0 + tid] : 0.0f;
-        Dl[tid] = in ? delta[lrow + q0 + tid] : 0.0f;
-      }
-      __syncthreads();
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float kv[4], vv[4], qv[4], ov[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = Ks[(4 * ty + i) * DP + d];
-          vv[i] = Vs[(4 * ty + i) * DP + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qv[j] = Qs[(tx + 16 * j) * DP + d];
-          ov[j] = Os[(tx + 16 * j) * DP + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-            dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int key = k0 + 4 * ty + i, col = tx + 16 * j;
-          float p, ds;
-          f32_p_ds(s[i][j], dp[i][j], Ls[col], Dl[col],
-                   scored(q0 + col, key, S, Sk, causal, window), cap,
-                   sqrt_d, p, ds);
-          Ps[(4 * ty + i) * kPPad + col] = p;
-          s[i][j] = ds;
-        }
-      __syncthreads();
-      // dV += P^T dO
-#pragma unroll 4
-      for (int r = 0; r < kF32Tile; ++r) {
-        float pv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) pv[i] = Ps[(4 * ty + i) * kPPad + r];
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const float ov = Os[r * DP + tx + 16 * c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) dva[i][c] = fmaf(pv[i], ov, dva[i][c]);
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          Ps[(4 * ty + i) * kPPad + tx + 16 * j] = s[i][j];
-      __syncthreads();
-      // dK += dS^T Q
-#pragma unroll 4
-      for (int r = 0; r < kF32Tile; ++r) {
-        float pv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) pv[i] = Ps[(4 * ty + i) * kPPad + r];
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const float qv = Qs[r * DP + tx + 16 * c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) dka[i][c] = fmaf(pv[i], qv, dka[i][c]);
-        }
-      }
+  const int n_tiles = max(qt_end - qt_first, 0);
+  const int n = group * n_tiles;
+
+  auto load_stage = [&](int i) {
+    const int buf = i & 1;
+    const int h = hk * group + i / n_tiles;
+    const int q0 = (qt_first + i % n_tiles) * kF32Tile;
+    f32_tile_async<D, kF32Tile, T>(Qs + buf * kF32Tile * P,
+                                   q + b * sq.b + h * sq.h, sq.s, q0, S, vec,
+                                   tid);
+    f32_tile_async<D, kF32Tile, T>(Os + buf * kF32Tile * P,
+                                   dout + b * sdo.b + h * sdo.h, sdo.s, q0, S,
+                                   vec, tid);
+    if (tid < 2 * kF32Tile) {
+      const long long at = (static_cast<long long>(b) * Hq + h) * S + q0;
+      const int r = tid & (kF32Tile - 1);
+      const bool ok = q0 + r < S;
+      const float* src = tid < kF32Tile ? lse : delta;
+      cp_async4(smem_u32((tid < kF32Tile ? Ls : Dl) + buf * kF32Tile + r),
+                ok ? src + at + r : src, ok);
     }
+  };
+  f32_tile_async<D, kOwn, T>(Ks, k + b * sk.b + hk * sk.h, sk.s, k0, Sk,
+                             vec, tid);
+  f32_tile_async<D, kOwn, T>(Vs, v + b * sv.b + hk * sv.h, sv.s, k0, Sk,
+                             vec, tid);
+  if (n > 0) load_stage(0);
+  cp_async_commit();
+
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.0f;
+  const float* ka = Ks + (16 * w4 + g) * P + t4;   // A rows: own keys
+  const float* va = Vs + (16 * w4 + g) * P + t4;
+  for (int i = 0; i < n; ++i) {
+    const int buf = i & 1;
+    const int qc = (qt_first + i % n_tiles) * kF32Tile + QW * half;
+    cp_async_wait<0>();                    // stage i has landed, and every
+    __syncthreads();                       // warp is done with stage i - 1
+    if (i + 1 < n) {
+      load_stage(i + 1);
+      cp_async_commit();
+    }
+    if (f32_dead(qc, QW, kw, 16, S, Sk, causal, window)) continue;
+    const bool edge = !f32_interior(qc, QW, kw, 16, S, Sk, causal, window);
+    const float* Qt = Qs + (buf * kF32Tile + QW * half) * P;  // its rows
+    const float* Ot = Os + (buf * kF32Tile + QW * half) * P;
+    const float* Lt = Ls + buf * kF32Tile + QW * half;
+    const float* Dt = Dl + buf * kF32Tile + QW * half;
+    float s[NQ][4], dp[NQ][4];             // keys x queries
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+    products_nk<D, NQ>(s, ka, Qt, g, t4);    // S^T = K Q^T
+    products_nk<D, NQ>(dp, va, Ot, g, t4);   // dP^T = V dO^T
+    // P^T and dS^T in place: element (j, e) is key kw + g + 8 (e / 2),
+    // query qc + 8j + 2 t4 + e % 2
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t4 + (e & 1);
+        if (edge)
+          f32_p_ds<true>(s[j][e], dp[j][e], Lt[col], Dt[col],
+                         scored(qc + col, kw + g + 8 * (e >> 1), S, Sk,
+                                causal, window), rsd, cap, rcap);
+        else
+          f32_p_ds<false>(s[j][e], dp[j][e], Lt[col], Dt[col], true, rsd,
+                          cap, rcap);
+      }
+    products_kn<D, NQ>(dva, s, Ot, g, t4);   // dV += P^T dO
+    products_kn<D, NQ>(dka, dp, Qt, g, t4);  // dK += dS^T Q
   }
+  cp_async_wait<0>();
+  __syncthreads();                         // the stages' buffers are free
+  pair_sum<D>(dva, Qs, 16 * w4, half, g, t4);
+  pair_sum<D>(dka, Qs + kOwn * D, 16 * w4, half, g, t4);
+  if (half == 1) return;
   float* dkb = dk + b * sdk.b + hk * sdk.h;
   float* dvb = dv + b * sdv.b + hk * sdv.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + 4 * ty + i;
+  for (int r = 0; r < 2; ++r) {
+    const int key = kw + g + 8 * r;
     if (key >= Sk) continue;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      dkb[key * sdk.s + tx + 16 * c] = dka[i][c];
-      dvb[key * sdv.s + tx + 16 * c] = dva[i][c];
+    for (int j = 0; j < ND; ++j) {
+      const int col = 8 * j + 2 * t4;
+      dkb[key * sdk.s + col] = dka[j][2 * r];
+      dkb[key * sdk.s + col + 1] = dka[j][2 * r + 1];
+      dvb[key * sdv.s + col] = dva[j][2 * r];
+      dvb[key * sdv.s + col + 1] = dva[j][2 * r + 1];
     }
   }
 }
 
+// dQ: block (b * Hq + head, row tile, key part), 8 warps: warp w owns rows
+// q0 + 16 (w % 4) .. and takes half w / 4 of each key tile; under causal
+// masking the row tiles go last first (the longest first).  The key
+// range is the part's [z part_keys, (z + 1) part_keys) when part_keys > 0
+// (a function of Sk alone, kernel.py dq_key_parts), else all keys.  K
+// and V tiles are copied into buffer i % 2 while tile i - 1 is
+// multiplied.  Each pair adds its two halves in a fixed order (pair_sum);
+// dQ leaves as float32, or as the part's partial (dq_part: (parts, B,
+// Hq, S, D)) that dq_fold adds in part order.
 template <int D>
-__global__ void __launch_bounds__(kF32Threads)
-fa_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dq, int Hq, int Hkv, int S, int Sk,
-              Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq,
-              int causal, int window, float cap, float sqrt_d) {
-  constexpr int DP = D + 1;
-  constexpr int C = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;                      // [kOwn][DP]
-  float* Os = Qs + kOwn * DP;            // dO
-  float* Ks = Os + kOwn * DP;            // [kF32Tile][DP]
-  float* Vs = Ks + kF32Tile * DP;
-  float* Ps = Vs + kF32Tile * DP;        // [kOwn][kPPad]: dS
+__global__ void __launch_bounds__(kF32BwdThreads, 1)
+fa_bwd_dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta, float* __restrict__ dq,
+               float* __restrict__ dq_part, int Hq, int Hkv, int S, int Sk,
+               Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq,
+               int causal, int window, float rsd, float cap, float rcap,
+               int part_keys, int vec) {
+  constexpr int P = f32_pitch<D>();
+  constexpr int KW = kF32Tile / 2;         // a warp's keys of a tile
+  constexpr int NK = KW / 8;
+  constexpr int ND = D / 8;
+  constexpr int T = kF32BwdThreads;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;                         // [kOwn][P]
+  float* Os = Qs + kOwn * P;               // dO
+  float* Ks = Os + kOwn * P;               // [2][kF32Tile][P]
+  float* Vs = Ks + 2 * kF32Tile * P;
   const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;  // rows 4ty.., keys tx+16j
-  const int h = blockIdx.y % Hq;
-  const int b = blockIdx.y / Hq;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int w4 = warp & 3, half = warp >> 2;
+  const int h = blockIdx.x % Hq;
+  const int b = blockIdx.x / Hq;
   const int hk = h / (Hq / Hkv);
-  const int q0 = blockIdx.x * kOwn;
-  const long long lrow = static_cast<long long>(blockIdx.y) * S;
-  f32_rows(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, kOwn, D);
-  f32_rows(Os, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S, kOwn, D);
-  float lr[4], dl[4], acc[4][C];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    lr[i] = row < S ? lse[lrow + row] : 0.0f;
-    dl[i] = row < S ? delta[lrow + row] : 0.0f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[i][c] = 0.0f;
-  }
+  const int rb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = rb * kOwn;
+  const int rw = q0 + 16 * w4;             // this warp's rows
+  const int key_lo = part_keys > 0 ? blockIdx.z * part_keys : 0;
+  const int key_hi = part_keys > 0 ? min(Sk, key_lo + part_keys) : Sk;
+  const int n_keys = min(causal ? min(Sk, q0 + kOwn) : Sk, key_hi);
+  const int t_first = max(
+      window > 0 ? max(q0 - window + 1, 0) / kF32Tile : 0,
+      key_lo / kF32Tile);
+  const int n = max((n_keys + kF32Tile - 1) / kF32Tile - t_first, 0);
   const float* kb = k + b * sk.b + hk * sk.h;
   const float* vb = v + b * sv.b + hk * sv.h;
-  int t_first, t_end;
-  key_tiles(q0, kF32Tile, Sk, causal, window, t_first, t_end);
-  for (int t = t_first; t < t_end; ++t) {
-    const int k0 = t * kF32Tile;
-    __syncthreads();                     // the last tile is consumed
-    f32_rows(Ks, kb, sk.s, k0, Sk, kF32Tile, D);
-    f32_rows(Vs, vb, sv.s, k0, Sk, kF32Tile, D);
-    __syncthreads();
-    float s[4][4], dp[4][4];
+
+  auto load_stage = [&](int i) {
+    const int buf = i & 1;
+    const int c0 = (t_first + i) * kF32Tile;
+    f32_tile_async<D, kF32Tile, T>(Ks + buf * kF32Tile * P, kb, sk.s, c0, Sk,
+                                   vec, tid);
+    f32_tile_async<D, kF32Tile, T>(Vs + buf * kF32Tile * P, vb, sv.s, c0, Sk,
+                                   vec, tid);
+  };
+  f32_tile_async<D, kOwn, T>(Qs, q + b * sq.b + h * sq.h, sq.s, q0, S, vec,
+                             tid);
+  f32_tile_async<D, kOwn, T>(Os, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S,
+                             vec, tid);
+  if (n > 0) load_stage(0);
+  cp_async_commit();
+
+  const int row0 = rw + g;                 // this thread's rows: +0, +8
+  const long long lrow = static_cast<long long>(blockIdx.x) * S;
+  float lr[2], dl[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = Qs[(4 * ty + i) * DP + d];
-        ov[i] = Os[(4 * ty + i) * DP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * DP + d];
-        vv[j] = Vs[(tx + 16 * j) * DP + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = q0 + 4 * ty + i, key = k0 + tx + 16 * j;
-        float p, ds;
-        f32_p_ds(s[i][j], dp[i][j], lr[i], dl[i],
-                 scored(row, key, S, Sk, causal, window), cap, sqrt_d, p,
-                 ds);
-        Ps[(4 * ty + i) * kPPad + tx + 16 * j] = ds;
-      }
-    __syncwarp();                        // rows 4ty.. are this half-warp's
-    // dQ += dS K
-#pragma unroll 4
-    for (int r = 0; r < kF32Tile; ++r) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(4 * ty + i) * kPPad + r];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float kv = Ks[r * DP + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], kv, acc[i][c]);
-      }
-    }
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    lr[r] = row < S ? lse[lrow + row] : 0.0f;
+    dl[r] = row < S ? delta[lrow + row] : 0.0f;
   }
-  float* dqb = dq + b * sdq.b + h * sdq.h;
+  float acc[ND][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  const float* qa = Qs + (16 * w4 + g) * P + t4;   // A rows: own queries
+  const float* oa = Os + (16 * w4 + g) * P + t4;
+  for (int i = 0; i < n; ++i) {
+    const int buf = i & 1;
+    const int cw = (t_first + i) * kF32Tile + KW * half;  // its keys
+    cp_async_wait<0>();                    // tile i has landed, and every
+    __syncthreads();                       // warp is done with tile i - 1
+    if (i + 1 < n) {
+      load_stage(i + 1);
+      cp_async_commit();
+    }
+    if (f32_dead(rw, 16, cw, KW, S, Sk, causal, window)) continue;
+    const bool edge = !f32_interior(rw, 16, cw, KW, S, Sk, causal, window);
+    const float* Kt = Ks + (buf * kF32Tile + KW * half) * P;
+    const float* Vt = Vs + (buf * kF32Tile + KW * half) * P;
+    float s[NK][4], dp[NK][4];             // rows x keys
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+    products_nk<D, NK>(s, qa, Kt, g, t4);    // S = Q K^T
+    products_nk<D, NK>(dp, oa, Vt, g, t4);   // dP = dO V^T
+    // P and dS in place: element (j, e) is row row0 + 8 (e / 2), key cw +
+    // 8j + 2 t4 + e % 2
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        if (edge)
+          f32_p_ds<true>(s[j][e], dp[j][e], lr[r], dl[r],
+                         scored(row0 + 8 * r, cw + 8 * j + 2 * t4 + (e & 1),
+                                S, Sk, causal, window), rsd, cap, rcap);
+        else
+          f32_p_ds<false>(s[j][e], dp[j][e], lr[r], dl[r], true, rsd, cap,
+                          rcap);
+      }
+    products_kn<D, NK>(acc, dp, Kt, g, t4);  // dQ += dS K
+  }
+  cp_async_wait<0>();
+  __syncthreads();                         // the tiles' buffers are free
+  pair_sum<D>(acc, Ks, 16 * w4, half, g, t4);
+  if (half == 1) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
     if (row >= S) continue;
+    float* out = dq_part != nullptr
+        ? dq_part + ((static_cast<long long>(blockIdx.z) * gridDim.x
+                      + blockIdx.x) * S + row) * D
+        : dq + b * sdq.b + h * sdq.h + row * sdq.s;
 #pragma unroll
-    for (int c = 0; c < C; ++c) dqb[row * sdq.s + tx + 16 * c] = acc[i][c];
+    for (int j = 0; j < ND; ++j) {
+      out[8 * j + 2 * t4] = acc[j][2 * r];
+      out[8 * j + 2 * t4 + 1] = acc[j][2 * r + 1];
+    }
   }
 }
 
@@ -974,9 +1061,18 @@ fa_bwd_delta_bf16(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   if (row < n_rows && piece == 0) delta[row] = acc;
 }
 
-// dq = the parts' float32 partials added in part order, rounded to bf16;
-// a thread a pair of columns
-__global__ void dq_fold(const float* __restrict__ part, bf16* __restrict__ dq,
+// dq = the parts' float32 partials added in part order, stored in dq's
+// type (rounded to bf16, or float32 as summed); a thread a pair of columns
+__device__ __forceinline__ void store_pair(bf16* at, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(at) = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ void store_pair(float* at, float x, float y) {
+  at[0] = x;                               // float32 rows may sit at any
+  at[1] = y;                               // offset: no 8-byte store
+}
+
+template <typename T>
+__global__ void dq_fold(const float* __restrict__ part, T* __restrict__ dq,
                         int parts, int Hq, int S, int D, Strides sdq,
                         long long n_pairs) {
   const long long m = static_cast<long long>(blockIdx.x) * blockDim.x
@@ -996,8 +1092,18 @@ __global__ void dq_fold(const float* __restrict__ part, bf16* __restrict__ dq,
     s.x = __fadd_rn(s.x, x.x);
     s.y = __fadd_rn(s.y, x.y);
   }
-  *reinterpret_cast<__nv_bfloat162*>(dq + b * sdq.b + h * sdq.h + i * sdq.s
-                                     + d) = __floats2bfloat162_rn(s.x, s.y);
+  store_pair(dq + b * sdq.b + h * sdq.h + i * sdq.s + d, s.x, s.y);
+}
+
+// dq_fold over (B, Hq, S, D) on `stream`
+template <typename T>
+cudaError_t launch_fold(const float* dq_part, T* dq, int parts, int B,
+                        int Hq, int S, int D, Strides sdq,
+                        cudaStream_t stream) {
+  const long long n_pairs = static_cast<long long>(B) * Hq * S * D / 2;
+  dq_fold<T><<<static_cast<unsigned>((n_pairs + 255) / 256), 256, 0,
+               stream>>>(dq_part, dq, parts, Hq, S, D, sdq, n_pairs);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ launchers
@@ -1021,35 +1127,52 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const float* lse,
                    float* delta, void* dq, void* dk, void* dv, int B, int Hq,
                    int Hkv, int S, int Sk, const long long* st, int causal,
-                   int window, float cap, float* /*dq_part*/,
-                   int /*part_keys*/, void* stream_ptr) {
+                   int window, float cap, float* dq_part, int part_keys,
+                   void* stream_ptr) {
   const auto stream = static_cast<cudaStream_t>(stream_ptr);
+  const int parts = part_keys > 0 ? (Sk + part_keys - 1) / part_keys : 1;
+  if (part_keys < 0 || part_keys % kF32Tile ||
+      (parts > 1 && (causal || dq_part == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   int rc = launch_delta<float>(o, dout, delta, B, Hq, S, D, st, stream);
   if (rc) return rc;
-  const int smem = f32_bwd_smem_bytes<D>();
   static bool opted_kv[kMaxDevices] = {}, opted_q[kMaxDevices] = {};
-  cudaError_t err = opt_in(fa_bwd_dkdv_f32<D>, smem, opted_kv);
-  if (err == cudaSuccess) err = opt_in(fa_bwd_dq_f32<D>, smem, opted_q);
+  cudaError_t err = opt_in(fa_bwd_dkdv_tf32<D>, f32_dkdv_smem_bytes<D>(),
+                           opted_kv);
+  if (err == cudaSuccess)
+    err = opt_in(fa_bwd_dq_tf32<D>, f32_dq_smem_bytes<D>(), opted_q);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const float sqrt_d = sqrtf(static_cast<float>(D));
+  const Strides sq = strides_of(st, 0), sk = strides_of(st, 1),
+                sv = strides_of(st, 2), sdo = strides_of(st, 4);
+  const int vec = f32_rows_aligned(q, sq, B, Hq, S) &&
+                  f32_rows_aligned(k, sk, B, Hkv, Sk) &&
+                  f32_rows_aligned(v, sv, B, Hkv, Sk) &&
+                  f32_rows_aligned(dout, sdo, B, Hq, S);
+  const float rsd = 1.0f / sqrtf(static_cast<float>(D));
+  const float rcap = cap > 0.0f ? 1.0f / cap : 0.0f;
   const auto* qf = static_cast<const float*>(q);
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);
   const auto* df = static_cast<const float*>(dout);
-  fa_bwd_dkdv_f32<D><<<dim3((Sk + kOwn - 1) / kOwn, B * Hkv), kF32Threads,
-                       smem, stream>>>(
+  fa_bwd_dkdv_tf32<D><<<dim3(B * Hkv, (Sk + kOwn - 1) / kOwn),
+                        kF32BwdThreads, f32_dkdv_smem_bytes<D>(), stream>>>(
       qf, kf, vf, df, lse, delta, static_cast<float*>(dk),
-      static_cast<float*>(dv), Hq, Hkv, S, Sk, strides_of(st, 0),
-      strides_of(st, 1), strides_of(st, 2), strides_of(st, 4),
-      strides_of(st, 6), strides_of(st, 7), causal, window, cap, sqrt_d);
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc) return rc;
-  fa_bwd_dq_f32<D><<<dim3((S + kOwn - 1) / kOwn, B * Hq), kF32Threads, smem,
-                     stream>>>(
-      qf, kf, vf, df, lse, delta, static_cast<float*>(dq), Hq, Hkv, S, Sk,
-      strides_of(st, 0), strides_of(st, 1), strides_of(st, 2),
-      strides_of(st, 4), strides_of(st, 5), causal, window, cap, sqrt_d);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<float*>(dv), Hq, Hkv, S, Sk, sq, sk, sv, sdo,
+      strides_of(st, 6), strides_of(st, 7), causal, window, rsd, cap, rcap,
+      vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fa_bwd_dq_tf32<D><<<dim3(B * Hq, (S + kOwn - 1) / kOwn, parts),
+                      kF32BwdThreads, f32_dq_smem_bytes<D>(), stream>>>(
+      qf, kf, vf, df, lse, delta, static_cast<float*>(dq),
+      parts > 1 ? dq_part : nullptr, Hq, Hkv, S, Sk, sq, sk, sv, sdo,
+      strides_of(st, 5), causal, window, rsd, cap, rcap,
+      parts > 1 ? part_keys : 0, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || parts == 1) return static_cast<int>(err);
+  return static_cast<int>(launch_fold(dq_part, static_cast<float*>(dq),
+                                      parts, B, Hq, S, D, strides_of(st, 5),
+                                      stream));
 }
 
 constexpr int kSms = 132;            // an H100's SMs: a grid below
@@ -1168,17 +1291,15 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
                                 part_keys, B, Hq, Hkv, S, Sk, st, causal,
                                 window, rsd, cap, stream);
   if (err != cudaSuccess || parts == 1) return static_cast<int>(err);
-  const long long n_pairs = static_cast<long long>(B) * Hq * S * D / 2;
-  dq_fold<<<static_cast<unsigned>((n_pairs + 255) / 256), 256, 0, stream>>>(
-      dq_part, dqb, parts, Hq, S, D, strides_of(st, 5), n_pairs);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_fold(dq_part, dqb, parts, B, Hq, S, D,
+                                      strides_of(st, 5), stream));
 }
 
 }  // namespace
 
 // S: query rows, Sk: keys; lse: the forward's (B, Hq, S) float32; delta:
 // (B, Hq, S) float32 scratch; strides: 24 int64 (see launch_delta);
-// window: 0 for none; dq_part, part_keys: bf16 only, the dQ key split
+// window: 0 for none; dq_part, part_keys: the dQ key split
 // (kernel.py dq_key_parts): part_keys > 0 (a multiple of 64, non-causal
 // only) splits the keys into parts of that many, whose float32 partials
 // go to dq_part (ceil(Sk / part_keys), B, Hq, S, D) and are folded in

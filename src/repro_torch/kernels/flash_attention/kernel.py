@@ -20,32 +20,47 @@ _ENTRY = {(torch.float32, 64): "fa_launch_f32_d64",
           (torch.bfloat16, 64): "fa_launch_bf16_d64",
           (torch.bfloat16, 128): "fa_launch_bf16_d128"}
 _ARGS = (build.PTR,) * 4 + (build.INT,) * 5 + (
-    build.PTR, build.INT, build.INT, ctypes.c_float, build.PTR, build.PTR)
+    build.PTR, build.INT, build.INT, ctypes.c_float, build.PTR, build.PTR,
+    build.INT, build.PTR)
 _BWD_ENTRY = {key: name.replace("fa_launch", "fa_bwd_launch")
               for key, name in _ENTRY.items()}
 _BWD_ARGS = (build.PTR,) * 10 + (build.INT,) * 5 + (
     build.PTR, build.INT, build.INT, ctypes.c_float, build.PTR, build.INT,
     build.PTR)
 
-KEY_TILE = 64          # keys a tile of the backward kernels (csrc kTile)
-DQ_PART_KEYS = 512     # the most keys a part of dQ's key split holds
+KEY_TILE = 64          # keys a tile of the kernels (csrc kBK, kTile)
+DQ_PART_KEYS = 512     # the most keys a part of a key split holds
+FWD_SPLIT_ROWS = 128   # the most query rows of a split float32 forward
 
 
-def dq_key_parts(sk: int, causal: bool, dtype) -> list:
+def dq_key_parts(sk: int, causal: bool) -> list:
     """The backward's dQ key split: [(start, end), ...] covering [0, sk)
-    in order, without overlap.  The bfloat16 kernels split a non-causal
-    call with more than ``DQ_PART_KEYS`` keys into ceil(sk /
-    DQ_PART_KEYS) parts of equal whole 64-key tiles (the last one
-    short); every other call (causal, few keys, or float32, whose SIMT
-    kernels do not split) is one part.  A function of sk alone, never of
-    the batch, the heads or the query length, so a row's dq does not
-    depend on what else is computed with it."""
-    if dtype != torch.bfloat16 or causal or sk <= DQ_PART_KEYS:
+    in order, without overlap.  A non-causal call with more than
+    ``DQ_PART_KEYS`` keys splits into ceil(sk / DQ_PART_KEYS) parts of
+    equal whole 64-key tiles (the last one short); every other call
+    (causal, or few keys) is one part.  Both dtypes' kernels take it.  A
+    function of sk alone, never of the batch, the heads or the query
+    length, so a row's dq does not depend on what else is computed with
+    it."""
+    if causal or sk <= DQ_PART_KEYS:
         return [(0, sk)]
     tiles = -(-sk // KEY_TILE)
     n = -(-sk // DQ_PART_KEYS)
     per = -(-tiles // n) * KEY_TILE
     return [(a, min(sk, a + per)) for a in range(0, sk, per)]
+
+
+def fwd_key_parts(sq: int, sk: int, causal: bool, dtype) -> list:
+    """The float32 forward's key split: a non-causal float32 call with at
+    most ``FWD_SPLIT_ROWS`` query rows (two query tiles: whisper's
+    cross-attention of a prompt, or of one decode position, against the
+    encoder's frames) takes dQ's parts (``dq_key_parts``), one block a
+    part, so that a short grid still fills the card; every other call is
+    one part.  A function of the two lengths (and the dtype) alone,
+    never of the batch or the heads."""
+    if dtype != torch.float32 or causal or sq > FWD_SPLIT_ROWS:
+        return [(0, sk)]
+    return dq_key_parts(sk, causal)
 
 
 def _check(x: torch.Tensor, what: str, dtype, shape, dev):
@@ -119,6 +134,10 @@ def _forward(q, k, v, causal, logit_cap, window, with_lse):
     out = torch.empty_like(q)          # q's layout (dense: same strides)
     lse = (torch.empty((b, hq, s), dtype=torch.float32, device=dev)
            if with_lse else None)
+    parts = fwd_key_parts(s, sk, causal, q.dtype)
+    part_keys = parts[0][1] if len(parts) > 1 else 0
+    part = (torch.empty((len(parts), b, hq, s, d + 2), dtype=torch.float32,
+                        device=dev) if part_keys else None)
     strides = _strides(q, k, v, out)
     fn = build.c_function(_ENTRY[(q.dtype, d)], _ARGS)
     with torch.cuda.device(dev):
@@ -126,9 +145,11 @@ def _forward(q, k, v, causal, logit_cap, window, with_lse):
                 b, hq, hkv, s, sk, ctypes.addressof(strides),
                 int(bool(causal)), window, float(logit_cap or 0.0),
                 None if lse is None else lse.data_ptr(),
+                None if part is None else part.data_ptr(), part_keys,
                 build.stream_ptr(dev))
     build.check_launch(rc, "flash_attention")
     flash_attention_kernel.launches += 1
+    flash_attention_kernel.key_parts = len(parts)
     return out, lse
 
 
@@ -146,13 +167,16 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel on the current stream: bfloat16 runs on the tensor cores
-    (``mma.sync``, P rounded to bfloat16), float32 on the SIMT kernel
-    (float32 FMAs).  The kernel takes any strides with a contiguous head
-    dimension (so a ``(B, S, H, D)`` tensor transposed to
-    ``(B, H, S, D)`` goes in without a copy), D in {64, 128}, any
-    S >= 1 and Hq a multiple of Hkv.  In bfloat16 the pointers and the
-    batch, head and sequence strides must be 16-byte aligned; a view
-    that is not raises ``ValueError`` (it is not copied).
+    (``mma.sync``, P rounded to bfloat16), float32 on them too in
+    3xTF32 (each operand split into TF32 hi and lo, three products,
+    float32 accumulation), its keys split by ``fwd_key_parts`` where few
+    query rows meet many keys (a fold in part order).  The kernel takes
+    any strides with a contiguous head dimension (so a ``(B, S, H, D)``
+    tensor transposed to ``(B, H, S, D)`` goes in without a copy), D in
+    {64, 128}, any S >= 1 and Hq a multiple of Hkv.  In bfloat16 the
+    pointers and the batch, head and sequence strides must be 16-byte
+    aligned; a view that is not raises ``ValueError`` (it is not
+    copied).
 
     Its result carries no gradient: a CUDA input that requires one, with
     grad enabled, raises ``NotImplementedError``; ``ops.flash_attention``
@@ -169,6 +193,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
 
 
 flash_attention_kernel.launches = 0
+flash_attention_kernel.key_parts = 0     # the last launch's key parts
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -188,9 +213,9 @@ def flash_attention_bwd_kernel(q, k, v, out, dout, lse, *, causal=True,
     Sq) float32, and ``dout`` the gradient of ``out`` -> (dq, dk, dv),
     each in its input's dtype and layout.  CUDA tensors only (the CPU's
     gradient is autograd through the plain version): the delta pre-pass,
-    the dK/dV kernel and the dQ kernel on the current stream, float32 on
-    the SIMT kernels, bfloat16 on warpgroups of the tensor cores (wgmma;
-    P and dS rounded to bfloat16 for their products), where a
+    the dK/dV kernel and the dQ kernel on the current stream, float32 in
+    3xTF32 on the tensor cores (``mma.sync``), bfloat16 on warpgroups of
+    them (wgmma; P and dS rounded to bfloat16 for their products); a
     non-causal call with more than 512 keys splits dQ's keys by
     ``dq_key_parts`` (float32 partials, then a fold in part order; the
     algorithm is ``flash_attention_bwd_ref``).  Deterministic: no
@@ -206,7 +231,7 @@ def flash_attention_bwd_kernel(q, k, v, out, dout, lse, *, causal=True,
                        shape=(b, hq, s), device=dev)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     delta = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
-    parts = dq_key_parts(sk, causal, q.dtype)
+    parts = dq_key_parts(sk, causal)
     part_keys = parts[0][1] if len(parts) > 1 else 0
     dq_part = (torch.empty((len(parts), b, hq, s, d), dtype=torch.float32,
                            device=dev) if part_keys else None)

@@ -41,14 +41,14 @@ def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, causal=True,
     dtype.  ``out`` and ``lse`` (B, Hq, Sq) are the forward's; P is
     recomputed from the lse, delta = rowsum(dout * out) (from ``out`` as
     given: in bf16, the rounded output), dS = P (dP - delta) (1 - t^2
-    with a cap, t = tanh(s / cap)) / sqrt(D).  In bfloat16 (the
-    tensor-core kernels) the scores are scaled by 1 / sqrt(D) and P and
-    dS are rounded to bf16 as the kernel rounds them (the A operands of
-    dV += P^T dO, dK += dS^T Q and dQ += dS K); everything else is
-    float32.  In float32 (the SIMT kernels) they are divided by sqrt(D).
-    dQ is summed over the wrapper's ``kernel.dq_key_parts`` one part at a
-    time and the parts added in order; dK and dV over the group's query
-    heads in order."""
+    with a cap, t = tanh(s / cap)) / sqrt(D), the scores and dS
+    multiplied by 1 / sqrt(D) as both dtypes' kernels multiply.  In
+    bfloat16 P and dS are rounded to bf16 as the kernel rounds them (the
+    A operands of dV += P^T dO, dK += dS^T Q and dQ += dS K); everything
+    else, and all of float32 (3xTF32 products: float32 to ~2^-22 of each
+    product), is float32.  dQ is summed over the wrapper's
+    ``kernel.dq_key_parts`` one part at a time and the parts added in
+    order; dK and dV over the group's query heads in order."""
     # the wrapper's plan (kernel.py imports this module: imported here)
     from repro_torch.kernels.flash_attention.kernel import dq_key_parts
     b, hq, s, d = q.shape
@@ -60,9 +60,8 @@ def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, causal=True,
     qf, kf, vf = (x.float() for x in (q, k, v))
     kf, vf = (x.repeat_interleave(g, dim=1) for x in (kf, vf))
     of, dof = out.float(), dout.float()
-    scale = ((lambda x: x * (1.0 / d ** 0.5)) if bf16
-             else (lambda x: x / d ** 0.5))
-    x = scale(torch.einsum("bhqd,bhkd->bhqk", qf, kf))
+    rsd = 1.0 / d ** 0.5
+    x = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * rsd
     dc = torch.ones_like(x)
     if logit_cap:
         t = torch.tanh(x / logit_cap)
@@ -78,12 +77,12 @@ def flash_attention_bwd_ref(q, k, v, out, dout, lse, *, causal=True,
     p = torch.where(mask, torch.exp(x - lse.float()[..., None]), 0.0)
     delta = (dof * of).sum(dim=-1)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
-    ds = scale(p * (dp - delta[..., None]) * dc)
+    ds = p * (dp - delta[..., None]) * dc * rsd
     pr, dsr = rnd(p), rnd(ds)
     dv = torch.einsum("bhqk,bhqd->bhkd", pr, dof)
     dk = torch.einsum("bhqk,bhqd->bhkd", dsr, qf)
     dq = None
-    for lo, hi in dq_key_parts(sk, causal, q.dtype):
+    for lo, hi in dq_key_parts(sk, causal):
         part = torch.einsum("bhqk,bhkd->bhqd", dsr[..., lo:hi],
                             kf[:, :, lo:hi])
         dq = part if dq is None else dq + part

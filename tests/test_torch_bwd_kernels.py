@@ -17,8 +17,10 @@ from repro.models.layers import _attend as jax_attend
 from torch_cases import _attention_case
 
 from repro_torch.kernels.flash_attention.kernel import (DQ_PART_KEYS,
+                                                        FWD_SPLIT_ROWS,
                                                         KEY_TILE,
-                                                        dq_key_parts)
+                                                        dq_key_parts,
+                                                        fwd_key_parts)
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
 
@@ -143,17 +145,26 @@ def test_flash_attention_bwd_ref_float32_is_autograd_of_the_plain():
             assert _rel(g, w.numpy()) <= GRAD_TOL
 
 
+# the key splits: dQ's (both dtypes' backward) and the float32 forward's
+# where it splits (few query rows), which takes dQ's parts
+KEY_PLANS = {"dq": lambda sk, causal: dq_key_parts(sk, causal),
+             "fwd_f32_1_row": lambda sk, causal: fwd_key_parts(
+                 1, sk, causal, torch.float32),
+             "fwd_f32_128_rows": lambda sk, causal: fwd_key_parts(
+                 FWD_SPLIT_ROWS, sk, causal, torch.float32)}
+
+
+@pytest.mark.parametrize("plan", list(KEY_PLANS))
 @pytest.mark.parametrize("causal", [False, True])
-def test_dq_key_parts_cover_the_keys_in_whole_tiles(causal):
+def test_dq_key_parts_cover_the_keys_in_whole_tiles(causal, plan):
     """For every Sk from 1 to 8192 the parts cover [0, Sk) in order
     without overlap; every inner split point is a multiple of the 64-key
     tile and every part but the last holds the same whole tiles, at
     most DQ_PART_KEYS keys; causal calls and Sk <= DQ_PART_KEYS take one
-    part, and so does every float32 call (its SIMT kernels do not
-    split)."""
+    part.  Both dtypes' backward kernels split (float32's too, since its
+    3xTF32 kernels), and so does the float32 forward of few rows."""
     for sk in range(1, 8193):
-        assert dq_key_parts(sk, causal, torch.float32) == [(0, sk)]
-        parts = dq_key_parts(sk, causal, torch.bfloat16)
+        parts = KEY_PLANS[plan](sk, causal)
         assert parts[0][0] == 0 and parts[-1][1] == sk
         assert all(a < b for a, b in parts)
         assert all(parts[i][1] == parts[i + 1][0]
@@ -167,20 +178,40 @@ def test_dq_key_parts_cover_the_keys_in_whole_tiles(causal):
         assert len(parts) == -(-sk // DQ_PART_KEYS)
 
 
-def test_dq_key_parts_depend_on_sk_alone():
-    """The split is a function of Sk (with causality and the dtype)
-    alone: the wrapper passes only its first part's length, and the
-    kernel cuts the keys at its multiples, which gives the same parts."""
+@pytest.mark.parametrize("plan", list(KEY_PLANS))
+def test_dq_key_parts_depend_on_sk_alone(plan):
+    """The split is a function of Sk (with causality; the forward's also
+    of the query length and the dtype) alone, never of the batch or the
+    heads: the wrappers pass only the first part's length, and the
+    kernels cut the keys at its multiples, which gives the same parts."""
     import inspect
-    bf16 = torch.bfloat16
     assert list(inspect.signature(dq_key_parts).parameters) == [
-        "sk", "causal", "dtype"]
+        "sk", "causal"]
+    assert list(inspect.signature(fwd_key_parts).parameters) == [
+        "sq", "sk", "causal", "dtype"]
     for sk in (513, 1000, 1500, 4097, 8192):
-        parts = dq_key_parts(sk, False, bf16)
+        parts = KEY_PLANS[plan](sk, False)
         per = parts[0][1]
         assert parts == [(a, min(sk, a + per)) for a in range(0, sk, per)]
-    assert dq_key_parts(1500, False, bf16) == [(0, 512), (512, 1024),
-                                               (1024, 1500)]
+    assert KEY_PLANS[plan](1500, False) == [(0, 512), (512, 1024),
+                                            (1024, 1500)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq", [1, 5, 64, 128, 129, 1500])
+def test_fwd_key_parts_split_only_few_float32_rows(sq, causal, dtype):
+    """The forward splits its keys only in float32, non-causal, with at
+    most FWD_SPLIT_ROWS query rows (whisper's cross-attention of a
+    prompt or of one position against 1500 frames: 3 parts); the
+    encoder's 1500 rows, causal calls and bfloat16 take one part."""
+    for sk in (1, 512, 513, 1500, 4097):
+        parts = fwd_key_parts(sq, sk, causal, dtype)
+        split = (dtype == torch.float32 and not causal
+                 and sq <= FWD_SPLIT_ROWS)
+        assert parts == (dq_key_parts(sk, causal) if split
+                         else [(0, sk)])
+    assert len(fwd_key_parts(128, 1500, False, torch.float32)) == 3
 
 
 # ------------------------------------------------ B10's backward geometry

@@ -1315,7 +1315,7 @@ def test_cuda_flash_attention_backward_key_split(sq, sk, d):
         dq_key_parts, flash_attention_bwd_kernel)
     dev = _cuda()
     parts = {63: 1, 1500: 3, 4097: 9}[sk]
-    assert len(dq_key_parts(sk, False, torch.bfloat16)) == parts
+    assert len(dq_key_parts(sk, False)) == parts
     q = torch.from_numpy(_attention_case(25, b=1, hq=6, hkv=2, s=sq,
                                          d=d)[0]).to(dev, torch.bfloat16)
     _, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16)
@@ -1389,6 +1389,134 @@ def test_cuda_flash_attention_lse_matches_logsumexp(dtype):
     assert _rel(lse, torch.logsumexp(s, dim=-1)) <= 1e-5
     assert torch.equal(out, flash_attention_kernel(q, k, v, logit_cap=50.0,
                                                    window=40))
+
+
+# ------------------------------------- B9 in float32: 3xTF32, key splits
+
+def _f32_grads_checked(q, k, v, causal, window, cap):
+    """FlashAttention (float32) against autograd through the plain
+    version: the output within 1e-5, dq/dk/dv within 1e-5 of each
+    gradient's largest magnitude (of the largest of the three where one
+    query makes dq a sum that cancels), two backward runs torch.equal ->
+    (out, lse, (dq, dk, dv))."""
+    from repro_torch.kernels.flash_attention import FlashAttention
+    from repro_torch.kernels.flash_attention.kernel import _forward
+    dev = q.device
+    do = torch.randn(q.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(11), device=dev)
+    out, got = _grads(lambda a, b_, c: FlashAttention.apply(
+        a, b_, c, causal, cap, window), q, k, v, do)
+    _, again = _grads(lambda a, b_, c: FlashAttention.apply(
+        a, b_, c, causal, cap, window), q, k, v, do)
+    want_out, want = _grads(lambda a, b_, c: flash_attention_ref(
+        a, b_, c, causal=causal, logit_cap=cap, window=window), q, k, v, do)
+    with torch.no_grad():
+        _, lse = _forward(q, k, v, causal, cap, window, True)
+    torch.cuda.synchronize()
+    assert _rel(out, want_out) <= 1e-5
+    top = max(w.abs().max().item() for w in want)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert torch.equal(g, a)
+        scale = top if 1 in (q.shape[2], k.shape[2]) else \
+            w.abs().max().item()
+        assert (g - w).abs().max().item() <= 1e-5 * scale
+    return out, lse, got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq", [1, 5, 128])
+def test_cuda_flash_attention_f32_key_split(sq):
+    """Float32, non-causal, 1, 5 and 128 queries against 1500 keys, D 64,
+    GQA 4/2: the forward splits the keys into 3 parts (fwd_key_parts,
+    folded in order) and so does dQ (dq_key_parts); output and lse within
+    1e-5 of plain, gradients within 1e-5, two runs torch.equal."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_kernel)
+    dev = _cuda()
+    q = torch.from_numpy(_attention_case(30, b=1, hq=4, hkv=2, s=sq,
+                                         d=64)[0]).to(dev)
+    _, k, v = (torch.from_numpy(a).to(dev)
+               for a in _attention_case(31, b=1, hq=4, hkv=2, s=1500, d=64))
+    _, lse, _ = _f32_grads_checked(q, k, v, False, 0, 0.0)
+    assert flash_attention_kernel.key_parts == 3
+    assert flash_attention_bwd_kernel.dq_parts == 3
+    s = torch.einsum("bhqd,bhkd->bhqk", q,
+                     k.repeat_interleave(2, dim=1)) / 8.0
+    assert _rel(lse, torch.logsumexp(s, dim=-1)) <= 1e-5
+    assert torch.equal(flash_attention_kernel(q, k, v, causal=False),
+                       flash_attention_kernel(q, k, v, causal=False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq, sk, causal", [(1, 1500, False),
+                                            (128, 1500, False),
+                                            (200, 200, True)])
+def test_cuda_flash_attention_f32_row_alone_equals_batch(sq, sk, causal):
+    """The split plan is a function of the lengths, never of the batch or
+    heads: head 5 of batch 1 computed alone (with its kv head) gives the
+    bits it has inside a call of 2 batches and 8 heads over 2 kv heads,
+    for the output, the lse and dq."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_kernel)
+    from repro_torch.kernels.flash_attention.kernel import _forward
+    dev = _cuda()
+    q = torch.from_numpy(_attention_case(32, b=2, hq=8, hkv=2, s=sq,
+                                         d=64)[0]).to(dev)
+    _, k, v = (torch.from_numpy(a).to(dev)
+               for a in _attention_case(33, b=2, hq=8, hkv=2, s=sk, d=64))
+    do = torch.randn(q.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(12), device=dev)
+    out, lse = _forward(q, k, v, causal, 0.0, 0, True)
+    dq = flash_attention_bwd_kernel(q, k, v, out, do, lse, causal=causal)[0]
+    one = (slice(1, 2), slice(5, 6))
+    kv = (slice(1, 2), slice(1, 2))        # head 5 reads kv head 5 // 4
+    q1, do1 = q[one].contiguous(), do[one].contiguous()
+    k1, v1 = k[kv].contiguous(), v[kv].contiguous()
+    out1, lse1 = _forward(q1, k1, v1, causal, 0.0, 0, True)
+    dq1 = flash_attention_bwd_kernel(q1, k1, v1, out1, do1, lse1,
+                                     causal=causal)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out[one])
+    assert torch.equal(lse1, lse[one])
+    assert torch.equal(dq1, dq[one])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_f32_odd_strides(causal):
+    """Float32 in the model's (B, S, H, D) layout with a row offset: q, k
+    and v are columns of packed rows of H D + 3 floats, starting one float
+    in (no 16-byte alignment anywhere: the 4-byte copies); output and
+    gradients equal, bit for bit, the same values laid out
+    contiguously, and hold the plain version to 1e-5."""
+    from repro_torch.kernels.flash_attention import FlashAttention
+    dev = _cuda()
+    b, hq, hkv, s, d = 2, 4, 2, 130, 64
+    q, k, v = (torch.from_numpy(a).to(dev) for a in
+               _attention_case(34, b=b, hq=hq, hkv=hkv, s=s, d=d))
+
+    def packed(x):
+        """x's values in packed rows; the rows (the leaf) and the view"""
+        h = x.shape[1]
+        rows = torch.zeros((b, s, h * d + 3), device=dev)
+        rows[:, :, 1:1 + h * d] = x.transpose(1, 2).reshape(b, s, h * d)
+        rows.requires_grad_()
+        view = rows[:, :, 1:1 + h * d].view(b, s, h, d).transpose(1, 2)
+        assert view.stride(2) == h * d + 3 and view.data_ptr() % 16 == 4
+        return rows, view
+    (rq, qs), (rk, ks), (rv, vs) = (packed(x) for x in (q, k, v))
+    do = torch.randn(q.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(11), device=dev)
+    out = FlashAttention.apply(qs, ks, vs, causal, 0.0, 0)
+    grads = [g[:, :, 1:1 + x.shape[1] * d].reshape(b, s, x.shape[1], d)
+             .transpose(1, 2) for g, x in zip(
+                 torch.autograd.grad(out, (rq, rk, rv), do), (q, k, v))]
+    want_out, _, want = _f32_grads_checked(q, k, v, causal, 0, 0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want_out)
+    for g, w in zip(grads, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.gpu
