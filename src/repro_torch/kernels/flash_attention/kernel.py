@@ -10,6 +10,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import refuse_detached
 from repro_torch.kernels import build
@@ -28,6 +29,12 @@ _BWD_ARGS = (build.PTR,) * 10 + (build.INT,) * 5 + (
     build.PTR, build.INT, build.INT, ctypes.c_float, build.PTR, build.INT,
     build.PTR)
 
+# head dims the wrappers take by padding (the reduced configurations'
+# heads): zero-padded to the kernels' 64 or 128 with q doubled, so that
+# the kernel's scale, 1/8 or 1/sqrt(128), times 2 is 1/sqrt(16) or
+# 1/sqrt(32) exactly; the scores are the same numbers, the padded
+# columns add zeros to them and come out zero
+PADDED_HEAD = {16: 64, 32: 128}
 KEY_TILE = 64          # keys a tile of the kernels (csrc kBK, kTile)
 DQ_PART_KEYS = 512     # the most keys a part of a key split holds
 FWD_SPLIT_ROWS = 128   # the most query rows of a split float32 forward
@@ -111,7 +118,7 @@ def _check_cuda(q, k, v):
     if (q.dtype, d) not in _ENTRY:
         raise ValueError(f"flash_attention: dtype {q.dtype} with head_dim "
                          f"{d}; the kernel takes float32 or bfloat16 with "
-                         f"head_dim 64 or 128")
+                         f"head_dim 64 or 128 (16 and 32 padded)")
     if hkv < 1 or hq % hkv:
         raise ValueError(f"flash_attention: {hq} query heads are not a "
                          f"multiple of {hkv} kv heads")
@@ -126,9 +133,28 @@ def _strides(*tensors):
         *(st for x in tensors for st in x.stride()[:3]))
 
 
+def pad_heads(q, k, v):
+    """(q, k, v) of a head dim in ``PADDED_HEAD`` -> the kernel's: each
+    zero-padded to its padded head dim, q doubled (exact in either
+    dtype)."""
+    pad = (0, PADDED_HEAD[q.shape[-1]] - q.shape[-1])
+    return F.pad(q * 2.0, pad), F.pad(k, pad), F.pad(v, pad)
+
+
+def _unpad(x, like):
+    """A padded kernel result cut to ``like``'s head dim, in ``like``'s
+    layout."""
+    return torch.empty_like(like).copy_(x[..., :like.shape[-1]])
+
+
 def _forward(q, k, v, causal, logit_cap, window, with_lse):
     """Launch the forward on CUDA tensors -> (out, lse or None); lse is
-    (B, Hq, S) float32, each row's log-sum-exp of its scores."""
+    (B, Hq, S) float32, each row's log-sum-exp of its scores.  A head
+    dim of ``PADDED_HEAD`` runs padded (``pad_heads``)."""
+    if q.device.type == "cuda" and q.shape[-1] in PADDED_HEAD:
+        out, lse = _forward(*pad_heads(q, k, v), causal, logit_cap, window,
+                            with_lse)
+        return _unpad(out, q), lse
     b, hq, hkv, s, sk, d = _check_cuda(q, k, v)
     dev = q.device
     out = torch.empty_like(q)          # q's layout (dense: same strides)
@@ -173,7 +199,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     query rows meet many keys (a fold in part order).  The kernel takes
     any strides with a contiguous head dimension (so a ``(B, S, H, D)``
     tensor transposed to ``(B, H, S, D)`` goes in without a copy), D in
-    {64, 128}, any S >= 1 and Hq a multiple of Hkv.  In bfloat16 the
+    {64, 128} (16 and 32 padded to 64 and 128, ``pad_heads``), any S >= 1
+    and Hq a multiple of Hkv.  In bfloat16 the
     pointers and the batch, head and sequence strides must be 16-byte
     aligned; a view that is not raises ``ValueError`` (it is not
     copied).
@@ -220,8 +247,16 @@ def flash_attention_bwd_kernel(q, k, v, out, dout, lse, *, causal=True,
     ``dq_key_parts`` (float32 partials, then a fold in part order; the
     algorithm is ``flash_attention_bwd_ref``).  Deterministic: no
     atomics.  ``flash_attention_bwd_kernel.dq_parts`` holds the parts of
-    the last launch."""
+    the last launch.  A head dim of ``PADDED_HEAD`` runs padded: q, k,
+    v, ``out`` and ``dout`` zero-padded (q doubled, ``pad_heads``), dq
+    the padded dq's first columns doubled."""
     window = _check_options(q, k, causal, window)
+    if q.device.type == "cuda" and q.shape[-1] in PADDED_HEAD:
+        pad = (0, PADDED_HEAD[q.shape[-1]] - q.shape[-1])
+        dq, dk, dv = flash_attention_bwd_kernel(
+            *pad_heads(q, k, v), F.pad(out, pad), F.pad(dout, pad), lse,
+            causal=causal, logit_cap=logit_cap, window=window)
+        return _unpad(dq, q).mul_(2.0), _unpad(dk, k), _unpad(dv, v)
     b, hq, hkv, s, sk, d = _check_cuda(q, k, v)
     dev = q.device
     dout = _aligned(dout)

@@ -19,8 +19,10 @@ from torch_cases import _attention_case
 from repro_torch.kernels.flash_attention.kernel import (DQ_PART_KEYS,
                                                         FWD_SPLIT_ROWS,
                                                         KEY_TILE,
+                                                        PADDED_HEAD,
                                                         dq_key_parts,
-                                                        fwd_key_parts)
+                                                        fwd_key_parts,
+                                                        pad_heads)
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
 
@@ -247,3 +249,48 @@ def test_bwd_scratch_at_the_training_shape_is_a_quarter():
     nbytes = sum(4 * np.prod(shapes[k]) for k in ("part_b", "part_c"))
     assert shapes["part_b"][0] == 128
     assert nbytes == 67_108_864 == 2 * 4 * 512 * 2 * 2048 * 16 // 4
+
+
+# (B, Hq, Hkv, S, D, window, cap): the reduced configurations' heads the
+# wrappers pad (serve_demo's 4/2 of 16, train_lm's 8/4 of 32), causal,
+# and a window with a cap at 16
+PADDED_CASES = [(1, 4, 2, 26, 16, 0, 0.0), (2, 8, 4, 128, 32, 0, 0.0),
+                (1, 4, 2, 40, 16, 7, 30.0)]
+
+
+@pytest.mark.parametrize("case", PADDED_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_padded_heads_match_jax(dtype, case):
+    """A head of 16 or 32 as the CUDA wrappers run it: q, k, v
+    zero-padded to 64 or 128 with q doubled (``pad_heads``), the forward
+    cut back to D; the backward on the padded q, k, v, output and dout,
+    dq's first D columns doubled.  Against the reference's ``_attend``
+    and its ``jax.vjp`` at D: float32 within 1e-5, bfloat16 within the
+    card gates (8e-3 forward, 4 x 2**-8 backward)."""
+    b, hq, hkv, s, d, window, cap = case
+    q, k, v = _attention_case(43, b=b, hq=hq, hkv=hkv, s=s, d=d)
+    dout = np.random.default_rng(44).normal(0, 1, q.shape).astype(
+        np.float32)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(dtype)
+                       for x in (q, k, v, dout))
+    pq, pk, pv = pad_heads(tq, tk, tv)
+    assert pq.shape[-1] == PADDED_HEAD[d]
+    assert torch.equal(pq[..., :d], tq * 2.0) and not pq[..., d:].any()
+    out, lse = _forward(pq, pk, pv, True, window, cap)
+    assert not out[..., d:].any()
+    want_out = np.asarray(jax_attend(
+        *(jnp.asarray(x.float().numpy().swapaxes(1, 2))
+          for x in (tq, tk, tv)), causal=True, q_offset=0, window=window,
+        logit_cap=cap)).swapaxes(1, 2)
+    tol = 1e-5 if dtype == torch.float32 else 8e-3
+    assert _rel(out[..., :d], want_out) <= tol
+    pad = (0, PADDED_HEAD[d] - d)
+    dq, dk, dv = flash_attention_bwd_ref(
+        pq, pk, pv, out, torch.nn.functional.pad(tdo, pad), lse,
+        causal=True, logit_cap=cap, window=window)
+    want = _jax_vjp(*(x.float().numpy() for x in (tq, tk, tv, tdo)),
+                    True, window, cap)
+    tol = GRAD_TOL if dtype == torch.float32 else BF16_BWD_TOL
+    for g, w in zip((dq[..., :d] * 2.0, dk[..., :d], dv[..., :d]), want):
+        assert _rel(g, w) <= tol

@@ -483,11 +483,12 @@ def _rel(got, want):
 @pytest.mark.gpu
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("cap", [0.0, 50.0])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 16, 32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_matches_plain(dtype, d, cap, causal):
     """S = 200 (a masked tail tile), GQA 4/2: float32 within 1e-5 and
-    bfloat16 within 8e-3 of the plain output's largest magnitude."""
+    bfloat16 within 8e-3 of the plain output's largest magnitude; heads
+    of 16 and 32 run padded to 64 and 128 (``pad_heads``)."""
     dev = _cuda()
     q, k, v = (torch.from_numpy(a).to(dev, dtype)
                for a in _attention_case(0, s=200, d=d))
@@ -1222,7 +1223,7 @@ def _grads(fn, q, k, v, do):
     (2, 2, 2, 130, 63, False, 0, 30.0),
     (1, 4, 2, 300, 300, True, 100, 50.0),
     (1, 8, 2, 129, 129, True, 7, 0.0)])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 16, 32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_backward_matches_plain_gradient(dtype, d,
                                                               case):
@@ -1639,3 +1640,84 @@ def test_cuda_zoo_training_matches_cpu(arch):
         assert torch.isfinite(g).all(), path
         err = (g - w).abs().max() / w.abs().max().clamp_min(1e-30)
         assert err <= 1e-4, (path, err.item())
+
+
+# B9 at the serving shapes of the four configurations that serve at
+# full width in chip_smoke.py's phase 13b: minicpm-2b's 36/36 heads of
+# 64, qwen1.5-32b's 40/40 of 128, qwen3-moe's 64/4 (16 query heads a kv
+# head), 1000 tokens, causal
+WIDE_ATTENTION = [(36, 36, 64), (40, 40, 128), (64, 4, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d", WIDE_ATTENTION)
+def test_cuda_flash_attention_wide_serving_shapes(hq, hkv, d, dtype):
+    """(1, Hq/Hkv, 1000, D) causal: float32 within 1e-5 and bfloat16
+    within 8e-3 of the plain output's largest magnitude."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn((1, h, 1000, d), generator=gen, device=dev)
+               .mul_(s).to(dtype)
+               for h, s in ((hq, 3.0), (hkv, 3.0), (hkv, 1.0)))
+    n0 = flash_attention_kernel.launches
+    got = flash_attention_kernel(q, k, v, causal=True)
+    want = flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == n0 + 1
+    assert _rel(got, want) <= (1e-5 if dtype == torch.float32 else 8e-3)
+
+
+def _wide_first_layers(label):
+    """The first layers of a phase-13b configuration at its published
+    widths: one layer of minicpm-2b, qwen1.5-32b (QKV bias, its untied
+    head) and qwen3-moe (128 experts top-8); Jamba 1.5 Large's first two
+    (attention with its 16-expert MoE, then Mamba), in float32 compute."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ATTN, MAMBA
+    arch = {"minicpm-2b": "minicpm-2b", "qwen1.5-32b": "qwen1.5-32b",
+            "qwen3-moe": "qwen3-moe-235b-a22b",
+            "jamba-moe": "jamba-1.5-large-398b"}[label]
+    cfg = get_arch(arch)
+    if label == "jamba-moe":
+        cfg = dataclasses.replace(cfg, num_layers=2,
+                                  block_pattern=(ATTN, MAMBA))
+    else:
+        cfg = dataclasses.replace(cfg, num_layers=1)
+    return dataclasses.replace(cfg, compute_dtype="float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", ["minicpm-2b", "qwen1.5-32b", "qwen3-moe",
+                                   "jamba-moe"])
+def test_cuda_wide_config_first_layers_prefill_matches_cpu(label):
+    """A 16-token prefill through the first layers at full width (weights
+    stored in bf16 as served, computed in float32): B9 once per attention
+    layer, B10 once per Mamba layer, and the last logits within 1e-4 of
+    the same weights' prefill on the CPU (matrix products sum in other
+    orders)."""
+    from repro_torch.configs.base import ATTN, MAMBA
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_map
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _wide_first_layers(label)
+    model = Model(cfg)
+    card_p = model.init(0, device=dev, cast_weights=True)
+    toks = torch.randint(0, cfg.vocab_size, (1, 16),
+                         generator=torch.Generator().manual_seed(0))
+    f0, s0 = flash_attention_kernel.launches, selective_scan_kernel.launches
+    lg, _ = model.prefill(card_p, {"tokens": toks.to(dev)},
+                          model.init_cache(1, 32))
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches - f0 == cfg.blocks.count(ATTN)
+    assert selective_scan_kernel.launches - s0 == cfg.blocks.count(MAMBA)
+    lg = lg.cpu()
+    cpu_p = tree_map(lambda t: t.cpu(), card_p)
+    del card_p
+    torch.cuda.empty_cache()
+    want, _ = model.prefill(cpu_p, {"tokens": toks},
+                            model.init_cache(1, 32, device="cpu"))
+    assert torch.isfinite(lg).all()
+    assert _rel(lg, want) <= 1e-4

@@ -391,3 +391,55 @@ def test_train_entry_points_default_to_cuda(monkeypatch):
     for call in (lambda: build("llama3.2-3b"), lambda: main(["--steps", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+_EXAMPLE_MODULES = ("repro_torch.examples",
+                    "repro_torch.examples.quickstart",
+                    "repro_torch.examples.mixed_precision_study",
+                    "repro_torch.examples.serve_demo",
+                    "repro_torch.examples.train_lm",
+                    "repro_torch.examples.fault_tolerance_demo")
+
+
+@pytest.mark.parametrize("module", _EXAMPLE_MODULES)
+def test_example_module_imports_with_jax_and_repro_blocked(module):
+    """Each of the reference's five examples, ported, loads on its own
+    with JAX and the reference blocked."""
+    test_case_study_module_imports_with_jax_and_repro_blocked(module)
+
+
+def test_example_runs_as_a_module_with_jax_and_repro_blocked():
+    """``python -m repro_torch.examples.quickstart --device cpu`` runs to
+    its end with JAX and the reference blocked."""
+    code = _BLOCKED_IMPORT.split("import repro_torch")[0] + (
+        "import runpy\n"
+        "sys.argv = ['quickstart', '--device', 'cpu']\n"
+        "try:\n"
+        "    runpy.run_module('repro_torch.examples.quickstart',\n"
+        "                     run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code, e.code\n"
+        "leaked = sorted(m for m in sys.modules\n"
+        "                if m.split('.')[0] in BLOCKED)\n"
+        "assert not leaked, leaked\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert "ΔE/Δt steady estimate" in out.stdout
+
+
+@pytest.mark.parametrize("name", [m.rsplit(".", 1)[1]
+                                  for m in _EXAMPLE_MODULES[1:]])
+def test_examples_default_to_cuda(monkeypatch, tmp_path, name):
+    """Each example's ``main()`` and its command line ask for the card
+    without a device; with no card they raise instead of running on the
+    CPU."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    kw = {"ckpt_dir": tmp_path} if name == "train_lm" else {}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(**kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.cli(["--ckpt-dir", str(tmp_path)] if name == "train_lm" else [])
