@@ -9,20 +9,19 @@ Builds the other tree's sources of the chosen kernels (``--only``, any of
 b2, b4, b5, b6, b7, b9, b10, b9bwd, b10bwd, b9f32, b9bwdf32; all by
 default) into a library of
 their own (the same nvcc flags) and calls both libraries through this
-tree's wrappers (the C entries take the same arguments; B4's entry before
-its redesign did not, see below).  Shapes and data:
+tree's wrappers.  The other tree is this tree's parent: its C entries
+must take this tree's arguments, or, for B9, those of d21a112's entries
+(before the query offset, the key mask and the mean of v), which are
+called without them; any other tree is refused before anything is
+built.  Shapes and data:
 - B2 ``power_reconstruct_fleet`` at ``chip_smoke.py``'s batch shape (the
   512 packed counters, 8773 columns) as run, wrapping, and padded to a
   width of the other 16-byte alignment (``chip_smoke.b2_cases``); gate:
   power, valid and reordered ``torch.equal`` to the plain version;
 - B4 ``xcorr_align`` at ``chip_smoke.py``'s windowed shape (the second
   replay window regridded: 1024 x 2048 against 129 lags padded to 256)
-  and batch shape (1024 x ~16k against 1025 lags padded to 1152).  The
-  other tree's C entry is read from its source: one with this tree's
-  arguments goes through this tree's wrapper; the 12-argument entry of
-  the kernel before the redesign (28ec99f: the centred streams in a
-  scratch buffer) is called with its own; any other is refused before
-  anything is built.  Each one's largest error against the plain
+  and batch shape (1024 x ~16k against 1025 lags padded to 1152).
+  Each one's largest error against the plain
   version and against the float64 scores, and the rows whose argmax lag
   and whose ``peak_to_delay`` estimate differ from the other tree's;
   gate: this tree's kernel within 1e-5 of both, rows scored alone
@@ -51,9 +50,9 @@ its redesign did not, see below).  Shapes and data:
   times: the serving shapes (llama's, the hybrid's and moonshot's, 1000
   tokens, causal) and every ``chip_smoke.ZOO_ATTENTION`` shape, inputs
   drawn as ``chip_smoke.check_serve_kernels`` draws them; gate: KERNEL_TOL
-  (1e-5) of the plain output's largest magnitude.  The other tree's
-  forward entry of 15 arguments (before the float32 key split, 5f94b93)
-  is called without the split's scratch and part length;
+  (1e-5) of the plain output's largest magnitude.  Against d21a112's
+  entries both libraries' outputs must be ``torch.equal``, since the
+  kernels without an offset or a mask are unchanged;
 - b9bwdf32: B9's float32 backward at every ``TRAIN_ATTENTION`` shape, as
   b9bwd below with chip_smoke's float32 gate (KERNEL_TOL of each
   gradient's largest magnitude, two runs torch.equal);
@@ -61,11 +60,9 @@ its redesign did not, see below).  Shapes and data:
   ``chip_smoke.TRAIN_ATTENTION`` shape and B10's at every
   ``SCAN_BWD_SHAPES`` shape, inputs drawn as
   ``chip_smoke.check_attention_backward`` / ``check_scan_backward`` draw
-  them; gate: chip_smoke's (the plain gradient, two runs torch.equal).
-  The other tree's B9 backward entry of 20 arguments (before the dQ key
-  split, 8140ab9) is called without dq_part and part_keys; its B10
-  backward of the first version (no cluster) is called through its entry
-  with that version's scratch (parts of 32 channels).
+  them; gate: chip_smoke's (the plain gradient, two runs torch.equal;
+  against d21a112's entries both libraries' B9 gradients
+  ``torch.equal``).
 Each kernel is timed with ``chip_smoke.timed`` in the order other, this,
 this, other; the ratio of the means is printed with the card's SM clock
 before and after.  With b9, the bf16 edge cases of
@@ -74,10 +71,7 @@ then run through both libraries, each one's largest error against the
 plain version printed as the gate measures it (relative to the plain
 output's largest magnitude) and in bf16 ulps at that magnitude.  The last
 line is one JSON object; the exit code is 1 if a kernel of this tree
-fails its gate.  An other tree whose B9 entries predate the key length
-and the window (12 arguments: the entry up to commit 144dfe9) is called
-through them at the shapes both take (Sk == S, no window).  Needs a
-CUDA card and nvcc; imports nothing of JAX.
+fails its gate.  Needs a CUDA card and nvcc; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -132,85 +126,48 @@ def build_other(tree: Path, build, names) -> Path:
     return out
 
 
-FA_OLD_ARGS = 12       # B9's entry before the key length and the window:
-                       # q, k, v, o, B, Hq, Hkv, S, strides, causal, cap,
-                       # stream (this tree's adds Sk after S, window after
-                       # causal, the lse pointer, then the float32 key
-                       # split's scratch and part length before the stream)
-FA_NO_LSE_ARGS = 14    # the entry with Sk and the window, before the lse
-FA_NO_SPLIT_ARGS = 15  # the entry with the lse, before the key split
-                       # (5f94b93)
-FA_BWD_OLD_ARGS = 20   # B9's backward entry before the dQ key split
-                       # (8140ab9): this tree's adds dq_part and part_keys
-                       # before the stream
+# B9's entries in d21a112, before the query offset, the key mask and
+# the mean of v (vsum in the backward): this tree's entries add those
+# three arguments before the stream, at FA_EXT_AT
+FA_PARENT_ARGS = {"flash_attention.cu": [17],
+                  "flash_attention_bwd.cu": [22]}
+FA_EXT_AT = {"fa_launch_": 16, "fa_bwd_launch_": 21}
 
 
-def entry_args(tree: Path, key: str) -> int:
-    """The number of arguments of the C entry macro (``extern "C" int
-    NAME(...)``) in ``tree``'s source of ``key`` (0 where not found)."""
+def entry_args(tree: Path, key: str) -> list:
+    """The argument counts of the C entries (``extern "C" int f(...)``)
+    in ``tree``'s source of ``key``."""
     path = tree / "src" / "repro_torch" / "csrc" / SOURCES[key]
     src = path.read_text() if path.is_file() else ""
-    hit = re.search(r'extern "C" int NAME\(([^)]*)\)', src)
-    return hit.group(1).count(",") + 1 if hit else 0
-
-
-def scan_bwd_old_geometry(tree: Path) -> bool:
-    """Whether ``tree``'s B10 backward is the first version (8140ab9):
-    32 channels a dB/dC part (16 at N > 32), no cluster."""
-    path = tree / "src" / "repro_torch" / "csrc" / SOURCES["b10bwd"]
-    return path.is_file() and "kCluster" not in path.read_text()
-
-
-def fa_entry_args(tree: Path) -> int:
-    """The number of arguments of B9's C entries in ``tree``'s source
-    (0 where the entry macro is not found)."""
-    path = tree / "src" / "repro_torch" / "csrc" / SOURCES["b9"]
-    src = path.read_text() if path.is_file() else ""
-    hit = re.search(r'extern "C" int NAME\(([^)]*)\)', src)
-    return hit.group(1).count(",") + 1 if hit else 0
+    return [m.count(",") + 1
+            for m in re.findall(r'extern "C" int \w+\(([^)]*)\)', src)]
 
 
 @contextlib.contextmanager
-def using(lib, build, fa_old=0, fa_bwd_old=False):
+def using(lib, build, fa_parent: bool = False):
     """Route the wrappers' C entries to ``lib`` (None: this tree's);
-    ``fa_old``: the argument count of ``lib``'s B9 entries where they
-    are older than this tree's: ``FA_NO_SPLIT_ARGS`` (no key split: its
-    scratch and part length are dropped, the old kernel computes every
-    key in one block), ``FA_NO_LSE_ARGS`` (nor an lse pointer: this
-    tree's call must pass none) or ``FA_OLD_ARGS`` (nor the key length
-    and the window: it must pass Sk == S and no window);
-    ``fa_bwd_old``: ``lib``'s B9 backward entries take the 20 arguments
-    of the entry before the dQ key split."""
+    ``fa_parent``: ``lib``'s B9 entries are d21a112's, called without the
+    query offset, the key mask and the mean of v (a call that passes any
+    raises)."""
     saved = build.c_function
 
     def entry(name, argtypes):
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
-        if fa_bwd_old and name.startswith("fa_bwd_launch_"):
-            # the old entry has no key split: drop dq_part and part_keys
-            fn.argtypes = argtypes[:19] + argtypes[21:]
-            return lambda *a: fn(*(a[:19] + a[21:]))
-        if fa_old and name.startswith("fa_launch_"):
-            # this tree's: q k v o B Hq Hkv S Sk(8) strides causal
-            # window(11) cap lse(13) part(14) part_keys(15) stream
-            drop = {14, 15}
-            if fa_old in (FA_NO_LSE_ARGS, FA_OLD_ARGS):
-                drop.add(13)
-            if fa_old == FA_OLD_ARGS:
-                drop |= {8, 11}
-            keep = [i for i in range(len(argtypes)) if i not in drop]
-            fn.argtypes = [argtypes[i] for i in keep]
+        at = next((i for pre, i in FA_EXT_AT.items()
+                   if name.startswith(pre)), None)
+        if not fa_parent or at is None:
+            fn.argtypes = argtypes
+            return fn
+        keep = [i for i in range(len(argtypes)) if not at <= i < at + 3]
+        fn.argtypes = [argtypes[i] for i in keep]
 
-            def call(*a):
-                if 13 in drop and a[13]:
-                    raise ValueError("the other tree's B9 writes no lse")
-                if fa_old == FA_OLD_ARGS and (a[8] != a[7] or a[11]):
-                    raise ValueError("the other tree's B9 takes neither "
-                                     "a key length nor a window")
-                return fn(*(a[i] for i in keep))
-            return call
-        fn.argtypes = argtypes
-        return fn
+        def call(*a):
+            if a[at] or any(x is not None for x in a[at + 1:at + 3]):
+                raise ValueError("the other tree's B9 takes no query "
+                                 "offset or key mask")
+            return fn(*(a[i] for i in keep))
+        return call
     if lib is not None:
         build.c_function = entry
     try:
@@ -310,9 +267,11 @@ def attribution_calls(cs, seed: int, dev, want) -> dict:
     return calls
 
 
-def serve_calls(cs, gen, dev, want) -> dict:
+def serve_calls(cs, gen, dev, want, same_bits: bool = False) -> dict:
     """B9 and B10 at the serve path's shapes, as
-    ``chip_smoke.check_serve_kernels`` draws their inputs."""
+    ``chip_smoke.check_serve_kernels`` draws their inputs; with
+    ``same_bits`` B9's two libraries must give the same bits (the other
+    tree is this one's parent: kernels this tree did not change)."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_kernel,
                                                      flash_attention_ref)
@@ -337,6 +296,7 @@ def serve_calls(cs, gen, dev, want) -> dict:
 
     bf16 = torch.bfloat16
     calls = {}
+    same = (True,) if same_bits else ()
     if "b9f32" in want:
         for label, hq, hkv in (("llama", 24, 8), ("hybrid", 64, 8),
                                ("moonshot", 16, 16)):
@@ -345,7 +305,8 @@ def serve_calls(cs, gen, dev, want) -> dict:
             v = randn(1, hkv, 1000, 128)
             calls[f"B9 {label} (1,{hq}/{hkv},1000,128) float32 causal"] = (
                 lambda q=q, k=k, v=v: flash_attention_kernel(q, k, v),
-                lambda q=q, k=k, v=v: flash_attention_ref(q, k, v), rel_f32)
+                lambda q=q, k=k, v=v: flash_attention_ref(q, k, v), rel_f32,
+                *same)
         for label, hq, hkv, sq, sk, d, causal, window, cap in \
                 cs.ZOO_ATTENTION:
             q = randn(1, hq, sq, d, scale=3.0)
@@ -357,7 +318,7 @@ def serve_calls(cs, gen, dev, want) -> dict:
                 lambda q=q, k=k, v=v, o=opts: flash_attention_kernel(
                     q, k, v, **o),
                 lambda q=q, k=k, v=v, o=opts: flash_attention_ref(
-                    q, k, v, **o), rel_f32)
+                    q, k, v, **o), rel_f32, *same)
     if "b9" in want:
         for label, hq in (("llama", 24), ("hybrid", 64)):
             q = randn(1, hq, 1000, 128, scale=3.0).to(bf16)
@@ -365,7 +326,8 @@ def serve_calls(cs, gen, dev, want) -> dict:
             v = randn(1, 8, 1000, 128).to(bf16)
             calls[f"B9 {label} (1,{hq}/8,1000,128) bf16 causal"] = (
                 lambda q=q, k=k, v=v: flash_attention_kernel(q, k, v),
-                lambda q=q, k=k, v=v: flash_attention_ref(q, k, v), rel)
+                lambda q=q, k=k, v=v: flash_attention_ref(q, k, v), rel,
+                *same)
     if "b10" in want:
         dt = torch.nn.functional.softplus(randn(1, 1000, 16384) - 1.0)
         x = randn(1, 1000, 16384).to(bf16)
@@ -378,7 +340,7 @@ def serve_calls(cs, gen, dev, want) -> dict:
     return calls
 
 
-def flash_edges(cs, other, build, dev, fa_old=0) -> dict:
+def flash_edges(cs, other, build, dev, fa_parent=False) -> dict:
     """B9 bf16's worst error over the card tests' edge cases, both
     libraries."""
     import torch
@@ -394,7 +356,7 @@ def flash_edges(cs, other, build, dev, fa_old=0) -> dict:
                    _attention_case(3, b=1, hq=2 * group, hkv=2, s=s, d=d))
         want = flash_attention_ref(q, k, v, causal=causal, logit_cap=cap)
         for side, lib in (("other", other), ("this", None)):
-            with using(lib, build, fa_old if lib is not None else 0):
+            with using(lib, build, fa_parent and lib is not None):
                 got = flash_attention_kernel(q, k, v, causal=causal,
                                              logit_cap=cap)
             rel = cs._rel_err(got, want)
@@ -412,49 +374,17 @@ def flash_edges(cs, other, build, dev, fa_old=0) -> dict:
     return edges
 
 
-def old_scan_bwd(lib, dt, x, bm, cm, a, h_chunk, dy, dh):
-    """The other tree's B10 backward through its own entry with the first
-    version's scratch (8140ab9): parts of 32 channels (16 at N > 32), the
-    entry's arguments otherwise this tree's."""
-    import torch
-    from repro_torch.kernels import build
-    from repro_torch.kernels.ssm_scan.kernel import _BWD_ARGS, _BWD_ENTRY
-    fn = getattr(lib, _BWD_ENTRY[(dt.dtype, x.dtype)])
-    fn.argtypes = _BWD_ARGS
-    fn.restype = ctypes.c_int
-    bsz, seq, d = x.shape
-    n = a.shape[1]
-    f32, dev = torch.float32, x.device
-    parts = -(-d // (16 if n > 32 else 32))
-    ddt, dx = torch.empty_like(dt), torch.empty_like(x)
-    db, dc = (torch.empty((bsz, seq, n), dtype=f32, device=dev)
-              for _ in range(2))
-    da = torch.empty((d, n), dtype=f32, device=dev)
-    dh0 = torch.empty((bsz, d, n), dtype=f32, device=dev)
-    part_b, part_c = (torch.empty((parts, bsz, seq, n), dtype=f32,
-                                  device=dev) for _ in range(2))
-    part_a = torch.empty((bsz, d, n), dtype=f32, device=dev)
-    build.check_launch(fn(
-        dt.data_ptr(), x.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-        a.data_ptr(), h_chunk.data_ptr(), dy.data_ptr(),
-        None if dh is None else dh.data_ptr(), ddt.data_ptr(),
-        dx.data_ptr(), db.data_ptr(), dc.data_ptr(), da.data_ptr(),
-        dh0.data_ptr(), part_b.data_ptr(), part_c.data_ptr(),
-        part_a.data_ptr(), bsz, seq, d, n, parts, build.stream_ptr(dev)),
-        "other B10 backward")
-    return ddt, dx, db, dc, da, dh0
-
-
-def backward_ab(cs, other, want, fa_bwd_old: bool, scan_old: bool,
-                seed: int, dev) -> tuple:
+def backward_ab(cs, other, want, seed: int, dev,
+                fa_parent: bool = False) -> tuple:
     """B9's backward (bf16 for b9bwd, float32 for b9bwdf32) at every
     ``chip_smoke.TRAIN_ATTENTION`` shape and B10's at every
     ``chip_smoke.SCAN_BWD_SHAPES`` shape, inputs drawn as chip_smoke draws
     them, the other tree's kernel beside this tree's: each held to
     chip_smoke's gates against the plain gradient (B9 bf16 BF16_BWD_TOL,
     float32 KERNEL_TOL; B10 float32 KERNEL_TOL, bf16 SCAN_BWD_BF16_TOL)
-    and to two runs torch.equal, then timed other, this, this, other ->
-    (result, failed names)."""
+    and to two runs torch.equal (with ``fa_parent``, B9's two libraries
+    to each other too), then timed other, this, this, other -> (result,
+    failed names)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import build
@@ -467,9 +397,10 @@ def backward_ab(cs, other, want, fa_bwd_old: bool, scan_old: bool,
     randn = cs.seeded_randn(dev, seed)
     result, failed = {}, []
 
-    def run(name, sides, gate):
-        """sides: {"other": fn, "this": fn} -> the gates, then timings."""
-        checks, ok = {}, True
+    def run(name, sides, gate, equal=False):
+        """sides: {"other": fn, "this": fn} -> the gates, then timings;
+        ``equal``: the two sides' gradients must be the same bits."""
+        checks, ok, outs = {}, True, {}
         for side, fn in sides.items():
             got, again = fn(), fn()
             torch.cuda.synchronize()
@@ -478,7 +409,15 @@ def backward_ab(cs, other, want, fa_bwd_old: bool, scan_old: bool,
             if side == "this" and not (checks[side]["passed"]
                                        and checks[side]["two_runs_equal"]):
                 ok = False
+            if equal:
+                outs[side] = got
             del got, again
+        if equal:
+            checks["libraries_equal"] = all(
+                torch.equal(a, b) for a, b in zip(outs["other"],
+                                                  outs["this"]))
+            ok = ok and checks["libraries_equal"]
+            del outs
         if not ok:
             failed.append(name)
         before = cs.gpu_clocks()
@@ -524,12 +463,13 @@ def backward_ab(cs, other, want, fa_bwd_old: bool, scan_old: bool,
                                                   **opts)
 
             def theirs(q=q, k=k, v=v, out=out, do=do, lse=lse, opts=opts):
-                with using(other, build, fa_bwd_old=fa_bwd_old):
+                with using(other, build, fa_parent):
                     return flash_attention_bwd_kernel(q, k, v, out, do, lse,
                                                       **opts)
             run(f"B9 backward {label} ({b},{hq}/{hkv},{sq}->{sk},{d}) "
                 f"{str(dtype)[6:]} causal={causal} window={window} "
-                f"cap={cap:g}", {"other": theirs, "this": this}, gate)
+                f"cap={cap:g}", {"other": theirs, "this": this}, gate,
+                equal=fa_parent)
             del q, k, v, do, out, lse, qg, kg, vg, want_g
             torch.cuda.empty_cache()
     if "b10bwd" in want:
@@ -566,8 +506,6 @@ def backward_ab(cs, other, want, fa_bwd_old: bool, scan_old: bool,
                 return selective_scan_bwd_kernel(*args)
 
             def theirs(args=args):
-                if scan_old:
-                    return old_scan_bwd(other, *args)
                 with using(other, build):
                     return selective_scan_bwd_kernel(*args)
             run(f"B10 backward {label} ({b},{seq},{d},{n}) dt {dtn} x {xn}"
@@ -578,45 +516,9 @@ def backward_ab(cs, other, want, fa_bwd_old: bool, scan_old: bool,
     return result, failed
 
 
-XCORR_OLD_ARGS = 12    # the entry before the redesign: x, m, bank, xc,
-                       # den_x, den_r, out, F, G, L_out, L_real, stream
-
-
-def xcorr_entry_args(tree: Path) -> int:
-    """The number of arguments of ``xcorr_align_launch`` in ``tree``'s
-    source (0 where the entry is not found)."""
-    path = tree / "src" / "repro_torch" / "csrc" / SOURCES["b4"]
-    src = path.read_text() if path.is_file() else ""
-    hit = re.search(r'extern "C" int xcorr_align_launch\(([^)]*)\)', src)
-    return hit.group(1).count(",") + 1 if hit else 0
-
-
-def old_xcorr(lib, x, m, bank, lags):
-    """The other tree's B4 through the entry of the kernel before the
-    redesign (28ec99f): ``xcorr_align_launch(x, m, bank, xc, den_x,
-    den_r, out, F, G, L_out, L_real, stream)``."""
-    import torch
-    from repro_torch.kernels import build
-    entry = lib.xcorr_align_launch
-    entry.argtypes = (build.PTR,) * 7 + (build.INT,) * 4 + (build.PTR,)
-    entry.restype = ctypes.c_int
-    f, g = x.shape
-    xc = torch.empty_like(x)
-    den_x = torch.empty((f,), dtype=torch.float32, device=x.device)
-    den_r = torch.empty((lags,), dtype=torch.float32, device=x.device)
-    out = torch.empty((f, bank.shape[0]), dtype=torch.float32,
-                      device=x.device)
-    build.check_launch(entry(
-        x.data_ptr(), m.data_ptr(), bank.data_ptr(), xc.data_ptr(),
-        den_x.data_ptr(), den_r.data_ptr(), out.data_ptr(), f, g,
-        bank.shape[0], lags, build.stream_ptr(x.device)), "other B4")
-    return out
-
-
-def xcorr_ab(cs, other, old_entry: bool, seed: int, dev) -> tuple:
+def xcorr_ab(cs, other, seed: int, dev) -> tuple:
     """B4 at ``chip_smoke.py``'s two shapes, the other tree's kernel
-    beside this tree's (``old_entry``: the other's is called through
-    ``old_xcorr``) -> (result, failed names)."""
+    beside this tree's -> (result, failed names)."""
     import torch
     from repro_torch.align.delay import peak_to_delay
     from repro_torch.fleet import StreamConfig, TrackConfig
@@ -641,8 +543,6 @@ def xcorr_ab(cs, other, old_entry: bool, seed: int, dev) -> tuple:
               "batch": b4}
 
     def run_other(x, m, b, n):
-        if old_entry:
-            return old_xcorr(other, x, m, b, n)
         with using(other, build):
             return xcorr_align_kernel(x, m, b, n_lags=n)
 
@@ -709,35 +609,15 @@ def main(argv=None) -> int:
     want = [k.strip() for k in args.only.split(",") if k.strip()]
     if not want or set(want) - set(SOURCES):
         ap.error(f"--only takes a list of {', '.join(SOURCES)}")
-    if "b4" in want:
-        n_other = xcorr_entry_args(args.against)
-        if n_other not in (XCORR_OLD_ARGS, xcorr_entry_args(ROOT)):
-            ap.error(f"b4: the other tree's xcorr_align_launch takes "
-                     f"{n_other} arguments, neither this tree's nor the "
-                     f"{XCORR_OLD_ARGS} of the entry before the redesign")
-    fa_bwd_old = False
-    if {"b9bwd", "b9bwdf32"} & set(want):
-        n_bwd = entry_args(args.against, "b9bwd")
-        if n_bwd not in (FA_BWD_OLD_ARGS, entry_args(ROOT, "b9bwd")):
-            ap.error(f"b9bwd: the other tree's entries take {n_bwd} "
-                     f"arguments, neither this tree's nor the "
-                     f"{FA_BWD_OLD_ARGS} of the entry before the dQ key "
-                     f"split")
-        fa_bwd_old = n_bwd == FA_BWD_OLD_ARGS
-    scan_old = "b10bwd" in want and scan_bwd_old_geometry(args.against)
-    fa_old = 0
-    if {"b9", "b9f32"} & set(want):
-        n_fa = fa_entry_args(args.against)
-        if n_fa not in (FA_OLD_ARGS, FA_NO_LSE_ARGS, FA_NO_SPLIT_ARGS,
-                        fa_entry_args(ROOT)):
-            ap.error(f"b9: the other tree's entries take {n_fa} arguments, "
-                     f"neither this tree's nor the {FA_NO_SPLIT_ARGS} of "
-                     f"the entry before the key split, the "
-                     f"{FA_NO_LSE_ARGS} of the entry before the lse or the "
-                     f"{FA_OLD_ARGS} of the entry before the key length and "
-                     f"the window")
-        fa_old = (n_fa if n_fa in (FA_OLD_ARGS, FA_NO_LSE_ARGS,
-                                   FA_NO_SPLIT_ARGS) else 0)
+    fa_parent = False
+    for key in want:
+        theirs, mine = (entry_args(t, key) for t in (args.against, ROOT))
+        if theirs == FA_PARENT_ARGS.get(SOURCES[key]):
+            fa_parent = True
+        elif theirs != mine:
+            ap.error(f"{key}: the other tree's C entries take {theirs} "
+                     f"arguments, this tree's {mine}: compare this tree "
+                     f"with its parent")
     import torch
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -757,22 +637,21 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     calls = {**attribution_calls(cs, args.seed, dev, want),
-             **serve_calls(cs, gen, dev, want)}
+             **serve_calls(cs, gen, dev, want, same_bits=fa_parent)}
 
     result = {"timing": {}, "edges": {}}
     failed = []
     if "b4" in want:
-        result["xcorr"], failed = xcorr_ab(
-            cs, other, n_other == XCORR_OLD_ARGS, args.seed, dev)
+        result["xcorr"], failed = xcorr_ab(cs, other, args.seed, dev)
     if {"b9bwd", "b9bwdf32", "b10bwd"} & set(want):
         result["backward"], bwd_failed = backward_ab(
-            cs, other, want, fa_bwd_old, scan_old, args.seed, dev)
+            cs, other, want, args.seed, dev, fa_parent=fa_parent)
         failed += bwd_failed
     for name, (fn, ref, compare, *same_bits) in calls.items():
         want_out = ref()
         checks, outs = {}, {}
         for side, lib in (("other", other), ("this", None)):
-            with using(lib, build, fa_old if lib is not None else 0):
+            with using(lib, build, fa_parent and lib is not None):
                 outs[side] = fn()
                 checks[side], ok = compare(outs[side], want_out)
             if not ok and side == "this":
@@ -787,7 +666,7 @@ def main(argv=None) -> int:
         ms = {"other": [], "this": []}
         for side in ("other", "this", "this", "other"):
             with using(other if side == "other" else None, build,
-                       fa_old if side == "other" else 0):
+                       fa_parent and side == "other"):
                 ms[side].append(cs.timed(fn)["device_ms"])
         after = cs.gpu_clocks()
         mean = {s: sum(v) / len(v) for s, v in ms.items()}
@@ -799,7 +678,7 @@ def main(argv=None) -> int:
               f"other/this {mean['other'] / mean['this']:.3f}; {checks}; "
               f"card before {before}, after {after}")
     if "b9" in want:
-        result["edges"] = flash_edges(cs, other, build, dev, fa_old)
+        result["edges"] = flash_edges(cs, other, build, dev, fa_parent)
     result["failed"] = failed
     print(json.dumps(result, default=str))
     if failed:

@@ -5,24 +5,42 @@
 // src/repro/kernels/flash_attention/kernel.py.
 //
 //   s[i,j] = q_i . k_j / sqrt(D);  s = cap * tanh(s / cap) if cap > 0;
-//   s[i,j] = -1e30 where causal and j > i, or where a window w > 0 is
-//   given and i - j >= w (the reference's _attend);  o_i = softmax_j(s) v
+//   s[i,j] = -1e30 where causal and j > p_i, where a window w > 0 is
+//   given and p_i - j >= w, or where the key mask masks key j of the
+//   batch row (p_i = q_offset + i: the reference's _attend);
+//   o_i = softmax_j(s) v
 // for q (B, Hq, Sq, D) and k/v (B, Hkv, Sk, D), query head h reading kv
 // head h / (Hq / Hkv) (jnp.repeat's order in the reference), float32
-// accumulation, the output in q's type.  Sk may differ from Sq only
-// without causality (whisper's cross-attention: the prompt, or one
-// position, against 1500 encoder frames); a window needs causality
-// (gemma2's local layers).  Strides are arguments (the head dimension
-// must be contiguous), so the model's (B, S, H, D) activations go in as
-// they are, without a transpose, and the output keeps q's layout.  Both
+// accumulation, the output in q's type.  Sk is any length, causal or not
+// (whisper's cross-attention: the prompt, or one position, against 1500
+// encoder frames; a chunk of queries after a prefix, against the cache);
+// a window needs causality (gemma2's local layers).  Strides are
+// arguments (the head dimension must be contiguous), so the model's
+// (B, S, H, D) activations go in as they are, without a transpose, and
+// the output keeps q's layout.  Both
 // kernels take one block per (batch * query head, 64-row query tile; in
 // float32 also key part), mask keys past Sk and rows past Sq (any Sq,
 // Sk >= 1), stop the causal loop at the diagonal tile and start a
 // windowed one at the tile that holds the first row's first key (q0 - w
-// + 1): tiles wholly left of the window are never loaded.  A row whose keys in a tile are all masked
-// takes p = 1 there with m = -1e30; its first tile with a key in the
-// window rescales that away (exp(-1e30 - m) = 0), and every row has one
-// (its own position).
+// + 1): tiles wholly left of the window are never loaded.  A row whose
+// keys in a tile are all masked takes p = 1 there with m = -1e30; its
+// first tile with a valid key rescales that away (exp(-1e30 - m) = 0).
+//
+// Offset and key mask (kExt instances; the kernels without them carry
+// neither, so the serving and training calls run the code they ran
+// before): the causal and window bounds take each row at its position
+// q_offset + i, and the key mask (one byte a key, (B, Sk)) is read a tile
+// at a time into a warp-uniform bit word (__ballot_sync over the tile's
+// keys); a tile whose word is not all ones takes the masked loop.  A row
+// may then have no valid key (every key of a left-padded prompt's pad
+// rows is masked, or a window lies past the keys).  The reference scores
+// all its Sk keys -1e30, so its softmax is uniform over them and its
+// output the mean of v over all Sk keys: such a row ends with m = -1e30
+// exactly (no valid score comes near it), and the kernels write the mean
+// of v instead of acc / l (fa_vmean_kernel, a fixed-order pre-pass a
+// (batch, kv head) that the group's query heads share, run when kernel.py
+// may_lack_keys says such a row can occur) and +inf as its lse, which
+// the backward reads as "no key".
 //
 // Bound on the H100: at the serve path's shapes (S ~ 1000, D = 128) the
 // work, 2*S*S*D operations a head causal, sits far above the bytes (q, k,
@@ -148,15 +166,18 @@ constexpr int f32_smem_bytes() {       // Q, 2 x (K, V)
 // range is the part's [z part_keys, (z + 1) part_keys) when part_keys > 0
 // (then the block writes its unnormalized rows with their (m, l) to
 // `part`: (parts, B, Hq, S, D + 2)), else all keys (o and lse written
-// here).
-template <int D>
+// here).  kExt: the query offset and the key mask (module comment,
+// "Offset and key mask"); the instance without them carries neither.
+template <int D, bool kExt>
 __global__ void __launch_bounds__(kF32Threads, D == 64 ? 2 : 1)
 fa_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ o,
                float* __restrict__ lse, float* __restrict__ part, int Hq,
                int group, int S, int Sk, Strides sq, Strides sk, Strides sv,
                Strides so, int causal, int window, float rsd, float cap,
-               float rcap, int part_keys, int vec) {
+               float rcap, int part_keys, int vec, int q_offset,
+               const unsigned char* __restrict__ kvm,
+               const float* __restrict__ vmean) {
   constexpr int P = f32_pitch<D>();
   constexpr int ND = D / 8;            // n-tiles of the output
   constexpr int NK = kHalfKeys / 8;    // n-tiles of a warp's scores
@@ -173,12 +194,25 @@ fa_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int hk = h / group;
   const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int q0 = qt * kBQ;
+  const int qo = kExt ? q_offset : 0;  // row i is position qo + i
   const int key_lo = part_keys > 0 ? blockIdx.z * part_keys : 0;
   const int key_hi = part_keys > 0 ? min(Sk, key_lo + part_keys) : Sk;
-  const int n_keys = causal ? min(Sk, q0 + kBQ) : key_hi;
+  // (the kernel without kExt keeps the expressions it had before the
+  // offset, so that it compiles to the code it had)
+  int n_keys, t_first;
+  if constexpr (kExt)
+    n_keys = causal ? min(Sk, qo + q0 + kBQ) : key_hi;
+  else
+    n_keys = causal ? min(Sk, q0 + kBQ) : key_hi;
   const int n_tiles = (n_keys + kBK - 1) / kBK;
-  const int t_first =
-      max(window > 0 ? max(q0 - window + 1, 0) / kBK : 0, key_lo / kBK);
+  if constexpr (kExt)
+    t_first =
+        max(window > 0 ? max(qo + q0 - window + 1, 0) / kBK : 0, key_lo / kBK);
+  else
+    t_first =
+        max(window > 0 ? max(q0 - window + 1, 0) / kBK : 0, key_lo / kBK);
+  const unsigned char* mb =
+      kExt && kvm != nullptr ? kvm + static_cast<long long>(b) * Sk : nullptr;
   const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + hk * sk.h;
   const float* vb = v + b * sv.b + hk * sv.h;
@@ -214,9 +248,18 @@ fa_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       cp_async_commit();
     }
     const int kc = t * kBK + kHalfKeys * half;   // this warp's keys
-    if (rw >= S || kc >= Sk || (causal && kc > rw + 15) ||
-        (window > 0 && rw - (kc + kHalfKeys - 1) >= window))
-      continue;                        // it scores none of them
+    if constexpr (kExt) {
+      if (rw >= S || kc >= Sk || (causal && kc > qo + rw + 15) ||
+          (window > 0 && qo + rw - (kc + kHalfKeys - 1) >= window))
+        continue;                      // it scores none of them
+    } else {
+      if (rw >= S || kc >= Sk || (causal && kc > rw + 15) ||
+          (window > 0 && rw - (kc + kHalfKeys - 1) >= window))
+        continue;                      // it scores none of them
+    }
+    uint32_t bits = ~0u;               // the key mask of keys kc ..
+    if constexpr (kExt)
+      if (mb != nullptr) bits = key_bits(mb, kc, Sk, lane);
     const float* Kt = Ks + (buf * kBK + kHalfKeys * half) * P;
     const float* Vt = Vs + (buf * kBK + kHalfKeys * half) * P;
     float s[NK][4];                    // 16 rows x 32 keys
@@ -226,9 +269,15 @@ fa_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
     products_nk<D, NK>(s, qa, Kt, g, t4);    // S = Q K^T
     // scale (and cap), mask, online softmax (natural-log domain)
-    const bool masked = kc + kHalfKeys > Sk ||
-                        (causal && kc + kHalfKeys - 1 > rw) ||
-                        (window > 0 && rw + 15 - kc >= window);
+    bool masked;
+    if constexpr (kExt)
+      masked = kc + kHalfKeys > Sk ||
+               (causal && kc + kHalfKeys - 1 > qo + rw) ||
+               (window > 0 && qo + rw + 15 - kc >= window) || bits != ~0u;
+    else
+      masked = kc + kHalfKeys > Sk ||
+               (causal && kc + kHalfKeys - 1 > rw) ||
+               (window > 0 && rw + 15 - kc >= window);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int n = 0; n < NK; ++n) {
@@ -238,10 +287,18 @@ fa_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if (cap > 0.0f) x = cap * tanhf(x * rcap);
         if (masked) {
           const int key = kc + 8 * n + 2 * t4 + (e & 1);
-          const int row = row0 + 8 * (e >> 1);
-          if (key >= Sk || (causal && key > row) ||
-              (window > 0 && row - key >= window))
-            x = kNegInf;
+          if constexpr (kExt) {
+            const int row = qo + row0 + 8 * (e >> 1);   // its position
+            if (key >= Sk || (causal && key > row) ||
+                (window > 0 && row - key >= window) ||
+                !((bits >> (8 * n + 2 * t4 + (e & 1))) & 1u))
+              x = kNegInf;
+          } else {
+            const int row = row0 + 8 * (e >> 1);
+            if (key >= Sk || (causal && key > row) ||
+                (window > 0 && row - key >= window))
+              x = kNegInf;
+          }
         }
         s[n][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -346,6 +403,20 @@ fa_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= S) continue;
+    if constexpr (kExt) {
+      if (vmean != nullptr && m[r] == kNegInf) {   // no key: the mean of v
+        const float* vm =
+            vmean + (static_cast<long long>(b) * (Hq / group) + hk) * D;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          ob[row * so.s + 8 * n + 2 * t4] = vm[8 * n + 2 * t4];
+          ob[row * so.s + 8 * n + 2 * t4 + 1] = vm[8 * n + 2 * t4 + 1];
+        }
+        if (lse != nullptr && t4 == 0)
+          lse[static_cast<long long>(blockIdx.x) * S + row] = no_key_lse();
+        continue;
+      }
+    }
     const float den = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
@@ -360,11 +431,14 @@ fa_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // The key parts' rows folded in part order: M = max m_p, w_p = exp(m_p -
 // M), L = sum w_p l_p, o = (sum w_p acc_p) / L, lse = M + log L; a thread
-// an output element (b * Hq + head, row, column)
+// an output element (b * Hq + head, row, column).  kExt: a row no part
+// found a key for (M = -1e30) takes the mean of v and the sentinel lse.
+template <bool kExt>
 __global__ void fa_tf32_fold(const float* __restrict__ part,
                              float* __restrict__ o, float* __restrict__ lse,
                              int parts, int Hq, int S, int D, Strides so,
-                             long long n_rows) {
+                             long long n_rows,
+                             const float* __restrict__ vmean, int group) {
   const long long e = static_cast<long long>(blockIdx.x) * blockDim.x
                       + threadIdx.x;
   if (e >= n_rows * D) return;
@@ -385,6 +459,14 @@ __global__ void fa_tf32_fold(const float* __restrict__ part,
   const long long bh = row / S;
   const int h = static_cast<int>(bh % Hq);
   const long long b = bh / Hq;
+  if constexpr (kExt) {
+    if (vmean != nullptr && mx == kNegInf) {
+      o[b * so.b + h * so.h + i * so.s + d] =
+          vmean[(b * (Hq / group) + h / group) * D + d];
+      if (lse != nullptr && d == 0) lse[row] = no_key_lse();
+      return;
+    }
+  }
   o[b * so.b + h * so.h + i * so.s + d] = __fdiv_rn(sum_a, den);
   if (lse != nullptr && d == 0) lse[row] = mx + logf(den);
 }
@@ -403,14 +485,18 @@ constexpr int mma_smem_bytes() {              // Q, then 2 x K, 2 x V
 
 // kWin: a window is given.  The kernel without one carries none of the
 // window's bounds and masks: they cost registers at D = 128, where the
-// accumulators already take 251 of 255.
-template <int D, bool kWin>
+// accumulators already take 251 of 255.  kExt: the query offset and the
+// key mask (module comment, "Offset and key mask"), likewise only in the
+// instances that take them.
+template <int D, bool kWin, bool kExt>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               const bf16* __restrict__ v, bf16* __restrict__ o,
               float* __restrict__ lse, int Hq, int group, int S, int Sk,
               Strides sq, Strides sk, Strides sv, Strides so, int causal,
-              int window, float score_mul, float cap_mul) {
+              int window, float score_mul, float cap_mul, int q_offset,
+              const unsigned char* __restrict__ kvm,
+              const float* __restrict__ vmean) {
   constexpr int P = mma_pitch<D>();
   constexpr int KD = D / 16;           // k-steps of Q K^T
   constexpr int ND = D / 8;            // n-tiles of the output
@@ -445,9 +531,18 @@ fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   };
 
-  const int n_keys = causal ? min(Sk, q0 + kBQ) : Sk;
+  const int qo = kExt ? q_offset : 0;  // row i is position qo + i
+  int n_keys, t_first;                 // (without kExt: as before it)
+  if constexpr (kExt) {
+    n_keys = causal ? min(Sk, qo + q0 + kBQ) : Sk;
+    t_first = kWin ? max(qo + q0 - window + 1, 0) / kBK : 0;
+  } else {
+    n_keys = causal ? min(Sk, q0 + kBQ) : Sk;
+    t_first = kWin ? max(q0 - window + 1, 0) / kBK : 0;
+  }
   const int n_tiles = (n_keys + kBK - 1) / kBK;
-  const int t_first = kWin ? max(q0 - window + 1, 0) / kBK : 0;
+  const unsigned char* mb =
+      kExt && kvm != nullptr ? kvm + static_cast<long long>(b) * Sk : nullptr;
   load_tile(Qs, qb, sq.s, q0, S);
   cp_async_commit();
   load_tile(Ks, kb, sk.s, t_first * kBK, Sk);
@@ -508,8 +603,20 @@ fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // scale (and cap) into the log2 domain, mask, online softmax
     const int k0 = t * kBK;
-    const bool masked = k0 + kBK > Sk || (causal && k0 + kBK - 1 > q0) ||
-                        (kWin && q0 + kBQ - 1 - k0 >= window);
+    uint32_t mlo = ~0u, mhi = ~0u;     // the key mask: keys k0 .., k0 + 32 ..
+    bool masked;
+    if constexpr (kExt) {
+      if (mb != nullptr) {
+        mlo = key_bits(mb, k0, Sk, lane);
+        mhi = key_bits(mb, k0 + 32, Sk, lane);
+      }
+      masked = k0 + kBK > Sk || (causal && k0 + kBK - 1 > qo + q0) ||
+               (kWin && qo + q0 + kBQ - 1 - k0 >= window) ||
+               (mlo & mhi) != ~0u;
+    } else {
+      masked = k0 + kBK > Sk || (causal && k0 + kBK - 1 > q0) ||
+               (kWin && q0 + kBQ - 1 - k0 >= window);
+    }
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
@@ -519,10 +626,19 @@ fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (cap_mul > 0.0f) x = cap_mul * tanhf(x);
         if (masked) {
           const int key = k0 + 8 * n + 2 * c4 + (e & 1);
-          const int row = row0 + 8 * (e >> 1);
-          if (key >= Sk || (causal && key > row) ||
-              (kWin && row - key >= window))
-            x = kNegInf;
+          if constexpr (kExt) {
+            const int row = qo + row0 + 8 * (e >> 1);   // its position
+            if (key >= Sk || (causal && key > row) ||
+                (kWin && row - key >= window) ||
+                !(((n < 4 ? mlo : mhi) >> (8 * (n & 3) + 2 * c4 + (e & 1)))
+                  & 1u))
+              x = kNegInf;
+          } else {
+            const int row = row0 + 8 * (e >> 1);
+            if (key >= Sk || (causal && key > row) ||
+                (kWin && row - key >= window))
+              x = kNegInf;
+          }
         }
         s[n][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -581,6 +697,37 @@ fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float inv0 = 1.0f / fmaxf(l[0], 1e-30f);
   const float inv1 = 1.0f / fmaxf(l[1], 1e-30f);
   const int row1 = row0 + 8;
+  if constexpr (kExt) {
+    // (a window past the keys leaves a block no tile: the copy of tile
+    // t_first, all zeros, may still be in flight)
+    cp_async_wait<0>();
+    const float* vm =
+        vmean + (static_cast<long long>(b) * (Hq / group) + hk) * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= S) continue;
+      // a row with no key: the mean of v, the sentinel lse
+      const bool none = vmean != nullptr && m[r] == kNegInf;
+      const float inv = r ? inv1 : inv0;
+      if (lse != nullptr && c4 == 0)
+        lse[static_cast<long long>(blockIdx.x) * S + row] =
+            none ? no_key_lse()
+                 : (m[r] + log2f(fmaxf(l[r], 1e-30f))) * kLn2;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        const int col = 8 * n + 2 * c4;
+        __nv_bfloat162 y;
+        if (none)
+          y = __floats2bfloat162_rn(vm[col], vm[col + 1]);
+        else
+          y = __floats2bfloat162_rn(acc[n][2 * r] * inv,
+                                    acc[n][2 * r + 1] * inv);
+        *reinterpret_cast<__nv_bfloat162*>(ob + row * so.s + col) = y;
+      }
+    }
+    return;
+  }
   if (lse != nullptr && c4 == 0) {     // m is in the log2 domain
     float* lb = lse + static_cast<long long>(blockIdx.x) * S;
     if (row0 < S) lb[row0] = (m[0] + log2f(fmaxf(l[0], 1e-30f))) * kLn2;
@@ -598,21 +745,57 @@ fa_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ------------------------------------------- the mean of v (no-key rows)
+
+constexpr int kMeanThreads = 512;
+
+// vmean (B, Hkv, D) float32: v's mean over its Sk keys, a block a (batch,
+// kv head), shared by the group's query heads.  Thread (lane r, column d)
+// adds keys r, r + R, ... in order (R = 512 / D lanes), then lane 0 adds
+// the lanes' sums in lane order and divides by Sk: a fixed order, a
+// function of Sk and D alone.
+template <typename T, int D>
+__global__ void __launch_bounds__(kMeanThreads)
+fa_vmean_kernel(const T* __restrict__ v, float* __restrict__ vmean, int Hkv,
+                int Sk, Strides sv) {
+  constexpr int R = kMeanThreads / D;
+  __shared__ float lanes[kMeanThreads];
+  const int d = threadIdx.x % D, r = threadIdx.x / D;
+  const long long b = blockIdx.x / Hkv;
+  const int hk = blockIdx.x % Hkv;
+  const T* col = v + b * sv.b + hk * sv.h + d;
+  float sum = 0.0f;
+#pragma unroll 8
+  for (int j = r; j < Sk; j += R)
+    sum = __fadd_rn(sum, to_f(col[static_cast<long long>(j) * sv.s]));
+  lanes[threadIdx.x] = sum;
+  __syncthreads();
+  if (r != 0) return;
+  for (int i = 1; i < R; ++i) sum = __fadd_rn(sum, lanes[i * D + d]);
+  vmean[static_cast<long long>(blockIdx.x) * D + d] =
+      __fdiv_rn(sum, static_cast<float>(Sk));
+}
+
+template <typename T, int D>
+cudaError_t launch_vmean(const void* v, float* vmean, int B, int Hkv,
+                         int Sk, Strides sv, cudaStream_t stream) {
+  fa_vmean_kernel<T, D><<<B * Hkv, kMeanThreads, 0, stream>>>(
+      static_cast<const T*>(v), vmean, Hkv, Sk, sv);
+  return cudaGetLastError();
+}
+
 // ------------------------------------------------------------ launchers
 
-template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int Hq, int Hkv, int S, int Sk, const long long* st,
-               int causal, int window, float cap, float* lse, float* part,
-               int part_keys, void* stream_ptr) {
-  const int parts = part_keys > 0 ? (Sk + part_keys - 1) / part_keys : 1;
-  if (part_keys < 0 || part_keys % kBK ||
-      (parts > 1 && (causal || part == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto stream = static_cast<cudaStream_t>(stream_ptr);
+template <int D, bool kExt>
+int launch_f32_as(const void* q, const void* k, const void* v, void* o,
+                  int B, int Hq, int Hkv, int S, int Sk, const long long* st,
+                  int causal, int window, float cap, float* lse, float* part,
+                  int parts, int part_keys, int q_offset,
+                  const unsigned char* kvm, const float* vmean,
+                  cudaStream_t stream) {
   const int smem = f32_smem_bytes<D>();
   static bool opted[kMaxDevices] = {};
-  cudaError_t err = opt_in(fa_tf32_kernel<D>, smem, opted);
+  cudaError_t err = opt_in(fa_tf32_kernel<D, kExt>, smem, opted);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Strides sq = strides_of(st, 0), sk = strides_of(st, 1),
                 sv = strides_of(st, 2), so = strides_of(st, 3);
@@ -621,17 +804,65 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                   f32_rows_aligned(v, sv, B, Hkv, Sk);
   const float rsd = 1.0f / sqrtf(static_cast<float>(D));
   const dim3 grid(B * Hq, (S + kBQ - 1) / kBQ, parts);
-  fa_tf32_kernel<D><<<grid, kF32Threads, smem, stream>>>(
+  fa_tf32_kernel<D, kExt><<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, part, Hq,
       Hq / Hkv, S, Sk, sq, sk, sv, so, causal, window, rsd, cap,
-      cap > 0.0f ? 1.0f / cap : 0.0f, parts > 1 ? part_keys : 0, vec);
+      cap > 0.0f ? 1.0f / cap : 0.0f, parts > 1 ? part_keys : 0, vec,
+      q_offset, kvm, vmean);
   err = cudaGetLastError();
   if (err != cudaSuccess || parts == 1) return static_cast<int>(err);
   const long long n_rows = static_cast<long long>(B) * Hq * S;
-  fa_tf32_fold<<<static_cast<unsigned>((n_rows * D + 255) / 256), 256, 0,
-                 stream>>>(part, static_cast<float*>(o), lse, parts, Hq, S,
-                           D, so, n_rows);
+  fa_tf32_fold<kExt><<<static_cast<unsigned>((n_rows * D + 255) / 256), 256,
+                       0, stream>>>(part, static_cast<float*>(o), lse, parts,
+                                    Hq, S, D, so, n_rows, vmean, Hq / Hkv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int Hq, int Hkv, int S, int Sk, const long long* st,
+               int causal, int window, float cap, float* lse, float* part,
+               int part_keys, int q_offset, const unsigned char* kvm,
+               float* vmean, void* stream_ptr) {
+  const int parts = part_keys > 0 ? (Sk + part_keys - 1) / part_keys : 1;
+  if (part_keys < 0 || part_keys % kBK ||
+      (parts > 1 && (causal || part == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto stream = static_cast<cudaStream_t>(stream_ptr);
+  if (vmean != nullptr) {
+    const cudaError_t err = launch_vmean<float, D>(
+        v, vmean, B, Hkv, Sk, strides_of(st, 2), stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return q_offset != 0 || kvm != nullptr || vmean != nullptr
+             ? launch_f32_as<D, true>(q, k, v, o, B, Hq, Hkv, S, Sk, st,
+                                      causal, window, cap, lse, part, parts,
+                                      part_keys, q_offset, kvm, vmean,
+                                      stream)
+             : launch_f32_as<D, false>(q, k, v, o, B, Hq, Hkv, S, Sk, st,
+                                       causal, window, cap, lse, part, parts,
+                                       part_keys, 0, nullptr, nullptr,
+                                       stream);
+}
+
+template <int D, bool kWin, bool kExt>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
+               int Hq, int Hkv, int S, int Sk, const long long* st,
+               int causal, int window, float score_mul, float cap_mul,
+               float* lse, int q_offset, const unsigned char* kvm,
+               const float* vmean, cudaStream_t stream) {
+  const int smem = mma_smem_bytes<D>();
+  static bool opted[kMaxDevices] = {};
+  const cudaError_t err = opt_in(fa_mma_kernel<D, kWin, kExt>, smem, opted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(B * Hq, (S + kBQ - 1) / kBQ);
+  fa_mma_kernel<D, kWin, kExt><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Hq,
+      Hq / Hkv, S, Sk, strides_of(st, 0), strides_of(st, 1),
+      strides_of(st, 2), strides_of(st, 3), causal, window, score_mul,
+      cap_mul, q_offset, kvm, vmean);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -639,28 +870,26 @@ template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 int Hq, int Hkv, int S, int Sk, const long long* st,
                 int causal, int window, float cap, float* lse,
-                float* /*part*/, int part_keys, void* stream) {
+                float* /*part*/, int part_keys, int q_offset,
+                const unsigned char* kvm, float* vmean, void* stream_ptr) {
   if (part_keys != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = mma_smem_bytes<D>();
-  static bool opted[kMaxDevices] = {};
-  static bool opted_win[kMaxDevices] = {};
-  const cudaError_t err =
-      window > 0 ? opt_in(fa_mma_kernel<D, true>, smem, opted_win)
-                 : opt_in(fa_mma_kernel<D, false>, smem, opted);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto stream = static_cast<cudaStream_t>(stream_ptr);
+  if (vmean != nullptr) {
+    const cudaError_t err = launch_vmean<bf16, D>(
+        v, vmean, B, Hkv, Sk, strides_of(st, 2), stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   // scores -> log2 domain: x * log2(e) / sqrt(D), or with the cap
   // cap * log2(e) * tanh(x / (sqrt(D) * cap))
   const float rsd = 1.0f / sqrtf(static_cast<float>(D));
   const float score_mul = cap > 0.0f ? rsd / cap : rsd * kLog2e;
   const float cap_mul = cap > 0.0f ? cap * kLog2e : 0.0f;
-  const dim3 grid(B * Hq, (S + kBQ - 1) / kBQ);
-  auto kernel = window > 0 ? fa_mma_kernel<D, true> : fa_mma_kernel<D, false>;
-  kernel<<<grid, kMmaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, Hq,
-      Hq / Hkv, S, Sk, strides_of(st, 0), strides_of(st, 1), strides_of(st, 2),
-      strides_of(st, 3), causal, window, score_mul, cap_mul);
-  return static_cast<int>(cudaGetLastError());
+  const bool ext = q_offset != 0 || kvm != nullptr || vmean != nullptr;
+  auto launch = window > 0
+      ? (ext ? launch_mma<D, true, true> : launch_mma<D, true, false>)
+      : (ext ? launch_mma<D, false, true> : launch_mma<D, false, false>);
+  return launch(q, k, v, o, B, Hq, Hkv, S, Sk, st, causal, window,
+                score_mul, cap_mul, lse, q_offset, kvm, vmean, stream);
 }
 
 }  // namespace
@@ -668,23 +897,30 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
 // S: query rows, Sk: keys; strides: 12 int64, (batch, head, seq) for q,
 // k, v and o in turn; window: 0 for none; lse: null, or (B, Hq, S)
 // float32 that takes each row's log-sum-exp of its scaled (and capped)
-// scores, m + log(l), for the backward (flash_attention_bwd.cu);
-// part, part_keys: float32 only, the key split (kernel.py
-// fwd_key_parts): part_keys > 0 (a multiple of 64, non-causal only)
-// splits the keys into parts of that many, whose rows go to part
-// (ceil(Sk / part_keys), B, Hq, S, D + 2) float32 and are folded in
-// order; 0: no split (part unused).
+// scores, m + log(l), for the backward (flash_attention_bwd.cu), +inf
+// for a row with no key; part, part_keys: float32 only, the key split
+// (kernel.py fwd_key_parts): part_keys > 0 (a multiple of 64,
+// non-causal only) splits the keys into parts of that many, whose rows
+// go to part (ceil(Sk / part_keys), B, Hq, S, D + 2) float32 and are
+// folded in order; 0: no split (part unused).  q_offset >= 0: row i is
+// position q_offset + i for the causal and window masks; kv_mask: null,
+// or (B, Sk) bytes, 0 masking the key; vmean: null, or (B, Hkv, D)
+// float32 scratch that takes v's mean, the output of a row with no key
+// (kernel.py may_lack_keys says when one can occur: then it must be
+// given).
 #define FA_ENTRY(NAME, LAUNCH)                                               \
   extern "C" int NAME(const void* q, const void* k, const void* v, void* o,  \
                       int B, int Hq, int Hkv, int S, int Sk,                 \
                       const long long* strides, int causal, int window,      \
                       float cap, float* lse, float* part, int part_keys,     \
-                      void* stream) {                                        \
+                      int q_offset, const unsigned char* kv_mask,            \
+                      float* vmean, void* stream) {                          \
     if (B <= 0 || S <= 0 || Hq <= 0) return 0;                               \
-    if (Sk <= 0 || (causal && Sk != S) || (window > 0 && !causal))           \
+    if (Sk <= 0 || q_offset < 0 || (window > 0 && !causal))                  \
       return static_cast<int>(cudaErrorInvalidValue);                        \
     return LAUNCH(q, k, v, o, B, Hq, Hkv, S, Sk, strides, causal, window,    \
-                  cap, lse, part, part_keys, stream);                        \
+                  cap, lse, part, part_keys, q_offset, kv_mask, vmean,       \
+                  stream);                                                   \
   }
 
 FA_ENTRY(fa_launch_f32_d64, launch_f32<64>)

@@ -20,6 +20,30 @@ struct Strides {                 // in elements; the D axis is contiguous
   long long b, h, s;
 };
 
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f<bf16>(bf16 x) {
+  return __bfloat162float(x);
+}
+
+// The sentinel lse of a row with no valid key (flash_attention.cu): the
+// backward's P = exp(s - lse) is 0 there, and its empty-row pass finds
+// the row by it
+__device__ __forceinline__ float no_key_lse() {
+  return __int_as_float(0x7f800000);   // +inf
+}
+
+// The key mask of keys k0 .. k0 + 31 of batch row `mb` (one byte a key,
+// keys past Sk masked) as a warp-uniform word: bit j for key k0 + j
+__device__ __forceinline__ uint32_t key_bits(const unsigned char* mb,
+                                             int k0, int Sk, int lane) {
+  const int key = k0 + lane;
+  return __ballot_sync(0xffffffffu, key < Sk && mb[key] != 0);
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

@@ -19,12 +19,21 @@
 // for q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), any strides with a
 // contiguous head dimension, as the forward takes them; dq/dk/dv take
 // the same strides arguments.  The cases are the forward's: causal with
-// or without a window (Sk == Sq), non-causal with any Sk, the cap, D in
-// {64, 128}.
+// or without a window, non-causal, any Sk, the cap, D in {64, 128}, a
+// query offset and a (B, Sk) key mask (kExt instances, as the forward's:
+// the kernels without them carry neither).  A row with no valid key
+// (the forward wrote +inf as its lse) has, in the reference, a softmax
+// uniform over all Sk keys of scores that do not depend on q or k: it
+// sends nothing to dq or dk (P = exp(s - inf) = 0 wherever it is scored,
+// and every tile that holds it is masked) and dout / Sk to every key's
+// dv, which fa_bwd_empty_kernel sums over the group's such rows in a
+// fixed order and the dK/dV kernels add to dv.  The dK/dV loop over
+// query rows starts at max(0, key0 - q_offset) under causality.
 //
 // Kernels, launched in order on one stream:
 //   1. delta: a warp a row (float32), or in bf16 D/8 lanes a row with
-//      16-byte loads (float32 products, a fixed shuffle tree);
+//      16-byte loads (float32 products, a fixed shuffle tree); then,
+//      where a row may have no key, the empty-row pass (vsum);
 //   2. dK/dV: one block a (batch, kv head, tile of keys).  It loops over
 //      the Hq/Hkv query heads of its group and, for each, over the query
 //      tiles that can see its keys (from the diagonal tile when causal, up
@@ -117,15 +126,6 @@ namespace {
 
 constexpr int kOwn = 64;           // own rows a block (keys, or queries)
 
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<bf16>(bf16 x) {
-  return __bfloat162float(x);
-}
-
 // ------------------------------------------------------- 1. the pre-pass
 
 constexpr int kDeltaWarps = 8;
@@ -153,11 +153,23 @@ fa_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   if (lane == 0) delta[row] = acc;
 }
 
+// The helpers named *_at take the kExt instances' query offset: row i
+// sits at position qo + i.  The kernels without kExt call the helpers
+// without it, as they did before the offset (a template parameter
+// added to those helpers changed how their kernels compiled), so that
+// those instances keep their code: `kExt ? f_at(..., qo) : f(...)`
+// emits only the arm it takes.
+
 // Is (row, key) scored by the forward?
 __device__ __forceinline__ bool scored(int row, int key, int S, int Sk,
                                        int causal, int window) {
   return row < S && key < Sk && !(causal && key > row) &&
          !(window > 0 && row - key >= window);
+}
+__device__ __forceinline__ bool scored_at(int row, int key, int S, int Sk,
+                                          int causal, int window, int qo) {
+  return row < S && key < Sk && !(causal && key > qo + row) &&
+         !(window > 0 && qo + row - key >= window);
 }
 
 // The query tiles of `rows` rows that see keys k0 .. k0 + kOwn - 1.
@@ -167,6 +179,73 @@ __device__ __forceinline__ void query_tiles(int k0, int rows, int S,
   first = causal ? k0 / rows : 0;
   end = (S + rows - 1) / rows;
   if (window > 0) end = min(end, (k0 + kOwn - 1 + window - 1) / rows + 1);
+}
+
+// The same for keys k0 .. k0 + own - 1 and rows at positions qo + i (the
+// kExt instances): from row max(0, k0 - qo) under causality, to the
+// window's last row k0 + own - 1 + window - 1 - qo.
+__device__ __forceinline__ void query_tiles_at(int k0, int own, int rows,
+                                               int S, int causal, int window,
+                                               int qo, int& first,
+                                               int& end) {
+  first = causal ? max(k0 - qo, 0) / rows : 0;
+  end = (S + rows - 1) / rows;
+  if (window > 0) {
+    const int last = k0 + own - 1 + window - 1 - qo;
+    end = last < 0 ? 0 : min(end, last / rows + 1);
+  }
+}
+
+// The rows a dK/dV block's keys add dout / Sk to dv for: a row with no
+// valid key (lse +inf, flash_attention.cu no_key_lse) has a softmax
+// uniform over all Sk keys in the reference.  vsum (B, Hkv, D): the sum
+// of those rows' dout over the group's query heads, then the rows, over
+// Sk.  A block a (batch, kv head); warp w adds the group's rows
+// w, w + 16, ... in order (the lse test is warp-uniform), lane l columns
+// l, l + 32, ...; then the 16 warps' sums are added in warp order: a
+// fixed order, no atomics.
+constexpr int kEmptyWarps = 16;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(32 * kEmptyWarps)
+fa_bwd_empty_kernel(const T* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ vsum,
+                    int Hq, int Hkv, int S, int Sk, Strides sdo) {
+  constexpr int C = D / 32;                // a lane's columns
+  __shared__ float warps[kEmptyWarps][D];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long b = blockIdx.x / Hkv;
+  const int hk = blockIdx.x % Hkv;
+  const int group = Hq / Hkv;
+  float acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+  for (int t = w; t < group * S; t += kEmptyWarps) {
+    const int h = hk * group + t / S, i = t % S;
+    if (lse[(b * Hq + h) * S + i] != no_key_lse()) continue;
+    const T* row = dout + b * sdo.b + h * sdo.h + i * sdo.s;
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      acc[c] = __fadd_rn(acc[c], to_f(row[lane + 32 * c]));
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) warps[w][lane + 32 * c] = acc[c];
+  __syncthreads();
+  if (threadIdx.x >= D) return;
+  float sum = warps[0][threadIdx.x];
+  for (int i = 1; i < kEmptyWarps; ++i)
+    sum = __fadd_rn(sum, warps[i][threadIdx.x]);
+  vsum[static_cast<long long>(blockIdx.x) * D + threadIdx.x] =
+      __fdiv_rn(sum, static_cast<float>(Sk));
+}
+
+// The key mask of keys k0 + lane (lane < 16) .. as a warp-uniform "all
+// valid" (a dK/dV warp's 16 own keys; kvm null: all valid)
+__device__ __forceinline__ bool own_keys_valid(const unsigned char* mb,
+                                               int k0, int Sk, int lane) {
+  const int key = k0 + lane;
+  return __all_sync(0xffffffffu,
+                    lane >= 16 || mb == nullptr || (key < Sk && mb[key]));
 }
 
 // ------------------------------------ float32: 3xTF32 on the tensor cores
@@ -197,6 +276,21 @@ __device__ __forceinline__ bool f32_interior(int r0, int nr, int c0, int nc,
                                              int window) {
   return r0 + nr <= S && c0 + nc <= Sk && (!causal || c0 + nc - 1 <= r0) &&
          (window <= 0 || r0 + nr - 1 - c0 < window);
+}
+// (the same with rows at positions qo + r, before the key mask)
+__device__ __forceinline__ bool f32_dead_at(int r0, int nr, int c0, int nc,
+                                            int S, int Sk, int causal,
+                                            int window, int qo) {
+  return r0 >= S || c0 >= Sk || (causal && c0 > qo + r0 + nr - 1) ||
+         (window > 0 && qo + r0 - (c0 + nc - 1) >= window);
+}
+__device__ __forceinline__ bool f32_interior_at(int r0, int nr, int c0,
+                                                int nc, int S, int Sk,
+                                                int causal, int window,
+                                                int qo) {
+  return r0 + nr <= S && c0 + nc <= Sk &&
+         (!causal || c0 + nc - 1 <= qo + r0) &&
+         (window <= 0 || qo + r0 + nr - 1 - c0 < window);
 }
 
 // P and dS of one score, from the raw products s = q.k and dp = dO.v,
@@ -255,8 +349,9 @@ __device__ __forceinline__ void pair_sum(float (&acc)[D / 8][4], float* red,
 // and rows' lse and delta are copied into buffer i % 2 while stage i - 1
 // is multiplied.  dK and dV stay in registers: GQA's sum over the group is
 // this loop, not atomics; at the end each pair adds its two halves in a
-// fixed order (pair_sum).
-template <int D>
+// fixed order (pair_sum).  kExt: the query offset, the key mask (the own
+// keys' bytes, read once) and vsum (fa_bwd_empty_kernel), added to dv.
+template <int D, bool kExt>
 __global__ void __launch_bounds__(kF32BwdThreads, 1)
 fa_bwd_dkdv_tf32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v,
@@ -266,7 +361,9 @@ fa_bwd_dkdv_tf32(const float* __restrict__ q, const float* __restrict__ k,
                  float* __restrict__ dv, int Hq, int Hkv, int S, int Sk,
                  Strides sq, Strides sk, Strides sv, Strides sdo,
                  Strides sdk, Strides sdv, int causal, int window,
-                 float rsd, float cap, float rcap, int vec) {
+                 float rsd, float cap, float rcap, int vec, int q_offset,
+                 const unsigned char* __restrict__ kvm,
+                 const float* __restrict__ vsum) {
   constexpr int P = f32_pitch<D>();
   constexpr int QW = kF32Tile / 2;         // a warp's queries of a stage
   constexpr int NQ = QW / 8;               // their n-tiles
@@ -288,8 +385,13 @@ fa_bwd_dkdv_tf32(const float* __restrict__ q, const float* __restrict__ k,
   const int group = Hq / Hkv;
   const int k0 = blockIdx.y * kOwn;
   const int kw = k0 + 16 * w4;             // this warp's keys
+  const int qo = kExt ? q_offset : 0;
   int qt_first, qt_end;
-  query_tiles(k0, kF32Tile, S, causal, window, qt_first, qt_end);
+  if constexpr (kExt)
+    query_tiles_at(k0, kOwn, kF32Tile, S, causal, window, qo, qt_first,
+                   qt_end);
+  else
+    query_tiles(k0, kF32Tile, S, causal, window, qt_first, qt_end);
   const int n_tiles = max(qt_end - qt_first, 0);
   const int n = group * n_tiles;
 
@@ -335,8 +437,22 @@ fa_bwd_dkdv_tf32(const float* __restrict__ q, const float* __restrict__ k,
       load_stage(i + 1);
       cp_async_commit();
     }
-    if (f32_dead(qc, QW, kw, 16, S, Sk, causal, window)) continue;
-    const bool edge = !f32_interior(qc, QW, kw, 16, S, Sk, causal, window);
+    if (kExt ? f32_dead_at(qc, QW, kw, 16, S, Sk, causal, window, qo)
+             : f32_dead(qc, QW, kw, 16, S, Sk, causal, window))
+      continue;
+    // (kExt: the key mask of this thread's keys kw + g, kw + g + 8 in
+    // ok_lo, ok_hi, and whether the warp's 16 are all valid)
+    bool edge, ok_lo = true, ok_hi = true;
+    if constexpr (kExt) {
+      const unsigned char* mb =
+          kvm != nullptr ? kvm + static_cast<long long>(b) * Sk : nullptr;
+      ok_lo = mb == nullptr || (kw + g < Sk && mb[kw + g]);
+      ok_hi = mb == nullptr || (kw + g + 8 < Sk && mb[kw + g + 8]);
+      edge = !f32_interior_at(qc, QW, kw, 16, S, Sk, causal, window, qo)
+             || !own_keys_valid(mb, kw, Sk, lane);
+    } else {
+      edge = !f32_interior(qc, QW, kw, 16, S, Sk, causal, window);
+    }
     const float* Qt = Qs + (buf * kF32Tile + QW * half) * P;  // its rows
     const float* Ot = Os + (buf * kF32Tile + QW * half) * P;
     const float* Lt = Ls + buf * kF32Tile + QW * half;
@@ -355,11 +471,18 @@ fa_bwd_dkdv_tf32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = 8 * j + 2 * t4 + (e & 1);
-        if (edge)
-          f32_p_ds<true>(s[j][e], dp[j][e], Lt[col], Dt[col],
-                         scored(qc + col, kw + g + 8 * (e >> 1), S, Sk,
-                                causal, window), rsd, cap, rcap);
-        else
+        if (edge) {
+          if constexpr (kExt)
+            f32_p_ds<true>(s[j][e], dp[j][e], Lt[col], Dt[col],
+                           scored_at(qc + col, kw + g + 8 * (e >> 1), S,
+                                     Sk, causal, window, qo) &&
+                               ((e >> 1) ? ok_hi : ok_lo),
+                           rsd, cap, rcap);
+          else
+            f32_p_ds<true>(s[j][e], dp[j][e], Lt[col], Dt[col],
+                           scored(qc + col, kw + g + 8 * (e >> 1), S, Sk,
+                                  causal, window), rsd, cap, rcap);
+        } else
           f32_p_ds<false>(s[j][e], dp[j][e], Lt[col], Dt[col], true, rsd,
                           cap, rcap);
       }
@@ -373,6 +496,20 @@ fa_bwd_dkdv_tf32(const float* __restrict__ q, const float* __restrict__ k,
   if (half == 1) return;
   float* dkb = dk + b * sdk.b + hk * sdk.h;
   float* dvb = dv + b * sdv.b + hk * sdv.h;
+  if constexpr (kExt) {
+    if (vsum != nullptr) {                 // the rows with no key
+      const float* u = vsum + static_cast<long long>(blockIdx.x) * D;
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        const int col = 8 * j + 2 * t4;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          dva[j][2 * r] = __fadd_rn(dva[j][2 * r], u[col]);
+          dva[j][2 * r + 1] = __fadd_rn(dva[j][2 * r + 1], u[col + 1]);
+        }
+      }
+    }
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = kw + g + 8 * r;
@@ -396,8 +533,9 @@ fa_bwd_dkdv_tf32(const float* __restrict__ q, const float* __restrict__ k,
 // and V tiles are copied into buffer i % 2 while tile i - 1 is
 // multiplied.  Each pair adds its two halves in a fixed order (pair_sum);
 // dQ leaves as float32, or as the part's partial (dq_part: (parts, B,
-// Hq, S, D)) that dq_fold adds in part order.
-template <int D>
+// Hq, S, D)) that dq_fold adds in part order.  kExt: the query offset and
+// the key mask (a warp's 32 keys of a tile as one ballot word).
+template <int D, bool kExt>
 __global__ void __launch_bounds__(kF32BwdThreads, 1)
 fa_bwd_dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
@@ -406,7 +544,8 @@ fa_bwd_dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
                float* __restrict__ dq_part, int Hq, int Hkv, int S, int Sk,
                Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdq,
                int causal, int window, float rsd, float cap, float rcap,
-               int part_keys, int vec) {
+               int part_keys, int vec, int q_offset,
+               const unsigned char* __restrict__ kvm) {
   constexpr int P = f32_pitch<D>();
   constexpr int KW = kF32Tile / 2;         // a warp's keys of a tile
   constexpr int NK = KW / 8;
@@ -427,12 +566,22 @@ fa_bwd_dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
   const int rb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int q0 = rb * kOwn;
   const int rw = q0 + 16 * w4;             // this warp's rows
+  const int qo = kExt ? q_offset : 0;
+  const unsigned char* mb =
+      kExt && kvm != nullptr ? kvm + static_cast<long long>(b) * Sk : nullptr;
   const int key_lo = part_keys > 0 ? blockIdx.z * part_keys : 0;
   const int key_hi = part_keys > 0 ? min(Sk, key_lo + part_keys) : Sk;
-  const int n_keys = min(causal ? min(Sk, q0 + kOwn) : Sk, key_hi);
-  const int t_first = max(
-      window > 0 ? max(q0 - window + 1, 0) / kF32Tile : 0,
-      key_lo / kF32Tile);
+  int n_keys, t_first;
+  if constexpr (kExt) {
+    n_keys = min(causal ? min(Sk, qo + q0 + kOwn) : Sk, key_hi);
+    t_first = max(window > 0 ? max(qo + q0 - window + 1, 0) / kF32Tile : 0,
+                  key_lo / kF32Tile);
+  } else {
+    n_keys = min(causal ? min(Sk, q0 + kOwn) : Sk, key_hi);
+    t_first = max(
+        window > 0 ? max(q0 - window + 1, 0) / kF32Tile : 0,
+        key_lo / kF32Tile);
+  }
   const int n = max((n_keys + kF32Tile - 1) / kF32Tile - t_first, 0);
   const float* kb = k + b * sk.b + hk * sk.h;
   const float* vb = v + b * sv.b + hk * sv.h;
@@ -477,8 +626,18 @@ fa_bwd_dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
       load_stage(i + 1);
       cp_async_commit();
     }
-    if (f32_dead(rw, 16, cw, KW, S, Sk, causal, window)) continue;
-    const bool edge = !f32_interior(rw, 16, cw, KW, S, Sk, causal, window);
+    if (kExt ? f32_dead_at(rw, 16, cw, KW, S, Sk, causal, window, qo)
+             : f32_dead(rw, 16, cw, KW, S, Sk, causal, window))
+      continue;
+    uint32_t bits = ~0u;                   // the key mask of keys cw ..
+    bool edge;
+    if constexpr (kExt) {
+      if (mb != nullptr) bits = key_bits(mb, cw, Sk, lane);
+      edge = !f32_interior_at(rw, 16, cw, KW, S, Sk, causal, window, qo)
+             || bits != ~0u;
+    } else {
+      edge = !f32_interior(rw, 16, cw, KW, S, Sk, causal, window);
+    }
     const float* Kt = Ks + (buf * kF32Tile + KW * half) * P;
     const float* Vt = Vs + (buf * kF32Tile + KW * half) * P;
     float s[NK][4], dp[NK][4];             // rows x keys
@@ -495,11 +654,19 @@ fa_bwd_dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
-        if (edge)
-          f32_p_ds<true>(s[j][e], dp[j][e], lr[r], dl[r],
-                         scored(row0 + 8 * r, cw + 8 * j + 2 * t4 + (e & 1),
-                                S, Sk, causal, window), rsd, cap, rcap);
-        else
+        if (edge) {
+          if constexpr (kExt)
+            f32_p_ds<true>(s[j][e], dp[j][e], lr[r], dl[r],
+                           scored_at(row0 + 8 * r,
+                                     cw + 8 * j + 2 * t4 + (e & 1), S,
+                                     Sk, causal, window, qo) &&
+                               ((bits >> (8 * j + 2 * t4 + (e & 1))) & 1u),
+                           rsd, cap, rcap);
+          else
+            f32_p_ds<true>(s[j][e], dp[j][e], lr[r], dl[r],
+                           scored(row0 + 8 * r, cw + 8 * j + 2 * t4 + (e & 1),
+                                  S, Sk, causal, window), rsd, cap, rcap);
+        } else
           f32_p_ds<false>(s[j][e], dp[j][e], lr[r], dl[r], true, rsd, cap,
                           rcap);
       }
@@ -593,6 +760,20 @@ __device__ __forceinline__ bool tile_interior(int r0, int c0, int S, int Sk,
          (!causal || c0 + kTile - 1 <= r0) &&
          (window <= 0 || r0 + kTile - 1 - c0 < window);
 }
+// (the same with rows at positions qo + r, before the key mask)
+__device__ __forceinline__ bool tile_dead_at(int r0, int c0, int S, int Sk,
+                                             int causal, int window,
+                                             int qo) {
+  return r0 >= S || c0 >= Sk || (causal && c0 > qo + r0 + kTile - 1) ||
+         (window > 0 && qo + r0 - (c0 + kTile - 1) >= window);
+}
+__device__ __forceinline__ bool tile_interior_at(int r0, int c0, int S,
+                                                 int Sk, int causal,
+                                                 int window, int qo) {
+  return r0 + kTile <= S && c0 + kTile <= Sk &&
+         (!causal || c0 + kTile - 1 <= qo + r0) &&
+         (window <= 0 || qo + r0 + kTile - 1 - c0 < window);
+}
 
 // 2^x on the special-function unit (ex2.approx: 2 ulp; P is rounded to
 // bf16 before its product anyway)
@@ -636,19 +817,27 @@ __device__ __forceinline__ float wg_p(float s, float Lg, bool ok,
 // their own, since a mask test in one loop would be a branch taken apart
 // element by element.  dK/dV's tile is transposed: element 4j + r is key
 // key0 + 8 (r / 2), query q0 + 8j + 2 t4 + r % 2 (Ls, Dl the queries' lse
-// and delta).
-template <bool kEdge, bool kCap>
+// and delta; with kExt, qo the query offset and ok_lo, ok_hi the key
+// mask of the thread's two keys).
+template <bool kEdge, bool kCap, bool kExt = false>
 __device__ __forceinline__ void kv_elements(
     float (&s)[32], float (&dp)[32], const float* Ls, const float* Dl,
     int q0, int key0, int t4, int S, int Sk, int causal, int window,
-    float rsd, float cap, float rcap) {
+    float rsd, float cap, float rcap, int qo = 0, bool ok_lo = true,
+    bool ok_hi = true) {
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int col = 8 * j + 2 * t4 + (r & 1);
-      const bool ok = !kEdge || scored(q0 + col, key0 + 8 * (r >> 1), S,
-                                       Sk, causal, window);
+      bool ok;
+      if constexpr (kExt)
+        ok = !kEdge || (scored_at(q0 + col, key0 + 8 * (r >> 1), S, Sk,
+                                  causal, window, qo) &&
+                        ((r >> 1) ? ok_hi : ok_lo));
+      else
+        ok = !kEdge || scored(q0 + col, key0 + 8 * (r >> 1), S,
+                              Sk, causal, window);
       if constexpr (kCap)
         wg_p_ds<true>(s[4 * j + r], dp[4 * j + r], Ls[col] * kLog2e,
                       Dl[col], ok, rsd, cap, rcap);
@@ -658,19 +847,30 @@ __device__ __forceinline__ void kv_elements(
 }
 
 // dQ's tile: element 4j + r is row row0 + 8 (r / 2), key c0 + 8j + 2 t4 +
-// r % 2 (lg, dl the two rows' lse times log2(e) and delta)
-template <bool kEdge, bool kCap>
+// r % 2 (lg, dl the two rows' lse times log2(e) and delta; with kExt, qo
+// the query offset and mlo, mhi the key mask of keys c0 .., c0 + 32 ..)
+template <bool kEdge, bool kCap, bool kExt = false>
 __device__ __forceinline__ void q_elements(
     float (&s)[32], float (&dp)[32], const float (&lg)[2],
     const float (&dl)[2], int row0, int c0, int t4, int S, int Sk,
-    int causal, int window, float rsd, float cap, float rcap) {
+    int causal, int window, float rsd, float cap, float rcap, int qo = 0,
+    uint32_t mlo = ~0u, uint32_t mhi = ~0u) {
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const bool ok = !kEdge || scored(row0 + 8 * (r >> 1),
-                                       c0 + 8 * j + 2 * t4 + (r & 1), S,
-                                       Sk, causal, window);
+      bool ok;
+      if constexpr (kExt)
+        ok = !kEdge ||
+             (scored_at(row0 + 8 * (r >> 1),
+                        c0 + 8 * j + 2 * t4 + (r & 1), S, Sk, causal,
+                        window, qo) &&
+              (((j < 4 ? mlo : mhi) >> (8 * (j & 3) + 2 * t4 + (r & 1))) &
+               1u));
+      else
+        ok = !kEdge || scored(row0 + 8 * (r >> 1),
+                              c0 + 8 * j + 2 * t4 + (r & 1), S,
+                              Sk, causal, window);
       if constexpr (kCap)
         wg_p_ds<true>(s[4 * j + r], dp[4 * j + r], lg[r >> 1], dl[r >> 1],
                       ok, rsd, cap, rcap);
@@ -695,8 +895,9 @@ __device__ __forceinline__ void warp_arrive(uint64_t* bar) {
 // the diagonal, the window's edge or the ragged ends; tiles that score
 // nothing are skipped), rounded to bf16 as register A operands, then dV
 // += P^T dO and dK += dS^T Q (dO and Q read MN-major from the same slot).
-// dK and dV stay in registers.
-template <int D, int NWG, bool kCap>
+// dK and dV stay in registers.  kExt: the query offset, the key mask (the
+// own keys' bytes, read once) and vsum (fa_bwd_empty_kernel), added to dv.
+template <int D, int NWG, bool kCap, bool kExt>
 __global__ void __launch_bounds__(WgGeom<D, NWG>::kThreads,
                                   WgGeom<D, NWG>::kMinBlocks)
 fa_bwd_dkdv_wg(const __grid_constant__ Maps maps,
@@ -704,7 +905,9 @@ fa_bwd_dkdv_wg(const __grid_constant__ Maps maps,
                const float* __restrict__ delta, bf16* __restrict__ dk,
                bf16* __restrict__ dv, int Hq, int Hkv, int S, int Sk,
                Strides sdk, Strides sdv, int causal, int window, float rsd,
-               float cap) {
+               float cap, int q_offset,
+               const unsigned char* __restrict__ kvm,
+               const float* __restrict__ vsum) {
   using G = WgGeom<D, NWG>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ uint64_t full[kStages], empty[kStages], own_full;
@@ -715,8 +918,13 @@ fa_bwd_dkdv_wg(const __grid_constant__ Maps maps,
   const int b = blockIdx.x / Hkv;
   const int group = Hq / Hkv;
   const int k0 = blockIdx.y * G::kOwn;
+  const int qo = kExt ? q_offset : 0;
   int qt_first, qt_end;
-  wg_query_tiles(k0, G::kOwn, S, causal, window, qt_first, qt_end);
+  if constexpr (kExt)
+    query_tiles_at(k0, G::kOwn, kTile, S, causal, window, qo, qt_first,
+                   qt_end);
+  else
+    wg_query_tiles(k0, G::kOwn, S, causal, window, qt_first, qt_end);
   const int n_tiles = max(qt_end - qt_first, 0);
   const int n = group * n_tiles;
   if (threadIdx.x == 0) {
@@ -763,6 +971,7 @@ fa_bwd_dkdv_wg(const __grid_constant__ Maps maps,
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int kw0 = k0 + kTile * c;          // this warpgroup's keys
+
   float dka[D / 2], dva[D / 2];
 #pragma unroll
   for (int e = 0; e < D / 2; ++e) dka[e] = dva[e] = 0.0f;
@@ -774,8 +983,22 @@ fa_bwd_dkdv_wg(const __grid_constant__ Maps maps,
     wg::mbar_wait(&full[slot], (i / kStages) & 1);
     // (the products are issued and waited for within one branch: ptxas
     // serializes wgmma whose wait lies on another path)
-    if (!tile_dead(q0, kw0, S, Sk, causal, window)) {
-      const bool edge = !tile_interior(q0, kw0, S, Sk, causal, window);
+    if (!(kExt ? tile_dead_at(q0, kw0, S, Sk, causal, window, qo)
+               : tile_dead(q0, kw0, S, Sk, causal, window))) {
+      // (kExt: the key mask of the thread's two keys kw0 + 16 warp + g,
+      // + 8 in ok_lo, ok_hi, and whether the warp's 16 are all valid)
+      bool edge, ok_lo = true, ok_hi = true;
+      if constexpr (kExt) {
+        const unsigned char* mb =
+            kvm != nullptr ? kvm + static_cast<long long>(b) * Sk : nullptr;
+        const int key = kw0 + 16 * warp + g;
+        ok_lo = mb == nullptr || (key < Sk && mb[key]);
+        ok_hi = mb == nullptr || (key + 8 < Sk && mb[key + 8]);
+        edge = !tile_interior_at(q0, kw0, S, Sk, causal, window, qo) ||
+               !own_keys_valid(mb, kw0 + 16 * warp, Sk, lane);
+      } else {
+        edge = !tile_interior(q0, kw0, S, Sk, causal, window);
+      }
       float s[32], dp[32];
       wg::fence();
 #pragma unroll
@@ -801,12 +1024,23 @@ fa_bwd_dkdv_wg(const __grid_constant__ Maps maps,
         wg::fence_regs(s);
       }
       const int key0 = kw0 + 16 * warp + g;
-      if (edge)
-        kv_elements<true, kCap>(s, dp, Ls, Dl, q0, key0, t4, S, Sk, causal,
-                                window, rsd, cap, rcap);
-      else
-        kv_elements<false, kCap>(s, dp, Ls, Dl, q0, key0, t4, S, Sk, causal,
-                                 window, rsd, cap, rcap);
+      if constexpr (kExt) {
+        if (edge)
+          kv_elements<true, kCap, true>(s, dp, Ls, Dl, q0, key0, t4, S, Sk,
+                                        causal, window, rsd, cap, rcap, qo,
+                                        ok_lo, ok_hi);
+        else
+          kv_elements<false, kCap, true>(s, dp, Ls, Dl, q0, key0, t4, S, Sk,
+                                         causal, window, rsd, cap, rcap, qo,
+                                         ok_lo, ok_hi);
+      } else {
+        if (edge)
+          kv_elements<true, kCap>(s, dp, Ls, Dl, q0, key0, t4, S, Sk, causal,
+                                  window, rsd, cap, rcap);
+        else
+          kv_elements<false, kCap>(s, dp, Ls, Dl, q0, key0, t4, S, Sk,
+                                   causal, window, rsd, cap, rcap);
+      }
       if constexpr (!kCap) {
         wg::wait<0>();
         wg::fence_regs(dp);
@@ -840,6 +1074,20 @@ fa_bwd_dkdv_wg(const __grid_constant__ Maps maps,
   }
   bf16* dkb = dk + b * sdk.b + hk * sdk.h;
   bf16* dvb = dv + b * sdv.b + hk * sdv.h;
+  if constexpr (kExt) {
+    if (vsum != nullptr) {                 // the rows with no key
+      const float* u =
+          vsum + (static_cast<long long>(b) * Hkv + hk) * D + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          dva[4 * j + 2 * r] = __fadd_rn(dva[4 * j + 2 * r], u[8 * j]);
+          dva[4 * j + 2 * r + 1] =
+              __fadd_rn(dva[4 * j + 2 * r + 1], u[8 * j + 1]);
+        }
+    }
+  }
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int col = 8 * j + 2 * t4;
@@ -863,15 +1111,18 @@ fa_bwd_dkdv_wg(const __grid_constant__ Maps maps,
 // stage (TMA).  Consumer c (rows rw0 .. rw0 + 63): S = Q K^T and dP = dO
 // V^T (both operands K-major), P and dS in place, dQ += dS K (K
 // MN-major).  dQ leaves as bf16, or as the part's float32 partial
-// (dq_part: (parts, B, Hq, S, D)) that dq_fold adds in part order.
-template <int D, int NWG, bool kCap>
+// (dq_part: (parts, B, Hq, S, D)) that dq_fold adds in part order.  kExt:
+// the query offset and the key mask (a stage's 64 keys as two ballot
+// words a warp).
+template <int D, int NWG, bool kCap, bool kExt>
 __global__ void __launch_bounds__(WgGeom<D, NWG>::kThreads,
                                   WgGeom<D, NWG>::kMinBlocks)
 fa_bwd_dq_wg(const __grid_constant__ Maps maps,
              const float* __restrict__ lse, const float* __restrict__ delta,
              bf16* __restrict__ dq, float* __restrict__ dq_part, int Hq,
              int Hkv, int S, int Sk, Strides sdq, int causal, int window,
-             float rsd, float cap, int part_keys) {
+             float rsd, float cap, int part_keys, int q_offset,
+             const unsigned char* __restrict__ kvm) {
   using G = WgGeom<D, NWG>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ uint64_t full[kStages], empty[kStages], own_full;
@@ -883,11 +1134,19 @@ fa_bwd_dq_wg(const __grid_constant__ Maps maps,
   const int hk = h / (Hq / Hkv);
   const int rb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int q0 = rb * G::kOwn;
+  const int qo = kExt ? q_offset : 0;
   const int key_lo = part_keys > 0 ? blockIdx.z * part_keys : 0;
   const int key_hi = part_keys > 0 ? min(Sk, key_lo + part_keys) : Sk;
-  const int n_keys = min(causal ? min(Sk, q0 + G::kOwn) : Sk, key_hi);
-  const int t_first = max(
-      window > 0 ? max(q0 - window + 1, 0) / kTile : 0, key_lo / kTile);
+  int n_keys, t_first;
+  if constexpr (kExt) {
+    n_keys = min(causal ? min(Sk, qo + q0 + G::kOwn) : Sk, key_hi);
+    t_first = max(window > 0 ? max(qo + q0 - window + 1, 0) / kTile : 0,
+                  key_lo / kTile);
+  } else {
+    n_keys = min(causal ? min(Sk, q0 + G::kOwn) : Sk, key_hi);
+    t_first = max(
+        window > 0 ? max(q0 - window + 1, 0) / kTile : 0, key_lo / kTile);
+  }
   const int n = max((n_keys + kTile - 1) / kTile - t_first, 0);
   if (threadIdx.x == 0) {
     for (int i = 0; i < kStages; ++i) {
@@ -943,8 +1202,21 @@ fa_bwd_dq_wg(const __grid_constant__ Maps maps,
     wg::mbar_wait(&full[slot], (i / kStages) & 1);
     // (the products are issued and waited for within one branch: ptxas
     // serializes wgmma whose wait lies on another path)
-    if (!tile_dead(rw0, c0, S, Sk, causal, window)) {
-      const bool edge = !tile_interior(rw0, c0, S, Sk, causal, window);
+    if (!(kExt ? tile_dead_at(rw0, c0, S, Sk, causal, window, qo)
+               : tile_dead(rw0, c0, S, Sk, causal, window))) {
+      uint32_t mlo = ~0u, mhi = ~0u;       // the key mask of keys c0 ..
+      bool edge;
+      if constexpr (kExt) {
+        if (kvm != nullptr) {
+          const unsigned char* mb = kvm + static_cast<long long>(b) * Sk;
+          mlo = key_bits(mb, c0, Sk, lane);
+          mhi = key_bits(mb, c0 + 32, Sk, lane);
+        }
+        edge = !tile_interior_at(rw0, c0, S, Sk, causal, window, qo) ||
+               (mlo & mhi) != ~0u;
+      } else {
+        edge = !tile_interior(rw0, c0, S, Sk, causal, window);
+      }
       float s[32], dp[32];
       wg::fence();
 #pragma unroll
@@ -967,12 +1239,23 @@ fa_bwd_dq_wg(const __grid_constant__ Maps maps,
         wg::wait<1>();                     // S (dP still running)
         wg::fence_regs(s);
       }
-      if (edge)
-        q_elements<true, kCap>(s, dp, lg, dl, row0, c0, t4, S, Sk, causal,
-                               window, rsd, cap, rcap);
-      else
-        q_elements<false, kCap>(s, dp, lg, dl, row0, c0, t4, S, Sk, causal,
-                                window, rsd, cap, rcap);
+      if constexpr (kExt) {
+        if (edge)
+          q_elements<true, kCap, true>(s, dp, lg, dl, row0, c0, t4, S, Sk,
+                                       causal, window, rsd, cap, rcap, qo,
+                                       mlo, mhi);
+        else
+          q_elements<false, kCap, true>(s, dp, lg, dl, row0, c0, t4, S, Sk,
+                                        causal, window, rsd, cap, rcap, qo,
+                                        mlo, mhi);
+      } else {
+        if (edge)
+          q_elements<true, kCap>(s, dp, lg, dl, row0, c0, t4, S, Sk, causal,
+                                 window, rsd, cap, rcap);
+        else
+          q_elements<false, kCap>(s, dp, lg, dl, row0, c0, t4, S, Sk, causal,
+                                  window, rsd, cap, rcap);
+      }
       if constexpr (!kCap) {
         wg::wait<0>();
         wg::fence_regs(dp);
@@ -1122,25 +1405,40 @@ int launch_delta(const void* o, const void* dout, float* delta, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_bwd_f32(const void* q, const void* k, const void* v,
-                   const void* o, const void* dout, const float* lse,
-                   float* delta, void* dq, void* dk, void* dv, int B, int Hq,
-                   int Hkv, int S, int Sk, const long long* st, int causal,
-                   int window, float cap, float* dq_part, int part_keys,
-                   void* stream_ptr) {
-  const auto stream = static_cast<cudaStream_t>(stream_ptr);
-  const int parts = part_keys > 0 ? (Sk + part_keys - 1) / part_keys : 1;
-  if (part_keys < 0 || part_keys % kF32Tile ||
-      (parts > 1 && (causal || dq_part == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  int rc = launch_delta<float>(o, dout, delta, B, Hq, S, D, st, stream);
-  if (rc) return rc;
+// The extra arguments of an offset or masked call (kExt instances)
+struct Ext {
+  int q_offset;
+  const unsigned char* kvm;
+  float* vsum;
+  bool on() const {
+    return q_offset != 0 || kvm != nullptr || vsum != nullptr;
+  }
+};
+
+// the empty-row pass (vsum given: kernel.py may_lack_keys) on `stream`
+template <typename T, int D>
+cudaError_t launch_empty(const void* dout, const float* lse, const Ext& x,
+                         int B, int Hq, int Hkv, int S, int Sk,
+                         const long long* st, cudaStream_t stream) {
+  if (x.vsum == nullptr) return cudaSuccess;
+  fa_bwd_empty_kernel<T, D><<<B * Hkv, 32 * kEmptyWarps, 0, stream>>>(
+      static_cast<const T*>(dout), lse, x.vsum, Hq, Hkv, S, Sk,
+      strides_of(st, 4));
+  return cudaGetLastError();
+}
+
+template <int D, bool kExt>
+int launch_bwd_f32_as(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, float* delta,
+                      void* dq, void* dk, void* dv, int B, int Hq, int Hkv,
+                      int S, int Sk, const long long* st, int causal,
+                      int window, float cap, float* dq_part, int parts,
+                      int part_keys, const Ext& x, cudaStream_t stream) {
   static bool opted_kv[kMaxDevices] = {}, opted_q[kMaxDevices] = {};
-  cudaError_t err = opt_in(fa_bwd_dkdv_tf32<D>, f32_dkdv_smem_bytes<D>(),
-                           opted_kv);
+  cudaError_t err = opt_in(fa_bwd_dkdv_tf32<D, kExt>,
+                           f32_dkdv_smem_bytes<D>(), opted_kv);
   if (err == cudaSuccess)
-    err = opt_in(fa_bwd_dq_tf32<D>, f32_dq_smem_bytes<D>(), opted_q);
+    err = opt_in(fa_bwd_dq_tf32<D, kExt>, f32_dq_smem_bytes<D>(), opted_q);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Strides sq = strides_of(st, 0), sk = strides_of(st, 1),
                 sv = strides_of(st, 2), sdo = strides_of(st, 4);
@@ -1154,20 +1452,22 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
   const auto* kf = static_cast<const float*>(k);
   const auto* vf = static_cast<const float*>(v);
   const auto* df = static_cast<const float*>(dout);
-  fa_bwd_dkdv_tf32<D><<<dim3(B * Hkv, (Sk + kOwn - 1) / kOwn),
-                        kF32BwdThreads, f32_dkdv_smem_bytes<D>(), stream>>>(
+  fa_bwd_dkdv_tf32<D, kExt><<<dim3(B * Hkv, (Sk + kOwn - 1) / kOwn),
+                              kF32BwdThreads, f32_dkdv_smem_bytes<D>(),
+                              stream>>>(
       qf, kf, vf, df, lse, delta, static_cast<float*>(dk),
       static_cast<float*>(dv), Hq, Hkv, S, Sk, sq, sk, sv, sdo,
       strides_of(st, 6), strides_of(st, 7), causal, window, rsd, cap, rcap,
-      vec);
+      vec, x.q_offset, x.kvm, x.vsum);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  fa_bwd_dq_tf32<D><<<dim3(B * Hq, (S + kOwn - 1) / kOwn, parts),
-                      kF32BwdThreads, f32_dq_smem_bytes<D>(), stream>>>(
+  fa_bwd_dq_tf32<D, kExt><<<dim3(B * Hq, (S + kOwn - 1) / kOwn, parts),
+                            kF32BwdThreads, f32_dq_smem_bytes<D>(),
+                            stream>>>(
       qf, kf, vf, df, lse, delta, static_cast<float*>(dq),
       parts > 1 ? dq_part : nullptr, Hq, Hkv, S, Sk, sq, sk, sv, sdo,
       strides_of(st, 5), causal, window, rsd, cap, rcap,
-      parts > 1 ? part_keys : 0, vec);
+      parts > 1 ? part_keys : 0, vec, x.q_offset, x.kvm);
   err = cudaGetLastError();
   if (err != cudaSuccess || parts == 1) return static_cast<int>(err);
   return static_cast<int>(launch_fold(dq_part, static_cast<float*>(dq),
@@ -1175,73 +1475,105 @@ int launch_bwd_f32(const void* q, const void* k, const void* v,
                                       stream));
 }
 
+template <int D>
+int launch_bwd_f32(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const float* lse,
+                   float* delta, void* dq, void* dk, void* dv, int B, int Hq,
+                   int Hkv, int S, int Sk, const long long* st, int causal,
+                   int window, float cap, float* dq_part, int part_keys,
+                   const Ext& x, void* stream_ptr) {
+  const auto stream = static_cast<cudaStream_t>(stream_ptr);
+  const int parts = part_keys > 0 ? (Sk + part_keys - 1) / part_keys : 1;
+  if (part_keys < 0 || part_keys % kF32Tile ||
+      (parts > 1 && (causal || dq_part == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int rc = launch_delta<float>(o, dout, delta, B, Hq, S, D, st, stream);
+  if (rc) return rc;
+  const cudaError_t err =
+      launch_empty<float, D>(dout, lse, x, B, Hq, Hkv, S, Sk, st, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return x.on() ? launch_bwd_f32_as<D, true>(q, k, v, dout, lse, delta, dq,
+                                             dk, dv, B, Hq, Hkv, S, Sk, st,
+                                             causal, window, cap, dq_part,
+                                             parts, part_keys, x, stream)
+                : launch_bwd_f32_as<D, false>(q, k, v, dout, lse, delta, dq,
+                                              dk, dv, B, Hq, Hkv, S, Sk, st,
+                                              causal, window, cap, dq_part,
+                                              parts, part_keys, x, stream);
+}
+
 constexpr int kSms = 132;            // an H100's SMs: a grid below
                                      // this takes one warpgroup a block
 
-template <int D, int NWG, bool kCap>
+template <int D, int NWG, bool kCap, bool kExt>
 cudaError_t launch_dkdv(const Maps& maps, const float* lse,
                         const float* delta, bf16* dk, bf16* dv, int B,
                         int Hq, int Hkv, int S, int Sk, const long long* st,
                         int causal, int window, float rsd, float cap,
-                        cudaStream_t stream) {
+                        const Ext& x, cudaStream_t stream) {
   using G = WgGeom<D, NWG>;
   static bool opted[kMaxDevices] = {};
-  cudaError_t err = opt_in(fa_bwd_dkdv_wg<D, NWG, kCap>, G::kKvSmem, opted);
+  cudaError_t err =
+      opt_in(fa_bwd_dkdv_wg<D, NWG, kCap, kExt>, G::kKvSmem, opted);
   if (err != cudaSuccess) return err;
-  fa_bwd_dkdv_wg<D, NWG, kCap>
+  fa_bwd_dkdv_wg<D, NWG, kCap, kExt>
       <<<dim3(B * Hkv, (Sk + G::kOwn - 1) / G::kOwn), G::kThreads,
          G::kKvSmem, stream>>>(maps, lse, delta, dk, dv, Hq, Hkv, S, Sk,
                                strides_of(st, 6), strides_of(st, 7), causal,
-                               window, rsd, cap);
+                               window, rsd, cap, x.q_offset, x.kvm, x.vsum);
   return cudaGetLastError();
 }
 
-template <int D, int NWG, bool kCap>
+template <int D, int NWG, bool kCap, bool kExt>
 cudaError_t launch_dq(const Maps& maps, const float* lse, const float* delta,
                       bf16* dq, float* dq_part, int parts, int part_keys,
                       int B, int Hq, int Hkv, int S, int Sk,
                       const long long* st, int causal, int window, float rsd,
-                      float cap, cudaStream_t stream) {
+                      float cap, const Ext& x, cudaStream_t stream) {
   using G = WgGeom<D, NWG>;
   static bool opted[kMaxDevices] = {};
-  cudaError_t err = opt_in(fa_bwd_dq_wg<D, NWG, kCap>, G::kQSmem, opted);
+  cudaError_t err =
+      opt_in(fa_bwd_dq_wg<D, NWG, kCap, kExt>, G::kQSmem, opted);
   if (err != cudaSuccess) return err;
-  fa_bwd_dq_wg<D, NWG, kCap>
+  fa_bwd_dq_wg<D, NWG, kCap, kExt>
       <<<dim3(B * Hq, (S + G::kOwn - 1) / G::kOwn, parts), G::kThreads,
          G::kQSmem, stream>>>(maps, lse, delta, dq,
                               parts > 1 ? dq_part : nullptr, Hq, Hkv, S, Sk,
                               strides_of(st, 5), causal, window, rsd, cap,
-                              parts > 1 ? part_keys : 0);
+                              parts > 1 ? part_keys : 0, x.q_offset, x.kvm);
   return cudaGetLastError();
 }
 
 // the two kernels with one warpgroup or two a block, with the cap or not
-template <int D, bool kCap>
+template <int D, bool kCap, bool kExt>
 cudaError_t launch_wg(const Maps& maps, const float* lse, const float* delta,
                       bf16* dq, bf16* dk, bf16* dv, float* dq_part,
                       int parts, int part_keys, int B, int Hq, int Hkv,
                       int S, int Sk, const long long* st, int causal,
-                      int window, float rsd, float cap,
+                      int window, float rsd, float cap, const Ext& x,
                       cudaStream_t stream) {
   // two consumer warpgroups a block where that leaves a block for every
   // SM, else one (a row's arithmetic is the same either way)
   const bool kv2 = static_cast<long long>(B) * Hkv * ((Sk + 127) / 128)
                    >= kSms;
   cudaError_t err =
-      kv2 ? launch_dkdv<D, 2, kCap>(maps, lse, delta, dk, dv, B, Hq, Hkv, S,
-                                    Sk, st, causal, window, rsd, cap, stream)
-          : launch_dkdv<D, 1, kCap>(maps, lse, delta, dk, dv, B, Hq, Hkv, S,
-                                    Sk, st, causal, window, rsd, cap,
-                                    stream);
+      kv2 ? launch_dkdv<D, 2, kCap, kExt>(maps, lse, delta, dk, dv, B, Hq,
+                                          Hkv, S, Sk, st, causal, window,
+                                          rsd, cap, x, stream)
+          : launch_dkdv<D, 1, kCap, kExt>(maps, lse, delta, dk, dv, B, Hq,
+                                          Hkv, S, Sk, st, causal, window,
+                                          rsd, cap, x, stream);
   if (err != cudaSuccess) return err;
   const bool q2 = static_cast<long long>(B) * Hq * ((S + 127) / 128) * parts
                   >= kSms;
-  return q2 ? launch_dq<D, 2, kCap>(maps, lse, delta, dq, dq_part, parts,
-                                    part_keys, B, Hq, Hkv, S, Sk, st, causal,
-                                    window, rsd, cap, stream)
-            : launch_dq<D, 1, kCap>(maps, lse, delta, dq, dq_part, parts,
-                                    part_keys, B, Hq, Hkv, S, Sk, st, causal,
-                                    window, rsd, cap, stream);
+  return q2 ? launch_dq<D, 2, kCap, kExt>(maps, lse, delta, dq, dq_part,
+                                          parts, part_keys, B, Hq, Hkv, S,
+                                          Sk, st, causal, window, rsd, cap,
+                                          x, stream)
+            : launch_dq<D, 1, kCap, kExt>(maps, lse, delta, dq, dq_part,
+                                          parts, part_keys, B, Hq, Hkv, S,
+                                          Sk, st, causal, window, rsd, cap,
+                                          x, stream);
 }
 
 template <int D>
@@ -1250,7 +1582,7 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
                     float* delta, void* dq, void* dk, void* dv, int B,
                     int Hq, int Hkv, int S, int Sk, const long long* st,
                     int causal, int window, float cap, float* dq_part,
-                    int part_keys, void* stream_ptr) {
+                    int part_keys, const Ext& x, void* stream_ptr) {
   const auto stream = static_cast<cudaStream_t>(stream_ptr);
   const int parts = part_keys > 0 ? (Sk + part_keys - 1) / part_keys : 1;
   if (part_keys < 0 || part_keys % kTile ||
@@ -1278,18 +1610,18 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta,
       Hq, S, n_rows, strides_of(st, 3), strides_of(st, 4));
   err = cudaGetLastError();
+  if (err == cudaSuccess)
+    err = launch_empty<bf16, D>(dout, lse, x, B, Hq, Hkv, S, Sk, st, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float rsd = 1.0f / sqrtf(static_cast<float>(D));
   auto* dqb = static_cast<bf16*>(dq);
-  err = cap > 0.0f
-          ? launch_wg<D, true>(maps, lse, delta, dqb, static_cast<bf16*>(dk),
-                               static_cast<bf16*>(dv), dq_part, parts,
-                               part_keys, B, Hq, Hkv, S, Sk, st, causal,
-                               window, rsd, cap, stream)
-          : launch_wg<D, false>(maps, lse, delta, dqb, static_cast<bf16*>(dk),
-                                static_cast<bf16*>(dv), dq_part, parts,
-                                part_keys, B, Hq, Hkv, S, Sk, st, causal,
-                                window, rsd, cap, stream);
+  auto launch = cap > 0.0f ? (x.on() ? launch_wg<D, true, true>
+                                     : launch_wg<D, true, false>)
+                           : (x.on() ? launch_wg<D, false, true>
+                                     : launch_wg<D, false, false>);
+  err = launch(maps, lse, delta, dqb, static_cast<bf16*>(dk),
+               static_cast<bf16*>(dv), dq_part, parts, part_keys, B, Hq, Hkv,
+               S, Sk, st, causal, window, rsd, cap, x, stream);
   if (err != cudaSuccess || parts == 1) return static_cast<int>(err);
   return static_cast<int>(launch_fold(dq_part, dqb, parts, B, Hq, S, D,
                                       strides_of(st, 5), stream));
@@ -1297,13 +1629,17 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// S: query rows, Sk: keys; lse: the forward's (B, Hq, S) float32; delta:
-// (B, Hq, S) float32 scratch; strides: 24 int64 (see launch_delta);
-// window: 0 for none; dq_part, part_keys: the dQ key split
-// (kernel.py dq_key_parts): part_keys > 0 (a multiple of 64, non-causal
-// only) splits the keys into parts of that many, whose float32 partials
-// go to dq_part (ceil(Sk / part_keys), B, Hq, S, D) and are folded in
-// order; 0: no split (dq_part unused).  dq, dk, dv are written whole.
+// S: query rows, Sk: keys; lse: the forward's (B, Hq, S) float32 (+inf
+// for a row with no key); delta: (B, Hq, S) float32 scratch; strides: 24
+// int64 (see launch_delta); window: 0 for none; dq_part, part_keys: the
+// dQ key split (kernel.py dq_key_parts): part_keys > 0 (a multiple of
+// 64, non-causal only) splits the keys into parts of that many, whose
+// float32 partials go to dq_part (ceil(Sk / part_keys), B, Hq, S, D)
+// and are folded in order; 0: no split (dq_part unused).  q_offset,
+// kv_mask: the forward's; vsum: null, or (B, Hkv, D) float32 scratch
+// for the rows with no key (fa_bwd_empty_kernel; kernel.py
+// may_lack_keys says when one can occur: then it must be given).  dq,
+// dk, dv are written whole.
 #define FA_BWD_ENTRY(NAME, LAUNCH)                                           \
   extern "C" int NAME(const void* q, const void* k, const void* v,           \
                       const void* o, const void* dout, const float* lse,     \
@@ -1311,14 +1647,15 @@ int launch_bwd_bf16(const void* q, const void* k, const void* v,
                       int Hq, int Hkv, int S, int Sk,                        \
                       const long long* strides, int causal, int window,      \
                       float cap, float* dq_part, int part_keys,              \
-                      void* stream) {                                        \
+                      int q_offset, const unsigned char* kv_mask,            \
+                      float* vsum, void* stream) {                           \
     if (B <= 0 || S <= 0 || Hq <= 0) return 0;                               \
-    if (Sk <= 0 || Hkv <= 0 || Hq % Hkv || (causal && Sk != S) ||            \
+    if (Sk <= 0 || Hkv <= 0 || Hq % Hkv || q_offset < 0 ||                   \
         (window > 0 && !causal))                                             \
       return static_cast<int>(cudaErrorInvalidValue);                        \
     return LAUNCH(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, S,   \
                   Sk, strides, causal, window, cap, dq_part, part_keys,      \
-                  stream);                                                   \
+                  Ext{q_offset, kv_mask, vsum}, stream);                     \
   }
 
 FA_BWD_ENTRY(fa_bwd_launch_f32_d64, launch_bwd_f32<64>)

@@ -457,6 +457,7 @@ def run_multihost(fn, n_procs: int, *, args=(), timeout_s: float = 300.0,
 def attribute_energy_fused_multihost(local_groups, phases, *, shard,
                                      collectives, config=None,
                                      reference=None, corrections=None,
+                                     record: bool = False,
                                      return_pipe: bool = False,
                                      registry=None, on_window=None,
                                      device=None, **legacy):
@@ -486,7 +487,9 @@ def attribute_energy_fused_multihost(local_groups, phases, *, shard,
     newest one complete across all groups, under any process count and
     assignment, and skips the windows it folded (firing no collective,
     so the fleet stays in lockstep).  ``on_window(pipe, w)`` fires after
-    window ``w`` (1-based).
+    window ``w`` (1-based).  ``record=True`` keeps the emitted windows
+    (``pipe.fused_series()`` with ``return_pipe=True``: this host's
+    devices' fused series).
     """
     from repro_torch.fleet.config import resolve_config
     from repro_torch.fleet.pipeline import (StreamingFusedPipeline,
@@ -585,7 +588,7 @@ def attribute_energy_fused_multihost(local_groups, phases, *, shard,
         reference=ref, track=track, window=cfg.track.window,
         hop=cfg.track.hop, max_lag=max_lag, ema=cfg.track.ema, tail=tail,
         var_floor=var_floor, collectives=collectives, shard=shard,
-        dtype=dtype, health=cfg.health, registry=registry,
+        record=record, dtype=dtype, health=cfg.health, registry=registry,
         health_names=health_names, dq_policy=cfg.dq, device=dev,
         host=host)
     span = (collectives.allreduce_min(

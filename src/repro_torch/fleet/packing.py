@@ -132,9 +132,12 @@ def shard_from_assignment(group_sizes, assignment, host: int,
 
 def pack_traces(traces, *, use_t_measured: bool = True,
                 dtype=np.float32, min_samples: int = 2,
-                t0: float = None) -> PackedFleet:
+                out: PackedFleet = None, t0: float = None) -> PackedFleet:
     """Pack ragged SensorTraces into a padded (fleet, samples) block.
 
+    Pass a previous ``out`` of the same shape and dtype to reuse its
+    energy and times buffers (streaming ingest, ring-buffer style: no
+    allocation a batch); the rows of these traces are overwritten whole.
     ``t0`` pins the shared time origin (default: the earliest sample of
     THESE traces).
     """
@@ -143,8 +146,12 @@ def pack_traces(traces, *, use_t_measured: bool = True,
     n = len(traces)
     f = _round_up(n, ROW_ALIGN)
     s = max(max(len(tr) for tr in traces), min_samples)
-    energy = np.zeros((f, s), dtype)
-    times = np.zeros((f, s), dtype)
+    if out is not None and out.shape == (f, s) \
+            and out.energy.dtype == dtype:
+        energy, times = out.energy, out.times
+    else:
+        energy = np.zeros((f, s), dtype)
+        times = np.zeros((f, s), dtype)
     n_samples = np.zeros((f,), np.int32)
     wrap = np.zeros((f,), dtype)
     e0 = np.zeros((f,), np.float64)

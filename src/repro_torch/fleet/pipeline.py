@@ -950,16 +950,22 @@ class RegridFuseStage:
     frame and fold before the frontier is used.  Every host must drive
     the stage through the same number of ``update``/``flush`` calls
     (time-aligned replay windows over the all-reduced span do).
+
+    ``record=True`` keeps every emitted window in ``self.emitted`` (on
+    the device, as emitted: recording reads nothing back; memory grows
+    with the run).
     """
 
     def __init__(self, group_sizes, *, grid_origin: float,
                  grid_step: float, delays=None, align=None,
                  tail: int = 256, var_floor: float = 0.25,
-                 collectives=None, dq_policy: DataQualityPolicy = None,
+                 collectives=None, record: bool = False,
+                 dq_policy: DataQualityPolicy = None,
                  device=None, host: bool = False):
         self.device = _host_device(device, host)
         self.host = host
         self.collectives = collectives
+        self.record = record
         self.group_sizes = list(group_sizes)
         self.n_streams = int(sum(self.group_sizes))
         self.layout = _GroupLayout(self.group_sizes, self.device)
@@ -986,6 +992,7 @@ class RegridFuseStage:
             n_k=torch.zeros((n,), dtype=_F64, device=dev),
             ssr=torch.zeros((n,), dtype=_F64, device=dev))
         self._t_first = None
+        self.emitted: list = []
         # coverage accounting: per-stream covered-slot tallies plus the
         # latest emitted window's coverage fraction and flag
         self.dq_covered = torch.zeros((n,), dtype=torch.int64, device=dev)
@@ -1081,7 +1088,10 @@ class RegridFuseStage:
         self.carry.n_k += lay.scatter(fixed_sum(mf, 2))
         self.carry.ssr += lay.scatter(fixed_sum(resid * resid, 2))
         self.carry.next_slot = hi + 1
-        return GriddedWindow(lo=lo, grid=grid64, values=vals, mask=mask)
+        gw = GriddedWindow(lo=lo, grid=grid64, values=vals, mask=mask)
+        if self.record:
+            self.emitted.append(gw)
+        return gw
 
     def update(self, chunk: ClosedWindow):
         n = self.n_streams
@@ -1747,7 +1757,8 @@ class StreamingFusedPipeline:
     (``request_energies``); registry: a ``health.HealthRegistry`` gets
     the ``pipeline``, ``fuse`` and ``data_quality`` sources (and
     ``health``); dq_policy: a ``DataQualityPolicy`` for Ingest and
-    Regrid/Fuse.  ``device=None`` means CUDA.  ``host=True`` is the
+    Regrid/Fuse; record: keep every emitted window on the device for
+    ``fused_series``.  ``device=None`` means CUDA.  ``host=True`` is the
     reference's float64 mirror, on the CPU: dE/dt, the hold lookups and
     the tracker's scores in float64 through the plain versions.
 
@@ -1764,7 +1775,7 @@ class StreamingFusedPipeline:
                  window: int = 2048, hop: int = 512, max_lag: int = 64,
                  ema: float = 0.5, min_corr: float = 0.2, tail: int = 256,
                  var_floor: float = 0.25, collectives=None, shard=None,
-                 dtype=np.float32, health=None,
+                 record: bool = False, dtype=np.float32, health=None,
                  registry=None, health_names=None, meter=None,
                  dq_policy: DataQualityPolicy = None, device=None,
                  host: bool = False):
@@ -1806,7 +1817,7 @@ class StreamingFusedPipeline:
             self.group_sizes, grid_origin=grid_origin,
             grid_step=grid_step, delays=delays, align=self.align,
             tail=tail, var_floor=var_floor, collectives=collectives,
-            dq_policy=dq_policy, device=dev, host=host)
+            record=record, dq_policy=dq_policy, device=dev, host=host)
         self.attr = FusedPhaseAttributeStage(
             phases, self.group_sizes, self.fuse, collectives=collectives,
             shard=shard, device=dev)
@@ -1951,6 +1962,42 @@ class StreamingFusedPipeline:
             raise ValueError("request_energies() needs meter= slot "
                              "segments")
         return self.meter_stage.request_energies()
+
+    def fused_series(self):
+        """(grid, watts, mask) for this host's local devices as host numpy
+        (float64 (G,), float64 (D, G), bool (D, G)), from the recorded
+        emitted windows and the end-of-run weights (needs
+        ``record=True``): the streaming counterpart of
+        ``FusedStream.watts``.  The windows are read back once, here; each
+        device's sensors are folded on the host in row order, a function
+        of its own group alone, so a device's series does not depend on
+        which groups share its host (and no collective runs)."""
+        if not self.fuse.record:
+            raise ValueError("fused_series() needs record=True")
+        ems = self.fuse.emitted
+        d = len(self.group_sizes)
+        if not ems:
+            return (np.zeros((0,)), np.zeros((d, 0)),
+                    np.zeros((d, 0), bool))
+        grid = torch.cat([gw.grid for gw in ems]).cpu().numpy()
+        vals = torch.cat([gw.values for gw in ems], dim=1).cpu().numpy()
+        mask = torch.cat([gw.mask for gw in ems], dim=1).cpu().numpy()
+        w_flat = self.fuse.weights().cpu().numpy()
+        g = grid.shape[0]
+        watts = np.zeros((d, g))
+        out_mask = np.zeros((d, g), bool)
+        lo = 0
+        for di, k in enumerate(self.group_sizes):
+            w = w_flat[lo:lo + k][:, None]
+            m = mask[lo:lo + k]
+            v = vals[lo:lo + k].astype(np.float64)
+            w_tot = (w * m).sum(axis=0)
+            ok = w_tot > 0
+            watts[di] = np.where(ok, (w * v * m).sum(axis=0)
+                                 / np.maximum(w_tot, 1e-30), 0.0)
+            out_mask[di] = ok
+            lo += k
+        return grid, watts, out_mask
 
     def delays(self) -> torch.Tensor:
         """(n_streams,) per-stream delay in use (tracked or fixed)."""

@@ -22,12 +22,12 @@ _ENTRY = {(torch.float32, 64): "fa_launch_f32_d64",
           (torch.bfloat16, 128): "fa_launch_bf16_d128"}
 _ARGS = (build.PTR,) * 4 + (build.INT,) * 5 + (
     build.PTR, build.INT, build.INT, ctypes.c_float, build.PTR, build.PTR,
-    build.INT, build.PTR)
+    build.INT, build.INT, build.PTR, build.PTR, build.PTR)
 _BWD_ENTRY = {key: name.replace("fa_launch", "fa_bwd_launch")
               for key, name in _ENTRY.items()}
 _BWD_ARGS = (build.PTR,) * 10 + (build.INT,) * 5 + (
     build.PTR, build.INT, build.INT, ctypes.c_float, build.PTR, build.INT,
-    build.PTR)
+    build.INT, build.PTR, build.PTR, build.PTR)
 
 # head dims the wrappers take by padding (the reduced configurations'
 # heads): zero-padded to the kernels' 64 or 128 with q doubled, so that
@@ -95,17 +95,53 @@ def _check(x: torch.Tensor, what: str, dtype, shape, dev):
                          f"{x.stride()}")
 
 
-def _check_options(q, k, causal, window) -> int:
-    window = int(window or 0)
+def _check_options(q, k, causal, window, q_offset=0,
+                   kv_len_mask=None) -> tuple:
+    """-> (window, q_offset) as ints, after the options' checks: at least
+    one key, a window >= 0 that needs causality, an offset >= 0, and a
+    key mask that is a (B, Sk) bool tensor on q's device."""
+    window, q_offset = int(window or 0), int(q_offset or 0)
     sk = k.shape[2]
     if sk < 1 or window < 0:
         raise ValueError(f"flash_attention: {sk} keys, window {window}")
-    if causal and sk != q.shape[2]:
-        raise ValueError(f"flash_attention: a causal call needs as many "
-                         f"keys as queries, got {sk} and {q.shape[2]}")
     if window and not causal:
         raise ValueError("flash_attention: a window needs causal=True")
-    return window
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
+    if kv_len_mask is not None:
+        if kv_len_mask.dtype != torch.bool:
+            raise TypeError(f"flash_attention: kv_len_mask dtype "
+                            f"{kv_len_mask.dtype}, expected torch.bool")
+        if tuple(kv_len_mask.shape) != (q.shape[0], sk):
+            raise ValueError(f"flash_attention: kv_len_mask shape "
+                             f"{tuple(kv_len_mask.shape)}, expected "
+                             f"{(q.shape[0], sk)}")
+        if kv_len_mask.device != q.device:
+            raise ValueError(f"flash_attention: kv_len_mask on "
+                             f"{kv_len_mask.device}, expected {q.device}")
+    return window, q_offset
+
+
+def may_lack_keys(sq: int, sk: int, causal: bool, window: int,
+                  q_offset: int, kv_len_mask) -> bool:
+    """Can a query row have no valid key?  With a key mask, yes (a
+    left-padded prompt's pad rows); else only under a window that a row
+    at position ``q_offset + i`` outruns past the last key
+    (``q_offset + sq - sk >= window``: causality alone always leaves key
+    0).  The kernels then take the mean of v for such rows (forward) and
+    add dout / Sk to dv (backward), which their scratch is for."""
+    if kv_len_mask is not None:
+        return True
+    return bool(causal and window and q_offset + sq - sk >= window)
+
+
+def _mask_arg(kv_len_mask):
+    """The key mask as the kernels read it, one byte a key, (B, Sk) dense
+    -> (tensor to keep alive or None, pointer or None)."""
+    if kv_len_mask is None:
+        return None, None
+    m = kv_len_mask.contiguous()
+    return m, m.data_ptr()
 
 
 def _check_cuda(q, k, v):
@@ -147,13 +183,15 @@ def _unpad(x, like):
     return torch.empty_like(like).copy_(x[..., :like.shape[-1]])
 
 
-def _forward(q, k, v, causal, logit_cap, window, with_lse):
+def _forward(q, k, v, causal, logit_cap, window, with_lse, q_offset=0,
+             kv_len_mask=None):
     """Launch the forward on CUDA tensors -> (out, lse or None); lse is
-    (B, Hq, S) float32, each row's log-sum-exp of its scores.  A head
-    dim of ``PADDED_HEAD`` runs padded (``pad_heads``)."""
+    (B, Hq, S) float32, each row's log-sum-exp of its scores (+inf for a
+    row with no valid key).  A head dim of ``PADDED_HEAD`` runs padded
+    (``pad_heads``)."""
     if q.device.type == "cuda" and q.shape[-1] in PADDED_HEAD:
         out, lse = _forward(*pad_heads(q, k, v), causal, logit_cap, window,
-                            with_lse)
+                            with_lse, q_offset, kv_len_mask)
         return _unpad(out, q), lse
     b, hq, hkv, s, sk, d = _check_cuda(q, k, v)
     dev = q.device
@@ -164,6 +202,10 @@ def _forward(q, k, v, causal, logit_cap, window, with_lse):
     part_keys = parts[0][1] if len(parts) > 1 else 0
     part = (torch.empty((len(parts), b, hq, s, d + 2), dtype=torch.float32,
                         device=dev) if part_keys else None)
+    vmean = (torch.empty((b, hkv, d), dtype=torch.float32, device=dev)
+             if may_lack_keys(s, sk, causal, window, q_offset, kv_len_mask)
+             else None)
+    mask, mask_ptr = _mask_arg(kv_len_mask)
     strides = _strides(q, k, v, out)
     fn = build.c_function(_ENTRY[(q.dtype, d)], _ARGS)
     with torch.cuda.device(dev):
@@ -172,6 +214,8 @@ def _forward(q, k, v, causal, logit_cap, window, with_lse):
                 int(bool(causal)), window, float(logit_cap or 0.0),
                 None if lse is None else lse.data_ptr(),
                 None if part is None else part.data_ptr(), part_keys,
+                q_offset, mask_ptr,
+                None if vmean is None else vmean.data_ptr(),
                 build.stream_ptr(dev))
     build.check_launch(rc, "flash_attention")
     flash_attention_kernel.launches += 1
@@ -181,15 +225,21 @@ def _forward(q, k, v, causal, logit_cap, window, with_lse):
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool = True,
-                           logit_cap: float = 0.0,
-                           window: int = 0) -> torch.Tensor:
+                           logit_cap: float = 0.0, window: int = 0,
+                           q_offset: int = 0,
+                           kv_len_mask: torch.Tensor = None) -> torch.Tensor:
     """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D), float32 or bfloat16 ->
     (B, Hq, Sq, D) in q's dtype, laid out in memory as q is.
 
-    Sk may differ from Sq only with ``causal=False`` (cross-attention);
-    ``window > 0`` masks keys at or past ``window`` positions behind the
-    query (``q - k >= window``, the reference's sliding window) and
-    needs ``causal=True``.  Anything else raises ``ValueError``.
+    Query row i sits at position ``q_offset + i`` (>= 0): ``causal``
+    masks keys after it, and ``window > 0`` (which needs ``causal``)
+    keys at or past ``window`` positions behind it (``q - k >= window``,
+    the reference's sliding window); without causality the offset has no
+    effect.  ``kv_len_mask``, a (B, Sk) bool tensor on q's device, masks
+    the keys it is False for.  Sk is any length >= 1.  A row left with no
+    valid key gets, as in the reference's ``-1e30`` scores, a softmax
+    uniform over all Sk keys: the mean of v.  Anything else raises
+    ``ValueError`` (a mask of another dtype ``TypeError``).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel on the current stream: bfloat16 runs on the tensor cores
@@ -209,14 +259,18 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     grad enabled, raises ``NotImplementedError``; ``ops.flash_attention``
     takes such inputs through ``FlashAttention``.
     """
-    window = _check_options(q, k, causal, window)
+    window, q_offset = _check_options(q, k, causal, window, q_offset,
+                                      kv_len_mask)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal,
-                                   logit_cap=logit_cap, window=window)
+                                   logit_cap=logit_cap, window=window,
+                                   q_offset=q_offset,
+                                   kv_len_mask=kv_len_mask)
     refuse_detached("flash_attention", q, k, v, item="B9: call "
                     "ops.flash_attention, whose FlashAttention has the "
                     "backward")
-    return _forward(q, k, v, causal, logit_cap, window, False)[0]
+    return _forward(q, k, v, causal, logit_cap, window, False, q_offset,
+                    kv_len_mask)[0]
 
 
 flash_attention_kernel.launches = 0
@@ -234,7 +288,8 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_bwd_kernel(q, k, v, out, dout, lse, *, causal=True,
-                               logit_cap=0.0, window=0):
+                               logit_cap=0.0, window=0, q_offset=0,
+                               kv_len_mask=None):
     """The gradient of ``flash_attention_kernel``: q (B, Hq, Sq, D), k/v
     (B, Hkv, Sk, D), its output ``out`` and the forward's ``lse`` (B, Hq,
     Sq) float32, and ``dout`` the gradient of ``out`` -> (dq, dk, dv),
@@ -249,13 +304,18 @@ def flash_attention_bwd_kernel(q, k, v, out, dout, lse, *, causal=True,
     atomics.  ``flash_attention_bwd_kernel.dq_parts`` holds the parts of
     the last launch.  A head dim of ``PADDED_HEAD`` runs padded: q, k,
     v, ``out`` and ``dout`` zero-padded (q doubled, ``pad_heads``), dq
-    the padded dq's first columns doubled."""
-    window = _check_options(q, k, causal, window)
+    the padded dq's first columns doubled.  ``q_offset`` and
+    ``kv_len_mask`` are the forward's; a row with no valid key (its lse
+    +inf) sends nothing to dq or dk and dout / Sk to every key's dv (a
+    fixed-order pass over the group's such rows, added to dv)."""
+    window, q_offset = _check_options(q, k, causal, window, q_offset,
+                                      kv_len_mask)
     if q.device.type == "cuda" and q.shape[-1] in PADDED_HEAD:
         pad = (0, PADDED_HEAD[q.shape[-1]] - q.shape[-1])
         dq, dk, dv = flash_attention_bwd_kernel(
             *pad_heads(q, k, v), F.pad(out, pad), F.pad(dout, pad), lse,
-            causal=causal, logit_cap=logit_cap, window=window)
+            causal=causal, logit_cap=logit_cap, window=window,
+            q_offset=q_offset, kv_len_mask=kv_len_mask)
         return _unpad(dq, q).mul_(2.0), _unpad(dk, k), _unpad(dv, v)
     b, hq, hkv, s, sk, d = _check_cuda(q, k, v)
     dev = q.device
@@ -270,6 +330,10 @@ def flash_attention_bwd_kernel(q, k, v, out, dout, lse, *, causal=True,
     part_keys = parts[0][1] if len(parts) > 1 else 0
     dq_part = (torch.empty((len(parts), b, hq, s, d), dtype=torch.float32,
                            device=dev) if part_keys else None)
+    vsum = (torch.empty((b, hkv, d), dtype=torch.float32, device=dev)
+            if may_lack_keys(s, sk, causal, window, q_offset, kv_len_mask)
+            else None)
+    mask, mask_ptr = _mask_arg(kv_len_mask)
     strides = _strides(q, k, v, out, dout, dq, dk, dv)
     fn = build.c_function(_BWD_ENTRY[(q.dtype, d)], _BWD_ARGS)
     with torch.cuda.device(dev):
@@ -279,6 +343,8 @@ def flash_attention_bwd_kernel(q, k, v, out, dout, lse, *, causal=True,
                 sk, ctypes.addressof(strides), int(bool(causal)), window,
                 float(logit_cap or 0.0),
                 None if dq_part is None else dq_part.data_ptr(), part_keys,
+                q_offset, mask_ptr,
+                None if vsum is None else vsum.data_ptr(),
                 build.stream_ptr(dev))
     build.check_launch(rc, "flash_attention_bwd")
     flash_attention_bwd_kernel.launches += 1
@@ -294,21 +360,26 @@ class FlashAttention(torch.autograd.Function):
     """B9 with its gradient, on CUDA tensors: the forward kernel writes
     each row's log-sum-exp beside the output, and the backward kernel
     recomputes P from q, k and it.  ``FlashAttention.apply(q, k, v,
-    causal, logit_cap, window)``; the CPU's counterpart is autograd
-    through ``flash_attention_ref``."""
+    causal, logit_cap, window[, q_offset, kv_len_mask])`` (the mask
+    takes no gradient); the CPU's counterpart is autograd through
+    ``flash_attention_ref``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, logit_cap, window):
-        window = _check_options(q, k, causal, window)
-        out, lse = _forward(q, k, v, causal, logit_cap, window, True)
+    def forward(ctx, q, k, v, causal, logit_cap, window, q_offset=0,
+                kv_len_mask=None):
+        window, q_offset = _check_options(q, k, causal, window, q_offset,
+                                          kv_len_mask)
+        out, lse = _forward(q, k, v, causal, logit_cap, window, True,
+                            q_offset, kv_len_mask)
         ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = kv_len_mask
         ctx.options = dict(causal=causal, logit_cap=logit_cap,
-                           window=window)
+                           window=window, q_offset=q_offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd_kernel(q, k, v, out, dout, lse,
-                                                **ctx.options)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = flash_attention_bwd_kernel(
+            q, k, v, out, dout, lse, kv_len_mask=ctx.mask, **ctx.options)
+        return dq, dk, dv, None, None, None, None, None

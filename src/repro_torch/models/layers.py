@@ -2,16 +2,15 @@
 of ``repro/models/layers.py``).
 
 Plain PyTorch, shape-polymorphic over batch/seq and dtype-polymorphic,
-with the reference's parameter layout.  On a CUDA tensor, attention
-from position 0 without a ``kv_len_mask`` is the hand-written
-``flash_attention`` kernel (B9): causal with or without a sliding
-window, or non-causal with a key length of its own (whisper's encoder
-and cross-attention); while autograd records (training) it goes through
-``FlashAttention``, whose backward is B9's backward kernel.
-``q_offset`` and ``kv_len_mask`` on the card raise instead of falling
-back (no model path passes them).  On a CPU tensor the plain form runs
-in full, query chunks and all, as the reference's jnp form, and
-autograd differentiates it.
+with the reference's parameter layout.  On a CUDA tensor, attention is
+the hand-written ``flash_attention`` kernel (B9): causal with or without
+a sliding window, or non-causal, any key length (whisper's encoder and
+cross-attention), with a query offset and a (B, Sk) key mask (a chunk of
+queries after a prefix, a padded batch); while autograd records
+(training) it goes through ``FlashAttention``, whose backward is B9's
+backward kernel.  On a CPU tensor the plain form runs in full, query
+chunks and all, as the reference's jnp form, and autograd
+differentiates it.
 
 KV caches are updated in place (the reference returns new ones): the
 returned cache is the given one, written.
@@ -202,21 +201,20 @@ def attention(q, k, v, *, causal=True, q_offset=0, window=0, logit_cap=0.0,
 
     On the card: the ``flash_attention`` kernel over the whole sequence
     (no query chunks: it holds no score matrix), causal (with the
-    window, if any) or non-causal (any key length); a ``kv_len_mask``
-    or a ``q_offset`` raises.  On the CPU: the plain form, in query
+    window, if any) or non-causal, any key length, with the query offset
+    and the (B, Sk) bool key mask.  On the CPU: the plain form, in query
     chunks that bound the score memory to (B, H, q_chunk, Sk), as the
-    reference computes it.  The window binds only with ``causal``, as
-    in the reference.
+    reference computes it.  The window and the offset bind only with
+    ``causal``, as in the reference; a row with no valid key attends to
+    all Sk keys alike (the reference's -1e30 scores).
     """
     if q.is_cuda:
-        if kv_len_mask is not None or q_offset:
-            raise NotImplementedError(
-                "attention: a kv_len_mask or a q_offset does not run on "
-                "the card (no model path passes one)")
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
                               logit_cap=logit_cap,
-                              window=window if causal else 0)
+                              window=window if causal else 0,
+                              q_offset=q_offset if causal else 0,
+                              kv_len_mask=kv_len_mask)
         return out.transpose(1, 2)
     sq = q.shape[1]
     if sq % q_chunk:          # largest divisor of sq that is <= q_chunk

@@ -863,22 +863,209 @@ def test_cuda_model_prefill_runs_the_kernels_and_matches_cpu():
 
 @pytest.mark.gpu
 def test_cuda_attention_refuses_what_has_no_kernel():
-    """On the card, a kv mask and a query offset raise instead of falling
-    back to the plain form; sliding-window attention (gemma2's local
-    layers) and a key length of its own (whisper's cross-attention) have
-    the kernel now and launch it."""
+    """On the card a kv mask and a query offset launch B9, forward and
+    (under autograd) backward, and match the CPU's plain form within
+    1e-5; sliding-window attention (gemma2's local layers) and a key
+    length of its own (whisper's cross-attention) launch it too.  Only
+    what has no kernel raises: a negative offset (ValueError, before
+    any launch)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel
     from repro_torch.models.layers import attention
     dev = _cuda()
     q = torch.zeros((1, 8, 4, 64), device=dev)
-    with pytest.raises(NotImplementedError, match="kv_len_mask"):
-        attention(q, q, q, kv_len_mask=torch.ones((1, 8), dtype=torch.bool,
-                                                  device=dev))
-    with pytest.raises(NotImplementedError, match="q_offset"):
-        attention(q, q, q, q_offset=3)
+    with pytest.raises(ValueError, match="q_offset"):
+        attention(q, q, q, q_offset=-3)
     n0 = flash_attention_kernel.launches
     attention(q, q, q, window=4)
     attention(q[:, :1], q, q, causal=False)
     assert flash_attention_kernel.launches == n0 + 2
+    gen = torch.Generator().manual_seed(5)
+    qc, kc, vc, dc = (torch.randn(shape, generator=gen) for shape in
+                      ((2, 24, 4, 64), (2, 40, 2, 64), (2, 40, 2, 64),
+                       (2, 24, 4, 64)))
+    mask = torch.arange(40)[None, :] >= torch.tensor([[0], [20]])
+    for opts in (dict(q_offset=16), dict(kv_len_mask=mask),
+                 dict(q_offset=16, kv_len_mask=mask, window=10),
+                 dict(causal=False, kv_len_mask=mask)):
+        cpu = [x.clone().requires_grad_() for x in (qc, kc, vc)]
+        card = [x.to(dev).requires_grad_() for x in (qc, kc, vc)]
+        card_opts = {key: (val.to(dev) if torch.is_tensor(val) else val)
+                     for key, val in opts.items()}
+        f0, b0 = (flash_attention_kernel.launches,
+                  flash_attention_bwd_kernel.launches)
+        got = attention(*card, **card_opts)
+        gg = torch.autograd.grad(got, card, dc.to(dev))
+        torch.cuda.synchronize()
+        assert (flash_attention_kernel.launches,
+                flash_attention_bwd_kernel.launches) == (f0 + 1, b0 + 1)
+        want = attention(*cpu, **opts)
+        wg = torch.autograd.grad(want, cpu, dc)
+        assert _rel(got.cpu(), want) <= 1e-5
+        for g, w in zip(gg, wg):
+            assert _rel(g.cpu(), w) <= 1e-5
+
+
+# ----------------------------------- B9 with a query offset and a key mask
+
+# (B, Hq, Hkv, Sq, Sk, causal, window, cap, q_offset, mask): a chunk of
+# queries after a prefix with Sk equal to, below and above q_offset + Sq;
+# left pads (rows with no key); non-causal lengths; a window the rows
+# outrun past the keys (rows with no key); a random mask that leaves
+# causal rows only future keys, GQA 8; whisper's cross-attention with
+# the float32 key split (1500 keys) and a mask; causal with a key length
+# of its own, above and below Sq, at offset 0 and with no mask (the
+# kernels without the offset and the mask)
+OFFSET_MASK_CASES = [
+    (1, 4, 2, 70, 300, True, 0, 0.0, 0, None),
+    (1, 4, 2, 300, 70, True, 0, 0.0, 0, None),
+    (1, 4, 2, 70, 300, True, 0, 0.0, 230, None),
+    (1, 4, 2, 70, 250, True, 0, 0.0, 230, None),
+    (1, 4, 2, 70, 400, True, 0, 50.0, 230, None),
+    (2, 6, 2, 130, 130, True, 0, 0.0, 0, "left"),
+    (2, 4, 2, 17, 150, False, 0, 0.0, 0, "right"),
+    (1, 4, 2, 64, 200, True, 64, 30.0, 180, None),
+    (2, 8, 1, 65, 97, True, 0, 0.0, 32, "random"),
+    (1, 4, 2, 128, 1500, False, 0, 0.0, 0, "right")]
+
+
+def _fa_key_mask(kind, b, sk, dev):
+    """(B, Sk) bool on ``dev`` or None: ``left`` pads (row r masks its
+    first 77 r keys), ``right`` lengths (row r keeps sk - 41 r), or
+    ``random`` (30% masked, and key 0)."""
+    if kind is None:
+        return None
+    j = torch.arange(sk)[None, :]
+    r = torch.arange(b)[:, None]
+    if kind == "left":
+        m = j >= (77 * r) % sk
+    elif kind == "right":
+        m = j < torch.clamp(sk - 41 * r, min=1)
+    else:
+        m = torch.rand((b, sk), generator=torch.Generator().manual_seed(9))
+        m = m >= 0.3
+        m[:, 0] = False
+    return m.to(dev)
+
+
+def _offset_mask_inputs(case, d, dtype, dev, seed=30):
+    b, hq, hkv, sq, sk, causal, window, cap, q_offset, kind = case
+    q = torch.from_numpy(_attention_case(seed, b=b, hq=hq, hkv=hkv, s=sq,
+                                         d=d)[0]).to(dev, dtype)
+    _, k, v = (torch.from_numpy(a).to(dev, dtype)
+               for a in _attention_case(seed + 1, b=b, hq=hq, hkv=hkv,
+                                        s=sk, d=d))
+    opts = dict(causal=causal, logit_cap=cap, window=window,
+                q_offset=q_offset,
+                kv_len_mask=_fa_key_mask(kind, b, sk, dev))
+    return q, k, v, opts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", OFFSET_MASK_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("d", [64, 128, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_offset_and_mask_match_plain(dtype, d, case):
+    """The forward with a query offset and a key mask: one launch, within
+    1e-5 (float32) or 8e-3 (bfloat16) of the plain output's largest
+    magnitude, rows with no key the mean of v; the lse within 1e-5 of
+    ``flash_attention_lse_ref`` on rows with a key, +inf exactly on the
+    others."""
+    from repro_torch.kernels.flash_attention.kernel import _forward
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_lse_ref)
+    dev = _cuda()
+    q, k, v, opts = _offset_mask_inputs(case, d, dtype, dev)
+    n0 = flash_attention_kernel.launches
+    got = flash_attention_kernel(q, k, v, **opts)
+    want = flash_attention_ref(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert _rel(got, want) <= (1e-5 if dtype == torch.float32 else 8e-3)
+    _, lse = _forward(q, k, v, opts["causal"], opts["logit_cap"],
+                      opts["window"], True, opts["q_offset"],
+                      opts["kv_len_mask"])
+    wl = flash_attention_lse_ref(q, k, **opts)
+    assert torch.equal(torch.isinf(lse), torch.isinf(wl))
+    ok = torch.isfinite(wl)
+    if ok.any():
+        assert _rel(lse[ok], wl[ok]) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", OFFSET_MASK_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_backward_offset_and_mask(dtype, d, case):
+    """``FlashAttention`` with a query offset and a key mask against
+    autograd through the plain version: one launch of each kernel, dq/dk/
+    dv within 1e-5 (float32) or 4 x 2**-8 (bfloat16) of each gradient's
+    largest magnitude (a row with one valid key cancels in dS: in bf16
+    held to the largest gradient), two runs the same bits, and dq exactly
+    0 on the rows with no key."""
+    from repro_torch.kernels.flash_attention import (
+        FlashAttention, flash_attention_bwd_kernel)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_lse_ref)
+    dev = _cuda()
+    q, k, v, opts = _offset_mask_inputs(case, d, dtype, dev, seed=34)
+    args = (opts["causal"], opts["logit_cap"], opts["window"],
+            opts["q_offset"], opts["kv_len_mask"])
+    do = torch.randn(q.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(4), device=dev).to(dtype)
+    n0 = flash_attention_bwd_kernel.launches
+    _, got = _grads(lambda a, b_, c: FlashAttention.apply(a, b_, c, *args),
+                    q, k, v, do)
+    assert flash_attention_bwd_kernel.launches == n0 + 1
+    _, again = _grads(lambda a, b_, c: FlashAttention.apply(a, b_, c,
+                                                            *args),
+                      q, k, v, do)
+    _, want = _grads(lambda a, b_, c: flash_attention_ref(a, b_, c, **opts),
+                     q, k, v, do)
+    torch.cuda.synchronize()
+    none = torch.isinf(flash_attention_lse_ref(q, k, **opts))
+    tol = 1e-5 if dtype == torch.float32 else 4 * 2.0 ** -8
+    top = max(w.float().abs().max().item() for w in want)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g, a)
+        scale = (top if dtype == torch.bfloat16
+                 else w.float().abs().max().item() or top)
+        assert (g.float() - w.float()).abs().max().item() <= tol * scale
+    assert not got[0][none].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_all_true_mask_is_the_plain_call(dtype):
+    """An all-true key mask and offset 0 run the extended kernels (mask
+    bits, offset arithmetic, the pre-passes); on shapes that leave every
+    row a key they give the same bits as the call without them, forward
+    and backward: the extended instances do the plain instances'
+    arithmetic."""
+    from repro_torch.kernels.flash_attention import FlashAttention
+    dev = _cuda()
+    for b, hq, hkv, sq, sk, causal, window, cap, d in (
+            (1, 4, 2, 200, 200, True, 0, 0.0, 128),
+            (2, 4, 2, 130, 130, True, 64, 50.0, 64),
+            (1, 4, 2, 17, 1500, False, 0, 0.0, 64)):
+        q = torch.from_numpy(_attention_case(40, b=b, hq=hq, hkv=hkv, s=sq,
+                                             d=d)[0]).to(dev, dtype)
+        _, k, v = (torch.from_numpy(a).to(dev, dtype)
+                   for a in _attention_case(41, b=b, hq=hq, hkv=hkv, s=sk,
+                                            d=d))
+        ones = torch.ones((b, sk), dtype=torch.bool, device=dev)
+        do = torch.randn(q.shape, generator=torch.Generator(device=dev)
+                         .manual_seed(2), device=dev).to(dtype)
+        base, gb = _grads(lambda a, b_, c: FlashAttention.apply(
+            a, b_, c, causal, cap, window), q, k, v, do)
+        ext, ge = _grads(lambda a, b_, c: FlashAttention.apply(
+            a, b_, c, causal, cap, window, 0, ones), q, k, v, do)
+        assert torch.equal(base, ext)
+        for x, y in zip(gb, ge):
+            assert torch.equal(x, y)
 
 
 def _health_groups(n_devices, faults, span_s=2.5):
@@ -904,6 +1091,45 @@ def _health_groups(n_devices, faults, span_s=2.5):
                        if tr.name in faults else tr for tr in trs])
         delays += [sp.delay_s for sp in specs]
     return truth, groups, delays
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("track", [False, True], ids=["fixed", "tracked"])
+def test_cuda_fused_series_matches_cpu(track):
+    """``fused_series()`` of the multi-host entry (one participant,
+    ``record=True``) on the card against the CPU's plain versions: the
+    grids and masks equal, the watts within 1e-5 of the largest; the
+    card run's totals equal a card run's without ``record``."""
+    import numpy as np
+    from repro_torch.distributed.multihost import (
+        ThreadCollectives, attribute_energy_fused_multihost)
+    from repro_torch.fleet import (PipelineConfig, StreamConfig,
+                                   TrackConfig, assign_groups)
+    dev = _cuda()
+    truth, groups, delays = _health_groups(4, {})
+    phases = [(f"p{k}", 0.4 * k + 0.1, 0.4 * k + 0.5) for k in range(5)]
+    sh = assign_groups([len(g) for g in groups], 1, 0)
+    cfg = PipelineConfig(stream=StreamConfig(chunk=257),
+                         track=(TrackConfig() if track else
+                                TrackConfig(track=False, delays=delays)))
+
+    def run(device, record=True):
+        out, pipe = attribute_energy_fused_multihost(
+            groups, phases, shard=sh,
+            collectives=ThreadCollectives(1).participant(0), config=cfg,
+            reference=truth if track else None, record=record,
+            return_pipe=True, device=device)
+        return np.array([[p.energy_j for p in r] for r in out]), pipe
+    e_card, card = run(dev)
+    e_plain, _ = run(dev, record=False)
+    _, cpu = run("cpu")
+    g, w, m = card.fused_series()
+    gc, wc, mc = cpu.fused_series()
+    assert w.shape == (4, g.shape[0]) and g.shape[0] > 100
+    np.testing.assert_array_equal(g, gc)
+    np.testing.assert_array_equal(m, mc)
+    assert np.abs(w - wc).max() <= 1e-5 * np.abs(wc).max()
+    np.testing.assert_array_equal(e_card, e_plain)
 
 
 @pytest.mark.gpu

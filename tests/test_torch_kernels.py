@@ -585,14 +585,21 @@ def test_flash_attention_plain_window_matches_reference(dtype, window, cap):
 
 
 def test_flash_attention_refuses_causal_kv_length_and_open_window():
-    """A causal call needs as many keys as queries, and a window needs
-    causality: both raise before any device is chosen."""
+    """A window needs causality and an offset must be >= 0: both raise
+    before any device is chosen.  A causal call with a key length of its
+    own is no longer refused: row i sits at position q_offset + i (0
+    here), as in the reference's ``attention``, within 1e-5."""
     q = torch.from_numpy(_attention_case(13, s=8)[0])
     _, k, v = (torch.from_numpy(a) for a in _attention_case(13, s=12))
-    with pytest.raises(ValueError, match="as many keys"):
-        flash_attention_kernel(q, k, v, causal=True)
+    want = np.asarray(jax_attention(
+        *(jnp.asarray(x.numpy().swapaxes(1, 2)) for x in (q, k, v)),
+        causal=True)).swapaxes(1, 2)
+    got = flash_attention_kernel(q, k, v, causal=True).numpy()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
     with pytest.raises(ValueError, match="needs causal"):
         flash_attention_kernel(q, k, v, causal=False, window=4)
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention_kernel(q, k, v, causal=True, q_offset=-1)
 
 
 def test_flash_attention_refuses_unported_options():
