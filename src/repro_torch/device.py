@@ -17,25 +17,18 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-def refuse_unported(entry: str, *, mesh=None, interpret=None,
-                    use_kernel=None, collectives=None, shard=None,
-                    item: str = ""):
+def refuse_unported(entry: str, *, interpret=None, use_kernel=None):
     """Raise ``NotImplementedError`` naming every option ``entry`` was
-    given that the port does not run yet: ``mesh`` sharding, multi-host
-    ``collectives``/``shard``, Pallas ``interpret=True`` and the
-    kernel-free ``use_kernel=False``; ``item`` names the ROADMAP item
-    that ports them.  The defaults (None, and True for ``use_kernel``)
-    pass."""
+    given that the port does not run: Pallas ``interpret=True`` and the
+    kernel-free ``use_kernel=False``.  The defaults (None, and True for
+    ``use_kernel``) pass."""
     todo = [name for name, given in (
-        ("mesh", mesh is not None),
-        ("collectives", collectives is not None),
-        ("shard", shard is not None),
         ("interpret=True", bool(interpret)),
         ("use_kernel=False", use_kernel is False)) if given]
     if todo:
         raise NotImplementedError(
             f"repro_torch's {entry} does not support " + ", ".join(todo)
-            + " yet" + (f" (ROADMAP {item})" if item else ""))
+            + " yet")
 
 
 def refuse_detached(kernel: str, *tensors, item: str):

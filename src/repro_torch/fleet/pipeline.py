@@ -76,6 +76,9 @@ from repro_torch.align.delay import (RefbankCache, estimate_delays,
 from repro_torch.core.calibration import apply_corrections
 from repro_torch.core.reduce import fixed_sum, fold_sum
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (fleet_row_padding,
+                                              fleet_shard_map,
+                                              resolve_fleet_mesh)
 from repro_torch.fleet.config import resolve_config
 from repro_torch.fleet.packing import ROW_ALIGN, _round_up, pack_traces
 from repro_torch.kernels.fleet_attribute.kernel import fleet_attribute_kernel
@@ -1507,20 +1510,45 @@ class CounterAttributeStage(_PhaseSumStage):
     ``fleet_attribute`` kernel (dE/dt and integration in one pass; the
     ``FleetStream`` core).  The counter wrap is fixed per interval inside
     the kernel: dE telescopes across windows through the carry edge.
-    Single device: ``mesh`` sharding is not ported."""
+
+    ``mesh``: None (the default, one device; ``fleet_reconstruct`` says
+    why), or a ``Mesh`` with a ``"fleet"`` axis or ``"auto"`` (every
+    local card when there are several, ``distributed.sharding.
+    fleet_mesh``; None on the CPU and on one card) to row-shard the
+    kernel.  Each device runs B7 on its rows with the phase table
+    replicated; a stream count that does not divide the mesh is padded
+    with copies of the last row, whose energy is sliced off before the
+    accumulate, so each row's total is bit-identical to the unsharded
+    one.  The accumulator (and the carry, in the ingest stage before
+    this one) stays on ``device``."""
 
     def __init__(self, phases, n_streams: int, wrap_period=None, *,
-                 dtype=np.float32, device=None):
+                 dtype=np.float32, device=None, mesh=None):
         super().__init__(phases, n_streams, dtype, device)
+        self.mesh = resolve_fleet_mesh(mesh, self.device)
+        self.n_streams = n_streams
+        self._row_pad = fleet_row_padding(self.mesh, n_streams)
         wp = (np.zeros((n_streams,), dtype) if wrap_period is None
               else np.asarray(wrap_period, dtype))
-        self._wrap_row = torch.as_tensor(wp.reshape(n_streams, 1),
+        wp = np.pad(wp, (0, self._row_pad))
+        self._wrap_row = torch.as_tensor(wp.reshape(-1, 1),
                                          device=self.device)
+        self._sharded = (None if self.mesh is None else fleet_shard_map(
+            fleet_attribute_kernel, self.mesh, n_in=4, n_out=1,
+            replicated_in=(3,)))
 
     def update(self, chunk: ClosedWindow):
-        self._acc = self._acc + fleet_attribute_kernel(
-            chunk.times.contiguous(), chunk.values.contiguous(),
-            self._wrap_row, self.phases)
+        t, e = chunk.times.contiguous(), chunk.values.contiguous()
+        if self._sharded is None:
+            energy = fleet_attribute_kernel(t, e, self._wrap_row,
+                                            self.phases)
+        else:
+            if self._row_pad:
+                t = torch.cat([t, t[-1:].expand(self._row_pad, -1)])
+                e = torch.cat([e, e[-1:].expand(self._row_pad, -1)])
+            energy = self._sharded(t, e, self._wrap_row, self.phases).to(
+                self.device)[:self.n_streams]
+        self._acc = self._acc + energy
         return None
 
 

@@ -1,5 +1,5 @@
 """Whole-fleet dE/dt reconstruction on the device (port of
-``repro/fleet/reconstruct.py``, single device).
+``repro/fleet/reconstruct.py``).
 
   1. dedup+mono    a sample is kept iff its time strictly advanced (cached
                    re-reads republish the same (t, E) pair),
@@ -14,6 +14,12 @@ carry-forward path run (plain torch cummax + gather, then the
 ``power_reconstruct_rows`` kernel).  Kept samples stay in place:
 ``valid`` marks them.  ``fleet_reconstruct_host`` is the float64 numpy
 mirror of the same padded semantics.
+
+With a fleet mesh the rows are split over its devices, each running the
+same fused kernel on its block (rows are independent: no collective,
+and each row's result is bit-identical to the unsharded one); a row
+count that does not divide the mesh is padded with zero-width rows that
+are sliced off again.
 """
 from __future__ import annotations
 
@@ -21,6 +27,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import refuse_unported, resolve_device
+from repro_torch.distributed.sharding import (fleet_row_padding,
+                                              fleet_shard_map,
+                                              resolve_fleet_mesh)
 from repro_torch.fleet.packing import PackedFleet
 from repro_torch.kernels.power_reconstruct.kernel import (
     power_reconstruct_fleet_kernel, power_reconstruct_rows_kernel)
@@ -63,20 +72,44 @@ def fleet_reconstruct(packed: PackedFleet, *, device=None, interpret=None,
     Returns (power, times, valid) as (F, S) tensors on ``device`` (None
     means CUDA): ``power[i, j]`` holds on ``(times[i, j-1], times[i, j]]``
     wherever ``valid[i, j]``.  One fused kernel launch in the common
-    case; the one host read of the kernel's per-row ``reordered`` flags
-    decides whether the carry-forward pass runs instead.  ``mesh``,
+    case (one a shard on a mesh); the one host read of the kernel's
+    per-row ``reordered`` flags decides whether the carry-forward pass
+    runs instead (unsharded, on the real rows).
+
+    ``mesh``: None (the default) runs on ``device``; a ``Mesh`` with a
+    ``"fleet"`` axis, or ``"auto"`` for every local card when there are
+    several (``distributed.sharding.fleet_mesh``), shards the fleet rows,
+    padding a row count that does not divide the mesh with masked
+    zero-width rows.  The reference defaults to ``"auto"``; the port does
+    not, since at a few hundred rows the copies to the other cards cost
+    more than they save (PERF.md, the meshes' findings).
     ``interpret=True`` and ``use_kernel=False`` are not ported.
     """
-    refuse_unported("fleet_reconstruct", mesh=mesh, interpret=interpret,
+    refuse_unported("fleet_reconstruct", interpret=interpret,
                     use_kernel=use_kernel)
     dev = resolve_device(device)
+    mesh = resolve_fleet_mesh(mesh, dev)
     energy = torch.as_tensor(packed.energy, device=dev)
     times = torch.as_tensor(packed.times, device=dev)
     wrap_period = torch.as_tensor(packed.wrap_period, device=dev)
     n_samples = torch.as_tensor(packed.n_samples, dtype=torch.int32,
                                 device=dev)
-    power, valid, reordered = _fleet_fast(energy, times, wrap_period,
-                                          n_samples)
+    if mesh is None:
+        power, valid, reordered = _fleet_fast(energy, times, wrap_period,
+                                              n_samples)
+    else:
+        f0 = energy.shape[0]
+        pad = fleet_row_padding(mesh, f0)
+
+        def padded(x):
+            return torch.nn.functional.pad(
+                x, (0, 0) * (x.dim() - 1) + (0, pad)) if pad else x
+        fast = fleet_shard_map(power_reconstruct_fleet_kernel, mesh,
+                               n_in=4, n_out=3)
+        power, valid, reordered = (o.to(dev)[:f0] for o in fast(
+            padded(energy), padded(times),
+            padded(wrap_period)[:, None].contiguous(),
+            padded(n_samples)[:, None].contiguous()))
     if bool(reordered.any()):
         return _fleet_slow(energy, times,
                            torch.as_tensor(packed.valid, device=dev),

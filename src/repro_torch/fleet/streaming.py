@@ -75,18 +75,21 @@ class FleetStream:
     State per stream: the last (t, E) sample plus the (F, P) energy
     accumulator; reconstruction and integration run fused through the
     ``fleet_attribute`` kernel per chunk.  ``device=None`` means CUDA;
-    ``mesh`` sharding is not ported.
+    ``mesh`` (None, the default, a ``Mesh`` or ``"auto"``) row-shards
+    the kernel as ``CounterAttributeStage`` does.
     """
 
     def __init__(self, phases, n_streams: int, wrap_period=None, *,
                  dtype=np.float32, device=None, interpret=None,
                  use_kernel=None, mesh=None):
         refuse_unported("FleetStream", interpret=interpret,
-                        use_kernel=use_kernel, mesh=mesh)
+                        use_kernel=use_kernel)
         self.device = dev = resolve_device(device)
         self._dtype = _torch_dtype(dtype)
         self._attr = CounterAttributeStage(phases, n_streams, wrap_period,
-                                           dtype=dtype, device=dev)
+                                           dtype=dtype, device=dev,
+                                           mesh=mesh)
+        self.mesh = self._attr.mesh
         self._pipe = StreamPipeline(IngestStage(n_streams, mode="sanitize",
                                                 device=dev),
                                     self._attr)

@@ -23,7 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.device import refuse_unported
+from repro_torch.distributed.sharding import check_mesh
 from repro_torch.kernels.flash_attention import flash_attention
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -265,10 +265,13 @@ def attention_apply(p, cfg, x, positions, *, layer_window=0, kv_cache=None,
     decode (continuous batching: each slot advances at its own
     position).  ``cross_kv``: precomputed (k, v), each (B, F, Hkv, D),
     for cross-attention (whisper's decoder): q's projection and bias, no
-    RoPE, non-causal attention over the F keys.  ``mesh`` is not
-    ported.
+    RoPE, non-causal attention over the F keys.  ``mesh``: a
+    ``distributed.sharding.Mesh`` whose ``"model"`` axis splits the
+    cache's sequence in decode (``decode_attention``); prefill and the
+    projections run on x's device, where the reference's mesh changes
+    no number.
     """
-    refuse_unported("attention_apply", mesh=mesh, item="A9")
+    check_mesh(mesh)
     b, s, _ = x.shape
     h = cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
@@ -318,8 +321,9 @@ def attention_apply(p, cfg, x, positions, *, layer_window=0, kv_cache=None,
             cv[:, i0:i0 + s] = v
         return out.reshape(b, s, nq * h) @ p["wo"].to(dt), kv_cache
 
-    # decode: ring slot or direct slot, then single-card flash-decode
-    # (caches stay in their storage dtype; the cast happens inside)
+    # decode: ring slot or direct slot, then flash-decode, sequence-
+    # sharded over ``mesh`` (caches stay in their storage dtype; the cast
+    # happens inside each shard)
     if _is_rows(cache_index):
         # per-row write offsets: scatter each batch row at its own slot
         slot = torch.remainder(cache_index, w_len) if ring else cache_index
@@ -333,7 +337,7 @@ def attention_apply(p, cfg, x, positions, *, layer_window=0, kv_cache=None,
         cv[:, slot:slot + 1] = v
     from repro_torch.distributed.decode_attention import decode_attention
     out = decode_attention(
-        q, ck, cv, cache_index, None,
+        q, ck, cv, cache_index, mesh,
         window=0 if ring else layer_window,     # ring bounds the window
         logit_cap=cfg.logit_softcap)
     out = out.to(dt)

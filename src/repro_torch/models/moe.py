@@ -17,15 +17,26 @@ the assignment that fills it), and the combine folds each token's k
 contributions in a fixed order (the sorted-assignment order in which
 the reference's scatter-add applies them) instead of atomics.
 
-The reference's ``shard_map`` branch (experts sharded over a mesh axis)
-is not ported: ``mesh=`` raises naming ROADMAP A9.
+Expert parallelism (``mesh=``, the reference's ``shard_map`` branch):
+the experts are split over the mesh's ``ep_axis`` and the tokens over
+its data axes (when they divide the batch); each (data, expert) shard
+routes its own tokens redundantly, keeps the assignments of its experts
+in a buffer of the capacity of its data shard's tokens, and adds its
+slice of the shared experts' d_ff; the shards' partial outputs are
+summed on the mesh's first device in expert-axis order
+(``core.reduce.fold_sum``).  The reference casts every weight to the
+activations' dtype before it shards them, the router included, so the
+port's sharded path rounds the router to that dtype too.  A shard's
+expert slices are views of the weights (placed once on a shard's own
+card when it is not the weights' card, ``Mesh.put``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.device import refuse_unported
+from repro_torch.core.reduce import fold_sum
+from repro_torch.distributed.sharding import check_mesh, shard_coords
 from repro_torch.models.layers import ParamSpec
 
 
@@ -120,8 +131,9 @@ def _moe_local(p, x_flat, *, moe, expert_offset, e_local, capacity,
     """Local MoE over experts ``expert_offset .. + e_local``: x_flat
     (N, d) -> (y (N, d), aux loss scalar or None).  ``with_aux=False``
     skips the aux loss (prefill and decode drop it; the reference's
-    compiled steps never compute it).  The reference's ``psum_axis`` (a
-    partial sum over the expert axis of a mesh) is not ported.
+    compiled steps never compute it).  With ``expert_offset``/``e_local``
+    a slice of the experts this is one shard's partial output; the
+    reference's ``psum_axis`` is ``moe_apply``'s fold over the shards.
     """
     n, d = x_flat.shape
     k = moe.top_k
@@ -177,15 +189,76 @@ def _moe_local(p, x_flat, *, moe, expert_offset, e_local, capacity,
     return y, aux
 
 
+def _shard_params(p, mesh, dev, *, ep, m, e_local, dt):
+    """Shard ``m`` of ``ep``'s view of the MoE weights on ``dev``: its
+    experts, its slice of the shared experts' d_ff, the router rounded
+    to the activations' dtype (as the reference casts it)."""
+    put = mesh.put
+    out = {"router": put(p["router"], dev).to(dt)}
+    for name in ("w_gate", "w_up", "w_down"):
+        out[name] = put(p[name], dev, 0, m * e_local, (m + 1) * e_local)
+    if "shared" in p:
+        sp = p["shared"]
+        fs = sp["w_down"].shape[0] // ep
+        out["shared"] = {
+            "w_gate": put(sp["w_gate"], dev, 1, m * fs, (m + 1) * fs),
+            "w_up": put(sp["w_up"], dev, 1, m * fs, (m + 1) * fs),
+            "w_down": put(sp["w_down"], dev, 0, m * fs, (m + 1) * fs)}
+    return out
+
+
 def moe_apply(p, cfg, x, *, mesh=None, ep_axis="model",
               dp_axes=("pod", "data"), with_aux=True):
-    """x: (B, S, d) -> (y, aux_loss scalar), every expert on this
-    device; ``with_aux=False`` returns None for the aux loss.  ``mesh``
-    (expert parallelism under ``shard_map``) is not ported."""
-    refuse_unported("moe_apply", mesh=mesh, item="A9")
+    """x: (B, S, d) -> (y, aux_loss scalar); ``with_aux=False`` returns
+    None for the aux loss.
+
+    ``mesh`` (a ``distributed.sharding.Mesh`` with ``ep_axis``): expert
+    parallelism as the module docstring says.  The capacity is that of
+    a data shard's tokens, so when it binds the result differs from the
+    unsharded one, as the reference's does; the aux loss is the first
+    data shard's, computed on its own tokens (the value the reference's
+    replicated output takes).  Without a mesh (or one without
+    ``ep_axis``) every expert runs on x's device.
+    """
+    check_mesh(mesh)
     moe = cfg.moe
     b, s, d = x.shape
-    y, aux = _moe_local(p, x.reshape(b * s, d), moe=moe, expert_offset=0,
-                        e_local=moe.num_experts,
-                        capacity=_capacity(b * s, moe), with_aux=with_aux)
-    return y.reshape(b, s, d), aux
+    if mesh is None or ep_axis not in mesh.axis_names:
+        y, aux = _moe_local(p, x.reshape(b * s, d), moe=moe,
+                            expert_offset=0, e_local=moe.num_experts,
+                            capacity=_capacity(b * s, moe),
+                            with_aux=with_aux)
+        return y.reshape(b, s, d), aux
+
+    ep = mesh.shape[ep_axis]
+    if moe.num_experts % ep:
+        raise ValueError(f"{moe.num_experts} experts not divisible by "
+                         f"EP={ep}")
+    if "shared" in p and p["shared"]["w_down"].shape[0] % ep:
+        raise ValueError(f"the shared experts' d_ff "
+                         f"{p['shared']['w_down'].shape[0]} does not split "
+                         f"over EP={ep}")
+    e_local = moe.num_experts // ep
+    dp_axes, dp = mesh.data_split(dp_axes, b)     # tiny batches replicate
+    b_loc = b // dp
+    capacity = _capacity(b_loc * s, moe)
+    dt = x.dtype
+
+    partial = {}        # data block -> [y of each expert shard]
+    aux = None
+    for c in shard_coords(mesh, dp_axes + (ep_axis,)):
+        dev = mesh.device_at(**c)
+        blk = mesh.block_index(c, dp_axes)
+        m = c[ep_axis]
+        xf = x[blk * b_loc:(blk + 1) * b_loc].reshape(-1, d).to(dev)
+        y, a_loss = _moe_local(
+            _shard_params(p, mesh, dev, ep=ep, m=m, e_local=e_local, dt=dt),
+            xf, moe=moe, expert_offset=m * e_local, e_local=e_local,
+            capacity=capacity, with_aux=with_aux and blk == 0 and m == 0)
+        if a_loss is not None:
+            aux = a_loss.to(x.device)
+        partial.setdefault(blk, []).append(y)
+    first = mesh.device
+    y = torch.cat([fold_sum(torch.stack([t.to(first) for t in partial[k]]),
+                            dim=0) for k in sorted(partial)])
+    return y.reshape(b, s, d).to(x.device), aux

@@ -22,6 +22,13 @@ backward (``torch.utils.checkpoint``, the reference's
 ``jax.checkpoint`` of its scan body), and each 512-token chunk of the
 cross-entropy too.  On the card attention is B9 and a Mamba block's
 scan is B10, each with its backward kernel.
+
+``Model.mesh`` (None, or a ``distributed.sharding.Mesh`` set by the
+caller, as the reference's distribution layer sets it) reaches every
+attention layer (decode sequence-sharded over ``"model"``) and every
+MoE layer (experts over ``"model"``, tokens over the data axes); the
+rest runs on the parameters' device.  Training on a mesh is not ported
+(ROADMAP A14): ``forward_train`` raises while a mesh is set.
 """
 from __future__ import annotations
 
@@ -116,6 +123,8 @@ def _write_back(cache, new):
 
 
 class Model:
+    mesh = None     # set by the caller (None: every layer on one device)
+
     def __init__(self, cfg: ArchConfig):
         self.cfg = cfg
         self.pattern = tuple(cfg.block_pattern)
@@ -200,7 +209,8 @@ class Model:
             kvc = cache.get("kv") if cache else None
             out, nkv = L.attention_apply(
                 p["core"], cfg, h, positions, layer_window=window,
-                kv_cache=kvc, cache_index=cache_index, causal=causal)
+                kv_cache=kvc, cache_index=cache_index, causal=causal,
+                mesh=self.mesh)
             if nkv is not None:
                 new_cache["kv"] = nkv
         elif kind == MAMBA:
@@ -247,7 +257,7 @@ class Model:
         if "ffn" in p:
             hf = L.rms_norm(x, p["norm2"], cfg.rms_eps)
             if _is_moe_layer(cfg, layer_pos):
-                out, a = MOE.moe_apply(p["ffn"], cfg, hf,
+                out, a = MOE.moe_apply(p["ffn"], cfg, hf, mesh=self.mesh,
                                        with_aux=with_aux)
                 if with_aux:
                     aux = aux + a
@@ -382,7 +392,12 @@ class Model:
     def forward_train(self, params, batch):
         """-> (loss, {"ce", "aux"}): the chunked cross-entropy of
         ``batch["labels"]`` (the tokens where there are none) plus the
-        MoE aux loss (zero without experts), float32 scalars."""
+        MoE aux loss (zero without experts), float32 scalars.  Raises
+        while ``mesh`` is set: training on a mesh is ROADMAP A14."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "repro_torch's forward_train does not support a mesh yet "
+                "(ROADMAP A14: training on a mesh)")
         cfg = self.cfg
         x = self._embed(params, batch)
         positions = self._positions(batch, x.shape[1], device=x.device)

@@ -701,11 +701,20 @@ def test_interop_round_trips_every_family(arch):
 
 
 def test_unported_model_options_raise_naming_the_roadmap():
+    """A mesh runs attention and decode (tests/test_torch_mesh.py); a
+    value that is not a ``Mesh`` raises, and training with a mesh set
+    raises naming ROADMAP A14."""
+    from repro_torch.launch.mesh import make_local_mesh
     _, tm, _, tp = _model_pair("llama3.2-3b")
     q = torch.zeros((1, 4, 4, 16))
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(TypeError, match="Mesh"):
         L.attention_apply(tp["layers"]["pos0"]["core"], tm.cfg,
                           torch.zeros((1, 4, 64)), torch.zeros((1, 4)),
                           mesh=object())
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(TypeError, match="Mesh"):
         decode_attention(q[:, :1], q, q, 2, object())
+    meshed = Model(tm.cfg)
+    meshed.mesh = make_local_mesh((1, 2), devices=[CPU])
+    with pytest.raises(NotImplementedError, match="A14"):
+        meshed.forward_train(tp, {"tokens": torch.zeros((1, 4),
+                                                        dtype=torch.int32)})

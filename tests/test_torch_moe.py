@@ -172,7 +172,19 @@ def test_moe_apply_without_aux_gives_the_same_output():
 
 
 def test_moe_apply_mesh_raises_naming_the_roadmap():
-    """Expert parallelism over a mesh is not ported (ROADMAP A9)."""
+    """``mesh=`` runs expert parallelism (``tests/test_torch_mesh.py``
+    holds it to the reference's sharded run); a value that is not a
+    ``Mesh`` raises.  On a (data 1, model 2) mesh every expert shard sees
+    all the tokens at the unsharded capacity, so it keeps the same
+    assignments and the output is the unsharded one (1e-5)."""
+    from repro_torch.launch.mesh import make_local_mesh
     _, ct, _, tp, x = _case("qwen3-moe-235b-a22b", 6)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(TypeError, match="Mesh"):
         MOE.moe_apply(tp, ct, torch.from_numpy(x), mesh=object())
+    mesh = make_local_mesh((1, 2), devices=["cpu"])
+    y, aux = MOE.moe_apply(tp, ct, torch.from_numpy(x), mesh=mesh)
+    y_un, aux_un = MOE.moe_apply(tp, ct, torch.from_numpy(x))
+    _close(y, y_un.numpy())
+    assert torch.equal(aux, aux_un)
+    _, kept = MOE.moe_assignments(tp, ct, torch.from_numpy(x))
+    assert not kept.all()
