@@ -9,8 +9,11 @@ device (the max of the ``m``, then each partial rescaled and folded in
 axis-index order, ``core.reduce.fold_sum``), so only (B, Hq, D)-sized
 tensors leave a shard.  The batch is split over the data axes when they
 divide it.  Without a mesh (or when the cache does not split) the whole
-cache is one shard.  This is not a TPU kernel in the reference (XLA ran
-it), so the port runs it as PyTorch ops.
+cache is one shard.  A cache placed by ``ShardingPlan.cache_shardings``
+(``sharding.Placed``) is read where it lives: each shard computes on its
+own block, and no slice of the cache moves between devices; a whole
+cache sends each shard its slice.  This is not a TPU kernel in the
+reference (XLA ran it), so the port runs it as PyTorch ops.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import math
 import torch
 
 from repro_torch.core.reduce import fold_sum
-from repro_torch.distributed.sharding import check_mesh, shard_coords
+from repro_torch.distributed.sharding import Placed, check_mesh, shard_coords
 
 
 def _scores(q3, k, logit_cap):
@@ -70,6 +73,20 @@ def _partial(q3, k, v, valid, logit_cap):
             lsum.reshape(bq, hq))
 
 
+def _shard_block(cache, coords, dev, rows, cols):
+    """A shard's (rows, cols) of the cache on ``dev``: a placed cache's
+    block held there (it must be placed for this split), a whole
+    cache's slice sent there."""
+    if not isinstance(cache, Placed):
+        return cache[rows, cols].to(dev)
+    idx = cache.block_of(coords)
+    want = ((rows.start, rows.stop), (cols.start, cols.stop))
+    if cache.bounds(idx)[:2] != want or dev not in cache.copies[idx]:
+        raise ValueError(f"the cache is placed as {cache.spec}, not for "
+                         f"this shard's rows {want[0]} and slots {want[1]}")
+    return cache.copies[idx][dev]
+
+
 def decode_attention(q, ck, cv, pos, mesh=None, *, window=0, logit_cap=0.0,
                      seq_axis="model", dp_axes=("pod", "data")):
     """q: (B, 1, Hq, D); ck/cv: (B, Smax, Hkv, D) in their storage dtype;
@@ -92,6 +109,8 @@ def decode_attention(q, ck, cv, pos, mesh=None, *, window=0, logit_cap=0.0,
     dt = q.dtype
 
     if not seq_ok:
+        if isinstance(ck, Placed):
+            ck, cv = ck.full(q.device), cv.full(q.device)
         # the casts from the storage dtype happen here, on the one shard
         num, _, lsum = _partial(q[:, 0], ck.to(dt), cv.to(dt),
                                 _valid(pos, b, smax, 0, window, ck.device),
@@ -110,8 +129,8 @@ def decode_attention(q, ck, cv, pos, mesh=None, *, window=0, logit_cap=0.0,
         rows = slice(blk * b_loc, (blk + 1) * b_loc)
         cols = slice(j * s_loc, (j + 1) * s_loc)
         # dequantize inside the shard: only its slice takes q's dtype
-        k = ck[rows, cols].to(dev).to(dt)
-        v = cv[rows, cols].to(dev).to(dt)
+        k = _shard_block(ck, c, dev, rows, cols).to(dt)
+        v = _shard_block(cv, c, dev, rows, cols).to(dt)
         parts.setdefault(blk, []).append(_partial(
             q[rows, 0].to(dev), k, v,
             _valid(pos, b_loc, s_loc, j * s_loc, window, dev), logit_cap))

@@ -278,16 +278,26 @@ def _install(tree, spec, device, what: str, leaf):
     return _array_tensor(tree, dtype, shape, device, what)
 
 
-def model_params_from_arrays(tree, cfg, device=None) -> dict:
+def model_params_from_arrays(tree, cfg, device=None, *, plan=None) -> dict:
     """The reference ``Model.init`` pytree as nested dicts of numpy
     arrays -> the port's parameters for ``cfg`` on ``device`` (None
-    means CUDA), each leaf in the config's ``param_dtype``."""
+    means CUDA), each leaf in the config's ``param_dtype``.  With a
+    ``plan`` (``distributed.sharding.ShardingPlan``), each leaf placed
+    on the plan's mesh by ``plan.param_shardings`` (``device`` is then
+    unused)."""
     from repro_torch.device import resolve_device
     from repro_torch.models import Model
     from repro_torch.models.layers import torch_dtype
     dtype = torch_dtype(cfg.param_dtype)
-    return _install(tree, Model(cfg).specs(), resolve_device(device),
-                    "params", lambda s: (dtype, s.shape))
+    model = Model(cfg)
+    dev = torch.device("cpu") if plan is not None else resolve_device(device)
+    params = _install(tree, model.specs(), dev, "params",
+                      lambda s: (dtype, s.shape))
+    if plan is None:
+        return params
+    from repro_torch.distributed.sharding import place_tree
+    return place_tree(params, plan.param_shardings(
+        model.param_logical_axes(), model.param_structs()))
 
 
 def model_cache_from_arrays(tree, cfg, batch_size: int, max_len: int,
@@ -311,22 +321,31 @@ def optimizer_state_from_arrays(tree, params, kind: str,
     leaf's ``vr``/``vc``, a vector's ``v``).  Moments are float32 and
     ``count`` an int32 scalar, installed verbatim as
     ``model_params_from_arrays`` installs weights: a dtype, shape or key
-    that differs raises."""
+    that differs raises.  Parameters placed on a mesh (its ``plan=``)
+    place each slot the way ``optimizer.init`` places it, and ``count``
+    on the mesh's first device."""
     from repro_torch.device import resolve_device
+    from repro_torch.distributed.sharding import Placed, Sharding, place
+    from repro_torch.train.optimizer import factored_slots
     f32 = torch.float32
+
+    def sharding(p, spec):
+        return Sharding(p.mesh, spec) if isinstance(p, Placed) else None
 
     def moments(p):
         if isinstance(p, dict):
             return {k: moments(v) for k, v in p.items()}
-        return (f32, tuple(p.shape))
+        return (f32, tuple(p.shape), sharding(p, getattr(p, "spec", None)))
 
     def slots(p):
         if isinstance(p, dict):
             return {k: slots(v) for k, v in p.items()}
-        if p.dim() >= 2:
-            return {"vr": (f32, tuple(p.shape[:-1])),
-                    "vc": (f32, tuple(p.shape[:-2] + p.shape[-1:]))}
-        return {"v": (f32, tuple(p.shape))}
+        sp = getattr(p, "spec", None)
+        if len(p.shape) >= 2:
+            return {k: (f32, shape, sharding(p, spec))
+                    for k, (shape, spec) in factored_slots(p.shape,
+                                                           sp).items()}
+        return {"v": (f32, tuple(p.shape), sharding(p, sp))}
 
     if kind == "adamw":
         spec = {"m": moments(params), "v": moments(params)}
@@ -334,6 +353,29 @@ def optimizer_state_from_arrays(tree, params, kind: str,
         spec = {"slots": slots(params)}
     else:
         raise ValueError(f"optimizer kind {kind!r}: adamw or adafactor")
-    spec["count"] = (torch.int32, ())
-    return _install(tree, spec, resolve_device(device), "opt_state",
-                    lambda leaf: leaf)
+    spec["count"] = (torch.int32, (), None)
+    first = _first_leaf(params)
+    on_mesh = isinstance(first, Placed)
+    state = _install(tree, spec, torch.device("cpu") if on_mesh
+                     else resolve_device(device), "opt_state",
+                     lambda leaf: leaf[:2])
+    if not on_mesh:
+        return state
+
+    def put(t, leaf):
+        return place(t, leaf[2]) if leaf[2] is not None \
+            else t.to(first.device)
+    return _map_spec(put, state, spec)
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def _map_spec(fn, tree, spec):
+    """``fn(leaf, spec leaf)`` over ``tree``, walking ``spec``'s dicts."""
+    if isinstance(spec, dict):
+        return {k: _map_spec(fn, tree[k], spec[k]) for k in spec}
+    return fn(tree, spec)

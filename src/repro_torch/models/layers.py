@@ -23,7 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import check_mesh
+from repro_torch.distributed.sharding import Placed, check_mesh
 from repro_torch.kernels.flash_attention import flash_attention
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -106,6 +106,19 @@ def init_params(specs, generator: torch.Generator, param_dtype="float32",
             generator, param_dtype,
             None if store_dtype is None else store_dtype(path)),
         specs, path=())
+
+
+def param_structs(specs, param_dtype="float32"):
+    """Each leaf's shape and dtype as a tensor on the ``meta`` device
+    (the reference's ``ShapeDtypeStruct``: no storage)."""
+    dtype = torch_dtype(param_dtype)
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
+                                          device="meta"), specs)
+
+
+def param_axes(specs):
+    """Each leaf's logical axes (a tuple of names or None a dim)."""
+    return tree_map(lambda s: s.axes, specs)
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +276,9 @@ def attention_apply(p, cfg, x, positions, *, layer_window=0, kv_cache=None,
     indexing.  cache_index: an int (or 0-d tensor) write offset — 0 in
     prefill — or a (B,) tensor of per-row offsets during single-token
     decode (continuous batching: each slot advances at its own
-    position).  ``cross_kv``: precomputed (k, v), each (B, F, Hkv, D),
+    position).  A cache placed on a mesh (``sharding.Placed``, from
+    ``Model.init_cache`` with a mesh) is written block by block where
+    its blocks live.  ``cross_kv``: precomputed (k, v), each (B, F, Hkv, D),
     for cross-attention (whisper's decoder): q's projection and bias, no
     RoPE, non-causal attention over the F keys.  ``mesh``: a
     ``distributed.sharding.Mesh`` whose ``"model"`` axis splits the
@@ -327,9 +342,13 @@ def attention_apply(p, cfg, x, positions, *, layer_window=0, kv_cache=None,
     if _is_rows(cache_index):
         # per-row write offsets: scatter each batch row at its own slot
         slot = torch.remainder(cache_index, w_len) if ring else cache_index
-        rows = torch.arange(b, device=ck.device)
-        ck[rows, slot.long()] = k[:, 0].to(ck.dtype)
-        cv[rows, slot.long()] = v[:, 0].to(cv.dtype)
+        if isinstance(ck, Placed):
+            ck.write_rows(slot, k[:, 0])
+            cv.write_rows(slot, v[:, 0])
+        else:
+            rows = torch.arange(b, device=ck.device)
+            ck[rows, slot.long()] = k[:, 0].to(ck.dtype)
+            cv[rows, slot.long()] = v[:, 0].to(cv.dtype)
     else:
         i0 = int(cache_index)
         slot = i0 % w_len if ring else i0

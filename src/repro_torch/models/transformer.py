@@ -27,17 +27,31 @@ scan is B10, each with its backward kernel.
 caller, as the reference's distribution layer sets it) reaches every
 attention layer (decode sequence-sharded over ``"model"``) and every
 MoE layer (experts over ``"model"``, tokens over the data axes); the
-rest runs on the parameters' device.  Training on a mesh is not ported
-(ROADMAP A14): ``forward_train`` raises while a mesh is set.
+rest runs on the parameters' device.  ``init_cache`` places the cache
+by the plan's ``cache_shardings`` on a mesh with a ``"model"`` axis.
+``forward_train`` with a mesh is ``models.sharded``'s: data-parallel,
+tensor-parallel over ``"model"``, FSDP when the plan says, on
+parameters placed by ``ShardingPlan.param_shardings`` (or whole).
+
+Two environment knobs, read at each call as the reference reads them:
+``REPRO_GATHER_BF16=1`` casts every stacked leaf of 3 or more dims to
+the compute dtype before the stack runs (training, prefill and decode),
+and ``REPRO_REMAT_POLICY=dots`` keeps the plain matrix products of each
+recomputed group for the backward (any other value recomputes them).
 """
 from __future__ import annotations
 
+import functools
+import os
+
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import (ArchConfig, ATTN, ATTN_LOCAL, MAMBA,
                                       MLSTM, SLSTM)
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import Placed, make_plan, placed_zeros
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
@@ -64,6 +78,49 @@ def _recompute(fn, *args):
     """``fn(*args)``, recomputed in the backward instead of saved."""
     return checkpoint(fn, *args, use_reentrant=False,
                       preserve_rng_state=False)
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable``: keep plain
+    matrix products, recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def recompute_group(fn, *args):
+    """A pattern group's remat: everything recomputed in the backward,
+    or with ``REPRO_REMAT_POLICY=dots`` all but the plain matrix
+    products (``torch.utils.checkpoint``'s selective contexts)."""
+    if os.environ.get("REPRO_REMAT_POLICY", "nothing") != "dots":
+        return _recompute(fn, *args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=functools.partial(
+                          create_selective_checkpoint_contexts, _save_dots))
+
+
+def gather_dtype(ndim: int, dtype):
+    """``REPRO_GATHER_BF16=1``: the dtype a stacked leaf of ``ndim``
+    dims is read in (``dtype`` for 3 or more dims), else None (as
+    stored)."""
+    if ndim >= 3 and os.environ.get("REPRO_GATHER_BF16") == "1":
+        return dtype
+    return None
+
+
+def gather_cast(stacked, dtype):
+    """Every stacked leaf that :func:`gather_dtype` casts, in ``dtype``
+    (a list of per-group views counts its group dim)."""
+    def cast(w):
+        grouped = isinstance(w, list)
+        to = gather_dtype(w[0].dim() + 1 if grouped else w.dim(), dtype)
+        if to is None:
+            return w
+        return [g.to(to) for g in w] if grouped else w.to(to)
+    return tree_map(cast, stacked)
 
 
 def _block_specs(cfg: ArchConfig, kind: str, layer_pos: int, *,
@@ -113,13 +170,32 @@ def _group(tree, gi):
 
 
 def _write_back(cache, new):
-    """Copy a block's new states into its cache views (in place); the
-    attention cache is already written and comes back as itself."""
+    """Copy a block's new states into its cache views (in place, a
+    placed leaf block by block); the attention cache is already written
+    and comes back as itself."""
     for key, val in new.items():
         if isinstance(val, dict):
             _write_back(cache[key], val)
         elif val is not cache[key]:
             cache[key].copy_(val)
+
+
+def _read_view(cache, device):
+    """A group's cache as a block reads it: a placed attention cache
+    stays placed (written and read block by block); any other placed
+    leaf (recurrent states, whisper's cross keys) gathered on
+    ``device``."""
+    if cache is None:
+        return None
+    out = {}
+    for key, val in cache.items():
+        if key == "kv":
+            out[key] = val
+        elif isinstance(val, dict):
+            out[key] = _read_view(val, device)
+        else:
+            out[key] = val.full(device) if isinstance(val, Placed) else val
+    return out
 
 
 class Model:
@@ -165,6 +241,14 @@ class Model:
                     _block_specs(cfg, ATTN, 0), cfg.encoder_layers)},
             }
         return specs
+
+    def param_structs(self):
+        """Each parameter's shape and dtype (``meta`` tensors)."""
+        return L.param_structs(self.specs(), self.cfg.param_dtype)
+
+    def param_logical_axes(self):
+        """Each parameter's logical axes, for ``ShardingPlan``."""
+        return L.param_axes(self.specs())
 
     def init(self, seed: int = 0, *, device=None, cast_weights=False):
         """Parameters in ``param_dtype`` with the reference's shapes,
@@ -279,6 +363,7 @@ class Model:
                  and torch.is_grad_enabled())
         aux_sum = (torch.zeros((), dtype=torch.float32, device=x.device)
                    if with_aux else None)
+        stacked_params = gather_cast(stacked_params, self.compute_dtype)
 
         def group(gi, x, aux_sum):
             for p_idx, kind in enumerate(self.pattern):
@@ -287,8 +372,9 @@ class Model:
                       else None)
                 x, nc, aux = self._apply_block(
                     kind, _group(stacked_params[key], gi), x, positions,
-                    layer_pos=p_idx, cache=cg, cache_index=cache_index,
-                    enc_out=enc_out, with_aux=with_aux)
+                    layer_pos=p_idx, cache=_read_view(cg, x.device),
+                    cache_index=cache_index, enc_out=enc_out,
+                    with_aux=with_aux)
                 if cg is not None:
                     _write_back(cg, nc)
                 if with_aux:
@@ -297,7 +383,7 @@ class Model:
 
         for gi in range(self.n_groups):
             if remat:
-                x, aux_sum = _recompute(group, gi, x, aux_sum)
+                x, aux_sum = recompute_group(group, gi, x, aux_sum)
             else:
                 x, aux_sum = group(gi, x, aux_sum)
         return x, aux_sum, caches
@@ -392,12 +478,12 @@ class Model:
     def forward_train(self, params, batch):
         """-> (loss, {"ce", "aux"}): the chunked cross-entropy of
         ``batch["labels"]`` (the tokens where there are none) plus the
-        MoE aux loss (zero without experts), float32 scalars.  Raises
-        while ``mesh`` is set: training on a mesh is ROADMAP A14."""
+        MoE aux loss (zero without experts), float32 scalars.  With
+        ``mesh`` set, ``models.sharded.forward_train`` (the attention,
+        MLP and MoE families; the others raise naming ROADMAP A14b)."""
         if self.mesh is not None:
-            raise NotImplementedError(
-                "repro_torch's forward_train does not support a mesh yet "
-                "(ROADMAP A14: training on a mesh)")
+            from repro_torch.models import sharded
+            return sharded.forward_train(self, params, batch)
         cfg = self.cfg
         x = self._embed(params, batch)
         positions = self._positions(batch, x.shape[1], device=x.device)
@@ -446,11 +532,20 @@ class Model:
         return caches
 
     def init_cache(self, batch_size, max_len, *, device=None):
-        """A zero cache on ``device`` (None means CUDA)."""
+        """A zero cache on ``device`` (None means CUDA); with ``mesh``
+        set and a ``"model"`` axis in it, each leaf placed by the plan's
+        ``cache_shardings`` (``distributed.sharding.Placed``), so each
+        decode shard reads the block on its own device."""
         dev = resolve_device(device)
-        return tree_map(
-            lambda sd: torch.zeros(sd[0], dtype=sd[1], device=dev),
-            self.cache_specs(batch_size, max_len))
+        specs = self.cache_specs(batch_size, max_len)
+        if self.mesh is None or "model" not in self.mesh.axis_names:
+            return tree_map(
+                lambda sd: torch.zeros(sd[0], dtype=sd[1], device=dev),
+                specs)
+        from repro_torch.models.sharded import param_count
+        plan = make_plan(self.mesh, param_count(self))
+        return tree_map(lambda sd, sh: placed_zeros(sh, sd[0], sd[1]),
+                        specs, plan.cache_shardings(specs, batch_size))
 
     def prefill(self, params, batch, cache):
         """Full-sequence forward writing ``cache``; returns the last

@@ -40,6 +40,7 @@ import torch
 
 from repro_torch.core.tracing import RegionTracer
 from repro_torch.device import resolve_device, wait
+from repro_torch.distributed.sharding import Placed
 from repro_torch.fleet.pipeline import SlotSegment
 from repro_torch.models import Model
 from repro_torch.serve.metering import (RequestEnergy, RequestEnergyReport,
@@ -87,11 +88,15 @@ def _masked_step(model: Model, params, cache, tok, pos, active, buf, w):
 
 def _scatter_slot(big, small, slot: int):
     """Copy a batch-1 cache (nested dict, batch on axis 1) into slot row
-    ``slot`` of the persistent slot-batched cache, in place."""
+    ``slot`` of the persistent slot-batched cache, in place (a cache
+    placed on a mesh: the batch-1 row gathered, then written into the
+    blocks that hold the slot)."""
     for key, val in small.items():
         if isinstance(val, dict):
             _scatter_slot(big[key], val, slot)
         else:
+            if isinstance(val, Placed):
+                val = val.full()
             big[key][:, slot] = val[:, 0]
 
 

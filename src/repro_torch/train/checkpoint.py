@@ -15,6 +15,12 @@ scalars).  Its leaves are numbered in the reference's flattening order
 subtree), so a checkpoint written by either package restores in the
 other.  ``treedef`` in the manifest is informational: restore reads the
 structure from ``tree_like``.
+
+A leaf placed on a mesh (``distributed.sharding.Placed``) is saved whole,
+so its files are those of the unsharded tree, byte for byte; restore with
+``shardings=`` places each leaf on the current mesh, whatever mesh it was
+saved from (the elastic rescale: save on one mesh shape, resume on
+another).
 """
 from __future__ import annotations
 
@@ -24,6 +30,9 @@ import shutil
 from pathlib import Path
 
 import numpy as np
+import torch
+
+from repro_torch.distributed.sharding import Placed, place
 
 
 def _flatten(tree):
@@ -69,6 +78,8 @@ def _unflatten(tree_like, leaves):
 
 
 def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, Placed):                # gathered whole
+        return leaf.full(torch.device("cpu")).numpy()
     if hasattr(leaf, "detach"):                 # a torch tensor
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
@@ -150,8 +161,18 @@ def checkpoint_meta(ckpt_dir, *, step: int = None):
     return manifest["meta"], step
 
 
+def _like(leaf) -> tuple:
+    """A ``tree_like`` leaf's (shape, numpy dtype), without gathering a
+    placed one."""
+    if isinstance(leaf, Placed):
+        return (tuple(leaf.shape),
+                torch.empty(0, dtype=leaf.dtype).numpy().dtype)
+    a = _host(leaf)
+    return tuple(a.shape), a.dtype
+
+
 def restore_checkpoint(ckpt_dir, tree_like, *, step: int = None,
-                       cast: bool = False):
+                       shardings=None, cast: bool = False):
     """Restore into the structure of ``tree_like`` ->
     ``(tree, step, meta)``.
 
@@ -160,6 +181,12 @@ def restore_checkpoint(ckpt_dir, tree_like, *, step: int = None,
     (a float64 carry restored into float32 would round and break the
     exact left folds downstream) unless ``cast=True`` asks for an
     explicit ``astype``; a checksum mismatch raises ``IOError``.
+
+    ``shardings``: a tree shaped like ``tree_like`` of
+    ``distributed.sharding.Sharding`` (or None a leaf) for the current
+    mesh; each leaf comes back placed by its sharding
+    (``sharding.place``: a 0-d leaf a tensor on the mesh's first
+    device), whatever mesh saved it.
     """
     ckpt_dir = Path(ckpt_dir)
     step = latest_step(ckpt_dir) if step is None else step
@@ -172,6 +199,11 @@ def restore_checkpoint(ckpt_dir, tree_like, *, step: int = None,
     assert manifest["n_leaves"] == len(leaves_like), \
         f"checkpoint has {manifest['n_leaves']} leaves, " \
         f"model expects {len(leaves_like)}"
+    placing = (_flatten(shardings)[0] if shardings is not None
+               else [None] * len(leaves_like))
+    if len(placing) != len(leaves_like):
+        raise ValueError(f"shardings has {len(placing)} leaves, the tree "
+                         f"{len(leaves_like)}")
     out = []
     for i, (like, rec) in enumerate(zip(leaves_like, manifest["leaves"])):
         path = d / rec["name"]
@@ -179,10 +211,9 @@ def restore_checkpoint(ckpt_dir, tree_like, *, step: int = None,
         if digest != rec["sha256"]:
             raise IOError(f"checksum mismatch for {path}")
         arr = np.load(path, allow_pickle=False)
-        like = _host(like)
-        assert list(arr.shape) == list(like.shape), \
-            f"leaf {i}: {arr.shape} vs expected {like.shape}"
-        want = like.dtype
+        shape, want = _like(like)
+        assert list(arr.shape) == list(shape), \
+            f"leaf {i}: {arr.shape} vs expected {shape}"
         if arr.dtype != want:
             if not cast:
                 raise TypeError(
@@ -190,5 +221,6 @@ def restore_checkpoint(ckpt_dir, tree_like, *, step: int = None,
                     f"{arr.dtype} != expected {want} — pass cast=True "
                     f"to convert explicitly")
             arr = arr.astype(want)
-        out.append(arr)
+        out.append(arr if placing[i] is None
+                   else place(torch.from_numpy(arr), placing[i]))
     return _unflatten(tree_like, out), step, manifest["meta"]

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import blockwise
 from repro_torch.models.layers import torch_dtype, tree_leaves, tree_map
 from repro_torch.models.transformer import COMPUTE_CAST
 
@@ -87,7 +88,13 @@ def _trainable(tree, stacked=False):
 def loss_and_grads(model, params, batch):
     """-> (loss, metrics, grads): the gradient of ``forward_train`` for
     every leaf of ``params`` (zeros for a leaf the loss does not reach),
-    shaped like ``params``."""
+    shaped like ``params``.  With ``model.mesh`` set,
+    ``models.sharded.loss_and_grads``: each data block's gradients on
+    its own devices, folded in block order (a placed leaf's gradient is
+    placed on its blocks' owners)."""
+    if model.mesh is not None:
+        from repro_torch.models import sharded
+        return sharded.loss_and_grads(model, params, batch)
     train = _trainable(params)
     loss, metrics = model.forward_train(train, batch)
     groups = tree_leaves(train)
@@ -116,16 +123,18 @@ def make_train_step(model, opt, lr_fn, *, micro=1, grad_hook=None):
             loss, _, grads = loss_and_grads(model, params, batch)
         else:
             mbatch = _split_micro(batch, micro)
-            grads = tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), params)
+            grads = tree_map(lambda p: blockwise(
+                lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                      device=t.device), p), params)
             loss = None
             for i in range(micro):
                 lval, _, g = loss_and_grads(
                     model, params, {k: v[i] for k, v in mbatch.items()})
-                tree_map(lambda a, b: a.add_(b.float()), grads, g)
+                tree_map(lambda a, b: blockwise(
+                    lambda x, y: x.add_(y.float()), a, b), grads, g)
                 loss = lval if loss is None else loss + lval
-            grads = tree_map(lambda g: g.div_(micro), grads)
+            grads = tree_map(lambda g: blockwise(lambda t: t.div_(micro), g),
+                             grads)
             loss = loss / micro
         if grad_hook is not None:
             grads = grad_hook(grads)

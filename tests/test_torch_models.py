@@ -701,9 +701,11 @@ def test_interop_round_trips_every_family(arch):
 
 
 def test_unported_model_options_raise_naming_the_roadmap():
-    """A mesh runs attention and decode (tests/test_torch_mesh.py); a
-    value that is not a ``Mesh`` raises, and training with a mesh set
-    raises naming ROADMAP A14."""
+    """A mesh runs attention and decode (tests/test_torch_mesh.py) and
+    trains the attention, MLP and MoE families
+    (tests/test_torch_mesh_train.py); a value that is not a ``Mesh``
+    raises, and training a family it does not cover (here xLSTM) with a
+    mesh set raises naming ROADMAP A14b."""
     from repro_torch.launch.mesh import make_local_mesh
     _, tm, _, tp = _model_pair("llama3.2-3b")
     q = torch.zeros((1, 4, 4, 16))
@@ -715,6 +717,11 @@ def test_unported_model_options_raise_naming_the_roadmap():
         decode_attention(q[:, :1], q, q, 2, object())
     meshed = Model(tm.cfg)
     meshed.mesh = make_local_mesh((1, 2), devices=[CPU])
-    with pytest.raises(NotImplementedError, match="A14"):
-        meshed.forward_train(tp, {"tokens": torch.zeros((1, 4),
-                                                        dtype=torch.int32)})
+    loss, _ = meshed.forward_train(tp, {"tokens": torch.zeros(
+        (1, 4), dtype=torch.int32)})
+    assert torch.isfinite(loss)
+    xl = Model(reduced(get_arch("xlstm-1.3b")))
+    xl.mesh = meshed.mesh
+    with pytest.raises(NotImplementedError, match="A14b"):
+        xl.forward_train(xl.init(0, device=CPU), {"tokens": torch.zeros(
+            (1, 4), dtype=torch.int32)})
