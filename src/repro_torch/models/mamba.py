@@ -41,17 +41,45 @@ def mamba_specs(cfg):
     }
 
 
+def scan_inputs(proj, dt_proj, dt_bias, a_log, n: int):
+    """x_proj's output (B, L, dt_rank + 2N) and the channels' dt_proj
+    (dt_rank, C), dt_bias (C,), A_log (C, N) -> dt (B,L,C), B/C (B,L,N),
+    A (C,N), float32; the three weights are read in float32."""
+    dt_rank = dt_proj.shape[0]
+    dt_in, b_mat, c_mat = torch.split(proj, [dt_rank, n, n], dim=-1)
+    pre = dt_in.float() @ dt_proj.float() + dt_bias.float()
+    dt = torch.logaddexp(pre, torch.zeros_like(pre))    # softplus
+    a_mat = -torch.exp(a_log.float())                    # (C, N) < 0
+    return dt, b_mat.float(), c_mat.float(), a_mat
+
+
 def _ssm_params(p, x, cfg):
     """x: (B, L, d_in) -> dt (B,L,d_in), B/C (B,L,N), A (d_in,N), the
     last three float32; dt_proj, dt_bias and A_log are read in float32."""
-    dt_rank = p["dt_proj"].shape[0]
-    n = cfg.mamba_d_state
     proj = x @ p["x_proj"].to(x.dtype)
-    dt_in, b_mat, c_mat = torch.split(proj, [dt_rank, n, n], dim=-1)
-    pre = dt_in.float() @ p["dt_proj"].float() + p["dt_bias"].float()
-    dt = torch.logaddexp(pre, torch.zeros_like(pre))    # softplus
-    a_mat = -torch.exp(p["A_log"].float())               # (d_in, N) < 0
-    return dt, b_mat.float(), c_mat.float(), a_mat
+    return scan_inputs(proj, p["dt_proj"], p["dt_bias"], p["A_log"],
+                       cfg.mamba_d_state)
+
+
+def causal_conv(window, conv_w, conv_b, s: int):
+    """The depthwise causal conv of ``window`` (B, S + d_conv - 1, C:
+    the padded channels) by ``conv_w`` (d_conv, C) and ``conv_b`` (C,),
+    in ``window``'s dtype -> (B, S, C)."""
+    dt = window.dtype
+    stacked = torch.stack([window[:, i:i + s] for i in range(len(conv_w))],
+                          dim=0)                       # (dc, B, S, C)
+    conv = torch.einsum("kbsc,kc->bsc", stacked, conv_w.to(dt))
+    return conv + conv_b.to(dt)
+
+
+def ssm_out(y, xs, z, d_skip, out_proj):
+    """The block's tail on its channels: the scan's ``y`` plus the
+    ``D`` skip of ``xs``, gated by silu(``z``), times ``out_proj``'s
+    rows, in ``xs``'s dtype -> (B, S, d)."""
+    dt = xs.dtype
+    y = y + xs * d_skip.to(dt)
+    y = y * F.silu(z)
+    return y @ out_proj.to(dt)
 
 
 def mamba_apply(p, cfg, x, *, ssm_state=None, conv_state=None, chunk=512):
@@ -82,11 +110,7 @@ def mamba_apply(p, cfg, x, *, ssm_state=None, conv_state=None, chunk=512):
         else:
             pad = conv_state.to(dt_model)
         window = torch.cat([pad, xs], dim=1)           # (B, S+dc-1, d_in)
-        stacked = torch.stack([window[:, i:i + s] for i in range(dc)],
-                              dim=0)                   # (dc, B, S, d_in)
-        conv = torch.einsum("kbsc,kc->bsc", stacked,
-                            p["conv_w"].to(dt_model))
-        conv = conv + p["conv_b"].to(dt_model)
+        conv = causal_conv(window, p["conv_w"], p["conv_b"], s)
         new_conv = window[:, -(dc - 1):]
     xs = F.silu(conv)
 
@@ -105,9 +129,7 @@ def mamba_apply(p, cfg, x, *, ssm_state=None, conv_state=None, chunk=512):
     else:
         y, h_last = selective_scan(dt, xs, b_mat, c_mat, a_mat, h0)
 
-    y = y + xs * p["D"].to(dt_model)
-    y = y * F.silu(z)
-    out = y @ p["out_proj"].to(dt_model)
+    out = ssm_out(y, xs, z, p["D"], p["out_proj"])
     states = {"ssm": h_last.float(), "conv": new_conv}
     return out, states
 

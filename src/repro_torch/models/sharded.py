@@ -14,65 +14,61 @@ are not kept for the backward:
   * attention by whole heads: shard m computes q heads ``m*Hq/M ..`` and
     the kv heads they read by the GQA map ``h // (Hq/Hkv)`` (the plan
     splits features, not heads, so a shard may gather kv columns another
-    shard stores), on B9 per shard, then its rows of ``wo``;
-  * the MLP's hidden dim: ``w_gate``/``w_up`` columns, ``w_down`` rows;
+    shard stores), on B9 per shard, then its rows of ``wo``; causal, or
+    not (whisper's encoder), or whisper's cross-attention on the
+    encoder's output; M-RoPE positions (qwen2-vl) reach each shard;
+  * the MLP's hidden dim: ``w_gate``/``w_up`` columns, ``w_down`` rows
+    (the sLSTM's ``up_gate``/``up``/``down`` the same);
+  * Mamba's ``d_in`` channels, B10 per shard on its channels (``x_proj``'s
+    row products folded and sent back, so B and C are one tensor);
+  * mLSTM by whole heads (its gates' row products folded); the sLSTM's
+    recurrence on the first shard (the plan replicates its weights);
   * MoE: each shard's experts and slice of the shared experts
     (``moe._moe_local``, split as the expert-parallel ``moe_apply``
     splits them), the capacity that of the block's tokens, the router
     rounded to the activations' dtype; the aux loss is the model-0
     shard's;
-  * the vocabulary: the embedding a masked lookup of each shard's rows,
-    each cross-entropy chunk each shard's logits, their logsumexp and
-    gold logit combined.
+  * the vocabulary: the embedding a masked lookup of each shard's rows
+    (qwen2-vl's first positions then take the vision rows), each
+    cross-entropy chunk each shard's logits, their logsumexp and gold
+    logit combined.
 
-Partial sums fold in shard order on the first device
-(``sharding.fold_list``).  A split the shards do not divide (heads, d_ff,
-vocabulary) runs whole on the first shard.  ``loss_and_grads``
-takes each block's gradients from detached per-block pieces and folds
-the blocks in block order on each piece's owner; the loss is the blocks'
-cross-entropy folded plus the first block's aux (the reference's
-replicated value), and the aux's gradient the blocks' mean (its
-``shard_map`` transpose).  Mamba, mLSTM and sLSTM blocks, whisper's
-encoder-decoder and qwen2-vl are not covered: ``refuse`` names ROADMAP
-A14b.
+In a projection whose columns are ``[a | b]`` side by side (Mamba's
+``in_proj``, the mLSTM's ``up``) the plan's column blocks are storage,
+not compute: shard m takes its ``a`` columns ``c`` and its ``b`` columns
+``d_in + c`` from whichever blocks hold them.  Partial sums fold in
+shard order on the first device (``sharding.fold_list``); a tensor
+several shards read goes to them through one ``sharding.broadcast``
+(whisper's encoder output once a data block, for every decoder layer),
+whose backward folds in shard order.  A split the shards do not divide
+(heads, d_ff, channels, vocabulary) runs whole on the first shard.
+``loss_and_grads`` takes each block's gradients from detached per-block
+pieces and folds the blocks in block order on each piece's owner; the
+loss is the blocks' cross-entropy folded plus the first block's aux
+(the reference's replicated value), and the aux's gradient the blocks'
+mean (its ``shard_map`` transpose).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ATTN, ATTN_LOCAL, MAMBA, MLSTM, SLSTM
 from repro_torch.distributed.sharding import (Placed, block_view, broadcast,
                                               fold_list, shard_coords, take)
+from repro_torch.kernels.ssm_scan import selective_scan
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
+from repro_torch.models import xlstm as X
 from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.models.transformer import (CE_CHUNK, _is_moe_layer,
                                             _recompute, gather_dtype,
                                             recompute_group)
 
 DP_AXES = ("pod", "data")
-
-
-def refuse(model) -> None:
-    """Raise for the families training on a mesh does not cover
-    (ROADMAP A14b)."""
-    cfg = model.cfg
-    what = None
-    if any(k in (MAMBA, MLSTM, SLSTM) for k in model.pattern):
-        what = "Mamba / mLSTM / sLSTM blocks"
-    elif cfg.encoder_layers:
-        what = "whisper's encoder-decoder"
-    elif cfg.family == "vlm":
-        what = "qwen2-vl's vision rows"
-    if what is not None:
-        raise NotImplementedError(
-            f"training on a mesh does not cover {what} ({cfg.name}) yet "
-            f"(ROADMAP A14b)")
-    if cfg.moe is not None and "model" not in model.mesh.axis_names:
-        raise ValueError("MoE training on a mesh needs a 'model' axis for "
-                         "its experts")
 
 
 class Shards:
@@ -117,15 +113,17 @@ def block_batch(batch, rows: slice, device) -> dict:
 
 def block_views(model, params, block: dict, *, trainable=False) -> dict:
     """``params`` (Placed leaves or tensors) as data block ``block``
-    reads them (``sharding.block_view``); a stacked leaf that
+    reads them (``sharding.block_view``; the decoder's and the encoder's
+    layers stacked by group); a decoder leaf that
     ``transformer.gather_dtype`` casts (``REPRO_GATHER_BF16=1``) is read
-    in the compute dtype, each piece cast as it is sent."""
+    in the compute dtype, each piece cast as it is sent (the encoder's
+    are read as stored, as ``Model._encode`` reads them)."""
     def view(path, leaf):
-        stacked = path[0] == "layers"
+        stacked = path[0] == "layers" or path[:2] == ("encoder", "layers")
         v = block_view(leaf, model.mesh, block, trainable=trainable,
                        stacked=stacked)
         to = gather_dtype(len(v.shape), model.compute_dtype) \
-            if stacked else None
+            if path[0] == "layers" else None
         return v if to is None else v.cast(to)
     return tree_map(view, params, path=())
 
@@ -150,10 +148,14 @@ def head_split(nq: int, nkv: int, n: int) -> int:
     return 1
 
 
-def attention(cfg, pv, h, positions, window, shards):
-    """Causal self-attention of ``h`` (B, S, d) on the first shard ->
-    the folded output there: each shard's ``layers.attention_apply`` on
-    its heads' slices of the projections."""
+def attention(cfg, pv, h, positions, window, shards, *, causal=True,
+              enc=None):
+    """Self-attention of ``h`` (B, S, d) on the first shard (causal, or
+    not: whisper's encoder), or with ``enc`` (each shard's copy of the
+    encoder's output, :func:`broadcast` once a data block) whisper's
+    cross-attention, its keys and values from ``enc`` -> the folded
+    output there: each shard's ``layers.attention_apply`` on its heads'
+    slices of the projections."""
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
     n = head_split(nq, nkv, shards.n)
@@ -177,28 +179,156 @@ def attention(cfg, pv, h, positions, window, shards):
     hs = broadcast(h, devs)
     parts = []
     for m, dev in enumerate(devs):
+        nkv_m = kv[m][1] - kv[m][0]
         sub = dataclasses.replace(cfg, num_heads=hq, head_dim=hd,
-                                  num_kv_heads=kv[m][1] - kv[m][0])
-        out, _ = L.attention_apply({k: v[m] for k, v in got.items()}, sub,
-                                   hs[m], positions.to(dev),
-                                   layer_window=window)
+                                  num_kv_heads=nkv_m)
+        p = {k: v[m] for k, v in got.items()}
+        cross = None
+        if enc is not None:
+            e, dt = enc[m], hs[m].dtype
+            b, f, _ = e.shape
+            cross = tuple((e @ p[w].to(dt)).reshape(b, f, nkv_m, hd)
+                          for w in ("wk", "wv"))
+        out, _ = L.attention_apply(p, sub, hs[m], positions.to(dev),
+                                   layer_window=window, causal=causal,
+                                   cross_kv=cross)
         parts.append(out)
     return fold_list(parts, shards.first)
 
 
-def mlp(pv, h, shards):
+def mlp(pv, h, shards, names=("w_gate", "w_up", "w_down")):
     """SwiGLU over the hidden dim's shards (each shard's
-    ``layers.mlp_apply``) -> the folded output."""
-    f = pv["w_gate"].shape[1]
+    ``layers.mlp_apply``) -> the folded output; ``names`` are the
+    leaves' (the sLSTM's FFN: ``up_gate``, ``up``, ``down``)."""
+    f = pv[names[0]].shape[1]
     n = shards.split(f)
     fw = f // n
     cs, r = shards.coords[:n], [(m * fw, (m + 1) * fw) for m in range(n)]
-    w = {k: take(pv[k], [(c, (None, x) if k != "w_down" else (x, None))
-                         for c, x in zip(cs, r)])
-         for k in ("w_gate", "w_up", "w_down")}
+    w = [take(pv[k], [(c, (None, x) if k != names[2] else (x, None))
+                      for c, x in zip(cs, r)]) for k in names]
     hs = broadcast(h, shards.devices[:n])
-    return fold_list([L.mlp_apply({k: v[m] for k, v in w.items()}, hs[m])
+    return fold_list([L.mlp_apply({"w_gate": w[0][m], "w_up": w[1][m],
+                                   "w_down": w[2][m]}, hs[m])
                       for m in range(n)], shards.first)
+
+
+def cut(view, cs, ranges, dim):
+    """Each consumer's ``ranges[i]`` of ``view`` along ``dim`` (the
+    other dims whole) at mesh coordinate ``cs[i]``, in one :func:`take`
+    (a shard may appear twice: ``[xs | z]``'s two column ranges)."""
+    nd = len(view.shape)
+    return take(view, [(c, tuple(r if d == dim else None
+                                 for d in range(nd)))
+                       for c, r in zip(cs, ranges)])
+
+
+def mamba(cfg, pv, h, shards):
+    """The Mamba block over the ``d_in`` channels' shards: shard m owns
+    channels ``[m d_in/M, (m+1) d_in/M)``, its ``xs`` and ``z`` columns
+    of ``in_proj`` (``c`` and ``d_in + c``, from whichever blocks hold
+    them), its conv, ``dt_proj`` columns and rows of ``dt_bias``,
+    ``A_log``, ``D``, ``x_proj`` and ``out_proj``.  ``x_proj``'s row
+    products fold in shard order on the first shard and go back through
+    one :func:`broadcast` (dt's low-rank input, B and C the same tensor
+    on every shard); B10 runs once a shard on its channels; ``out_proj``'s
+    row products fold -> the output on the first shard."""
+    d_in = cfg.mamba_expand * cfg.d_model
+    n_st = cfg.mamba_d_state
+    n = shards.split(d_in)
+    w = d_in // n
+    cr = [(m * w, (m + 1) * w) for m in range(n)]
+    cs, devs = shards.coords[:n], shards.devices[:n]
+    win = cut(pv["in_proj"], cs * 2,
+              cr + [(d_in + a, d_in + e) for a, e in cr], 1)
+    cw, dtp = (cut(pv[k], cs, cr, 1) for k in ("conv_w", "dt_proj"))
+    cb, dtb, dd, xp, alog, wo = (
+        cut(pv[k], cs, cr, 0)
+        for k in ("conv_b", "dt_bias", "D", "x_proj", "A_log", "out_proj"))
+    hs = broadcast(h, devs)
+    dt = h.dtype
+    b, s, _ = h.shape
+    xs, z, parts = [], [], []
+    for m in range(n):
+        x_m = hs[m] @ win[m].to(dt)
+        z.append(hs[m] @ win[n + m].to(dt))
+        pad = torch.zeros((b, cfg.mamba_d_conv - 1, w), dtype=dt,
+                          device=x_m.device)
+        x_m = F.silu(M.causal_conv(torch.cat([pad, x_m], dim=1), cw[m],
+                                   cb[m], s))
+        xs.append(x_m)
+        parts.append(x_m @ xp[m].to(dt))
+    projs = broadcast(fold_list(parts, shards.first), devs)
+    outs = []
+    for m in range(n):
+        dt_m, b_mat, c_mat, a_m = M.scan_inputs(projs[m], dtp[m], dtb[m],
+                                                alog[m], n_st)
+        h0 = torch.zeros((b, w, n_st), dtype=torch.float32,
+                         device=xs[m].device)
+        y, _ = selective_scan(dt_m, xs[m], b_mat, c_mat, a_m, h0)
+        outs.append(M.ssm_out(y, xs[m], z[m], dd[m], wo[m]))
+    return fold_list(outs, shards.first)
+
+
+def mlstm(cfg, pv, h, shards):
+    """The mLSTM block by whole heads: shard m owns heads ``m H/M ..``
+    (channels ``h dh .. (h+1) dh`` of ``xi``), its ``xi`` and ``z``
+    columns of ``up``, its heads' ``wq``/``wk``/``wv`` and its rows of
+    ``down``.  The gates contract over every channel: each shard's
+    row products of ``w_igate``/``w_fgate`` fold in shard order on the
+    first shard, the biases are added there and the sums go back
+    through one :func:`broadcast`; each shard runs the parallel form on
+    its heads; ``down``'s row products fold -> the output on the first
+    shard.  Shards that do not divide H: the block whole on the first."""
+    d = cfg.d_model
+    nh = cfg.num_heads
+    d_in = int(cfg.xlstm_proj_factor * d)
+    dh = d_in // nh
+    n = shards.split(nh)
+    hl, w = nh // n, d_in // n
+    cr = [(m * w, (m + 1) * w) for m in range(n)]
+    hr = [(m * hl, (m + 1) * hl) for m in range(n)]
+    cs, devs = shards.coords[:n], shards.devices[:n]
+    f32 = torch.float32
+    up = cut(pv["up"], cs * 2, cr + [(d_in + a, d_in + e) for a, e in cr],
+             1)
+    wq, wk, wv = (cut(pv[k], cs, hr, 0) for k in ("wq", "wk", "wv"))
+    wi, wf, down = (cut(pv[k], cs, cr, 0)
+                    for k in ("w_igate", "w_fgate", "down"))
+    hs = broadcast(h, devs)
+    dt = h.dtype
+    b, s, _ = h.shape
+    xi, z, parts = [], [], []
+    for m in range(n):
+        x_m = hs[m] @ up[m].to(dt)
+        z.append(hs[m] @ up[n + m].to(dt))
+        xi.append(x_m)
+        xf = x_m.to(f32)
+        parts.append(torch.cat([xf @ wi[m].to(f32), xf @ wf[m].to(f32)],
+                               dim=-1))
+    bias = torch.cat([_one(pv["b_igate"], shards),
+                      _one(pv["b_fgate"], shards)]).to(f32)
+    gates = broadcast(fold_list(parts, shards.first) + bias, devs)
+    scale = X._inv_sqrt(dh, h.device)
+    outs = []
+    for m in range(n):
+        xh = xi[m].reshape(b, s, hl, dh)
+        q, k, v = (torch.einsum("bshd,hde->bhse", xh, t[m].to(dt)).to(f32)
+                   for t in (wq, wk, wv))
+        g = gates[m].transpose(1, 2)                    # (B, 2H, S)
+        ig, fg = g[:, hr[m][0]:hr[m][1]], g[:, nh + hr[m][0]:nh + hr[m][1]]
+        y, _ = X.mlstm_parallel(q, k, v, ig, fg, scale.to(xh.device))
+        outs.append(X.mlstm_out(y, z[m], down[m]))
+    return fold_list(outs, shards.first)
+
+
+def slstm(cfg, pv, h, shards):
+    """The sLSTM block: its recurrence (``w_in``, ``b_in`` and ``r_*``,
+    replicated by the plan) on the first shard, a token at a time; its
+    gated FFN over the shards as :func:`mlp`."""
+    p = {k: _one(pv[k], shards) for k in ("w_in", "b_in", "r_z", "r_i",
+                                          "r_f", "r_o")}
+    y, _ = X.slstm_core(p, cfg, h)
+    return mlp(pv, y, shards, names=("up_gate", "up", "down"))
 
 
 def moe(cfg, pv, h, shards):
@@ -320,14 +450,30 @@ def _chunk_here(*args):
     return _RecomputeHere.apply(chunk_ce(*args))[0]
 
 
-def _block(model, kind, pv, x, positions, layer_pos, shards):
-    """One attention block (and its MLP or MoE FFN) of a data block."""
-    if kind not in (ATTN, ATTN_LOCAL):
-        raise ValueError(kind)
+def _block(model, kind, pv, x, positions, layer_pos, shards, *,
+           causal=True, enc=None):
+    """One block of a data block: its core (attention, Mamba, mLSTM or
+    sLSTM), whisper's cross-attention on ``enc`` where the block has
+    one, then its MLP or MoE FFN -> (x, aux)."""
     cfg = model.cfg
     h = L.rms_norm(x, _one(pv["norm1"], shards), cfg.rms_eps)
-    window = cfg.sliding_window if kind == ATTN_LOCAL else 0
-    x = x + attention(cfg, pv["core"], h, positions, window, shards)
+    if kind in (ATTN, ATTN_LOCAL):
+        window = cfg.sliding_window if kind == ATTN_LOCAL else 0
+        out = attention(cfg, pv["core"], h, positions, window, shards,
+                        causal=causal)
+    elif kind == MAMBA:
+        out = mamba(cfg, pv["core"], h, shards)
+    elif kind == MLSTM:
+        out = mlstm(cfg, pv["core"], h, shards)
+    elif kind == SLSTM:
+        out = slstm(cfg, pv["core"], h, shards)
+    else:
+        raise ValueError(kind)
+    x = x + out
+    if enc is not None and "cross" in pv:
+        hc = L.rms_norm(x, _one(pv["cross_norm"], shards), cfg.rms_eps)
+        x = x + attention(cfg, pv["cross"], hc, positions, 0, shards,
+                          enc=enc)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ffn" in pv:
         hf = L.rms_norm(x, _one(pv["norm2"], shards), cfg.rms_eps)
@@ -337,6 +483,25 @@ def _block(model, kind, pv, x, positions, layer_pos, shards):
             out = mlp(pv["ffn"], hf, shards)
         x = x + out
     return x, aux
+
+
+def encode(model, views, batch, shards) -> torch.Tensor:
+    """Whisper's encoder on a data block (``Model._encode``): the audio
+    frames plus ``pos_embed`` (gathered whole on the first shard), each
+    encoder layer's non-causal attention and MLP over the shards, the
+    final norm -> (B, F, d) on the first shard."""
+    cfg = model.cfg
+    enc = views["encoder"]
+    cd = model.compute_dtype
+    x = batch["audio_frames"].to(cd) + _one(enc["pos_embed"],
+                                            shards).to(cd)[None]
+    b, f, _ = x.shape
+    pos = torch.arange(f, dtype=torch.int32,
+                       device=x.device)[None].expand(b, f)
+    for gi in range(cfg.encoder_layers):
+        pv = tree_map(lambda v: v.group(gi), enc["layers"]["pos0"])
+        x, _ = _block(model, ATTN, pv, x, pos, 0, shards, causal=False)
+    return L.rms_norm(x, _one(enc["final_norm"], shards), cfg.rms_eps)
 
 
 def block_loss(model, views, batch, block: dict, n_tokens: int):
@@ -371,14 +536,23 @@ def block_loss(model, views, batch, block: dict, n_tokens: int):
                                       zip(cs, vr)] * n_chunks)
         heads = [got[nv * i:nv * (i + 1)] for i in range(n_chunks)]
     x = lookup(tables, tokens, shards).to(model.compute_dtype)
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        # the first n_vis positions take the vision rows (Model._embed)
+        ve = batch["vision_embeds"].to(model.compute_dtype)
+        x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
     positions = model._positions(batch, s, device=first)
+    # the encoder's output, sent to the shards once for every decoder
+    # layer's cross-attention: its gradients fold in shard order
+    enc = (broadcast(encode(model, views, batch, shards), shards.devices)
+           if cfg.encoder_layers else None)
     remat = cfg.remat and torch.is_grad_enabled()
 
     def group(gi, x, aux_sum):
         for p_idx, kind in enumerate(model.pattern):
             pv = tree_map(lambda v: v.group(gi),
                           views["layers"][f"pos{p_idx}"])
-            x, aux = _block(model, kind, pv, x, positions, p_idx, shards)
+            x, aux = _block(model, kind, pv, x, positions, p_idx, shards,
+                            enc=enc)
             aux_sum = aux_sum + aux
         return _RecomputeHere.apply(x, aux_sum)
 
@@ -398,7 +572,9 @@ def block_loss(model, views, batch, block: dict, n_tokens: int):
 
 def _blocks_run(model, params, batch, trainable):
     """Each data block's (views, ce part, aux) in block order."""
-    refuse(model)
+    if model.cfg.moe is not None and "model" not in model.mesh.axis_names:
+        raise ValueError("MoE training on a mesh needs a 'model' axis for "
+                         "its experts")
     n_tokens = batch["tokens"].shape[0] * batch["tokens"].shape[1]
     for blk, rows in data_blocks(model, batch):
         views = block_views(model, params, blk, trainable=trainable)

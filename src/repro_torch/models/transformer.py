@@ -479,8 +479,9 @@ class Model:
         """-> (loss, {"ce", "aux"}): the chunked cross-entropy of
         ``batch["labels"]`` (the tokens where there are none) plus the
         MoE aux loss (zero without experts), float32 scalars.  With
-        ``mesh`` set, ``models.sharded.forward_train`` (the attention,
-        MLP and MoE families; the others raise naming ROADMAP A14b)."""
+        ``mesh`` set, ``models.sharded.forward_train`` (every family:
+        attention, MLP, MoE, Mamba, mLSTM, sLSTM, whisper's
+        encoder-decoder, qwen2-vl's vision rows)."""
         if self.mesh is not None:
             from repro_torch.models import sharded
             return sharded.forward_train(self, params, batch)

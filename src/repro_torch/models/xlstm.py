@@ -97,32 +97,7 @@ def mlstm_apply(p, cfg, x, *, state=None, q_chunk=1024):
         new_state = {"C": c1, "n": n1, "m": m1}
     else:
         # --- parallel (chunked-query quadratic) form ------------------------
-        logf = F.logsigmoid(fg)                         # (B, H, S)
-        fcum = torch.cumsum(logf, dim=-1)               # F_t
-        kpos = torch.arange(s, device=x.device)
-
-        def q_block(t0, qc):
-            qt = q[:, :, t0:t0 + qc]
-            ft_q = fcum[..., t0:t0 + qc]
-            # D_ts = F_t - F_s + i_s for s <= t
-            dmat = ft_q[..., :, None] - fcum[..., None, :] + ig[..., None, :]
-            tpos = t0 + torch.arange(qc, device=x.device)
-            mask = tpos[:, None] >= kpos[None, :]
-            dmat = torch.where(mask[None, None], dmat, -torch.inf)
-            mrow = dmat.amax(dim=-1)                    # (B, H, Qc)
-            w = torch.exp(dmat - mrow[..., None])
-            sc = torch.einsum("bhqd,bhkd->bhqk", qt * scale, k) * w
-            num = torch.einsum("bhqk,bhkv->bhqv", sc, v)
-            den = torch.maximum(torch.abs(sc.sum(dim=-1)), torch.exp(-mrow))
-            return num / den[..., None]
-
-        q_chunk = min(q_chunk, s)
-        if s % q_chunk:
-            raise ValueError(f"mlstm_apply: a {s}-token sequence is not a "
-                             f"multiple of the {q_chunk}-token query chunk "
-                             f"(the reference asserts the same)")
-        y = torch.cat([q_block(t0, q_chunk) for t0 in range(0, s, q_chunk)],
-                      dim=2)
+        y, fcum = mlstm_parallel(q, k, v, ig, fg, scale, q_chunk)
         # final state for the prefill -> decode handoff
         last_f = fcum[..., -1]
         dlast = last_f[..., None] - fcum + ig            # (B, H, S)
@@ -132,9 +107,53 @@ def mlstm_apply(p, cfg, x, *, state=None, q_chunk=1024):
         n_last = torch.einsum("bhs,bhsk->bhk", wlast, k)
         new_state = {"C": c_last, "n": n_last, "m": m_last}
 
-    y = y.transpose(1, 2).reshape(b, s, d_in).to(dt)
+    return mlstm_out(y, z, p["down"]), new_state
+
+
+def mlstm_out(y, z, down):
+    """The block's tail on its heads: ``y`` (B, H, S, dh) float32 laid
+    out as ``z``'s (B, S, H dh) channels in ``z``'s dtype, gated by
+    silu(``z``), times ``down``'s rows -> (B, S, d)."""
+    dt = z.dtype
+    y = y.transpose(1, 2).reshape(z.shape).to(dt)
     y = y * F.silu(z)
-    return y @ p["down"].to(dt), new_state
+    return y @ down.to(dt)
+
+
+def mlstm_parallel(q, k, v, ig, fg, scale, q_chunk: int = 1024):
+    """The parallel (chunked-query quadratic) form over the heads of
+    ``q``/``k``/``v`` (B, H, S, dh) float32, with the gates'
+    pre-activations ``ig``/``fg`` (B, H, S), from a zero state -> (y
+    (B, H, S, dh), the forget gates' cumulative log F (B, H, S)).  A
+    sequence longer than ``q_chunk`` must be a multiple of it."""
+    s = q.shape[2]
+    logf = F.logsigmoid(fg)                             # (B, H, S)
+    fcum = torch.cumsum(logf, dim=-1)                   # F_t
+    kpos = torch.arange(s, device=q.device)
+
+    def q_block(t0, qc):
+        qt = q[:, :, t0:t0 + qc]
+        ft_q = fcum[..., t0:t0 + qc]
+        # D_ts = F_t - F_s + i_s for s <= t
+        dmat = ft_q[..., :, None] - fcum[..., None, :] + ig[..., None, :]
+        tpos = t0 + torch.arange(qc, device=q.device)
+        mask = tpos[:, None] >= kpos[None, :]
+        dmat = torch.where(mask[None, None], dmat, -torch.inf)
+        mrow = dmat.amax(dim=-1)                        # (B, H, Qc)
+        w = torch.exp(dmat - mrow[..., None])
+        sc = torch.einsum("bhqd,bhkd->bhqk", qt * scale, k) * w
+        num = torch.einsum("bhqk,bhkv->bhqv", sc, v)
+        den = torch.maximum(torch.abs(sc.sum(dim=-1)), torch.exp(-mrow))
+        return num / den[..., None]
+
+    q_chunk = min(q_chunk, s)
+    if s % q_chunk:
+        raise ValueError(f"mlstm_apply: a {s}-token sequence is not a "
+                         f"multiple of the {q_chunk}-token query chunk "
+                         f"(the reference asserts the same)")
+    y = torch.cat([q_block(t0, q_chunk) for t0 in range(0, s, q_chunk)],
+                  dim=2)
+    return y, fcum
 
 
 def mlstm_state_specs(cfg, batch):
@@ -172,9 +191,10 @@ def slstm_specs(cfg):
     }
 
 
-def slstm_apply(p, cfg, x, *, state=None):
-    """x: (B, S, d) -> (y, new_state); state: h, c, n, m each (B, d)
-    float32, or None (``slstm_init_state``: n starts at 1e-6)."""
+def slstm_core(p, cfg, x, *, state=None):
+    """The sLSTM's recurrence (``w_in``, ``b_in``, ``r_*``), a token at
+    a time: x (B, S, d) -> (its hidden states (B, S, d) in x's dtype,
+    the new state)."""
     b, s, d = x.shape
     dt = x.dtype
     h = cfg.num_heads
@@ -210,10 +230,17 @@ def slstm_apply(p, cfg, x, *, state=None):
         mp = mt
         hs.append(hp)
     y = torch.stack(hs, dim=1).to(dt)                   # (B, S, d)
+    return y, {"h": hp, "c": cp, "n": np_, "m": mp}
 
+
+def slstm_apply(p, cfg, x, *, state=None):
+    """x: (B, S, d) -> (y, new_state); state: h, c, n, m each (B, d)
+    float32, or None (``slstm_init_state``: n starts at 1e-6)."""
+    dt = x.dtype
+    y, new_state = slstm_core(p, cfg, x, state=state)
     g = F.silu(y @ p["up_gate"].to(dt)) * (y @ p["up"].to(dt))
     out = g @ p["down"].to(dt)
-    return out, {"h": hp, "c": cp, "n": np_, "m": mp}
+    return out, new_state
 
 
 def slstm_init_state(cfg, batch, device=None):

@@ -1947,3 +1947,96 @@ def test_cuda_wide_config_first_layers_prefill_matches_cpu(label):
                             model.init_cache(1, 32, device="cpu"))
     assert torch.isfinite(lg).all()
     assert _rel(lg, want) <= 1e-4
+
+
+def _mesh_family_config(arch):
+    """A family's float32 configuration for the card's sharded step:
+    ``reduced()`` with heads of 64 (B9's), qwen2-vl's M-RoPE sections
+    scaled to them, the hybrid's MoE without drops and aux weights 0."""
+    import dataclasses
+    from repro_torch.configs import get_arch, reduced
+    cfg = dataclasses.replace(reduced(get_arch(arch)), head_dim=64,
+                              compute_dtype="float32")
+    if cfg.mrope_sections is not None:
+        cfg = dataclasses.replace(cfg, mrope_sections=(8, 12, 12))
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0, router_aux_weight=0.0,
+            router_z_weight=0.0))
+    return cfg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-1.3b",
+                                  "whisper-base", "qwen2-vl-2b"])
+def test_cuda_mesh_training_families_match_cpu(arch):
+    """``loss_and_grads`` on a (data 2, model 2) mesh of the card against
+    the same sharded step on a (2, 2) mesh of the CPU, float32 weights
+    and batch alike: the Mamba hybrid (B10 forward and backward once a
+    Mamba layer, data block and shard, on the shard's channels), xLSTM
+    (no kernel), whisper (B9 non-causal in the encoder and its
+    cross-attention, a shard's heads) and qwen2-vl (M-RoPE heads, vision
+    rows).  Loss within 1e-5, each gradient leaf within 1e-4 of its
+    largest magnitude; B9 once forward and once backward per attention
+    call, data block and shard."""
+    from repro_torch.configs.base import ATTN, MAMBA
+    from repro_torch.distributed.sharding import Placed, ShardingPlan
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_kernel)
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.distributed.sharding import place_tree
+    from repro_torch.train.loop import loss_and_grads
+    _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _mesh_family_config(arch)
+    host = Model(cfg).init(0, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64))
+                                 .astype(np.int32))
+             for k in ("tokens", "labels")}
+    if cfg.encoder_layers:
+        batch["audio_frames"] = torch.from_numpy(rng.normal(
+            0.0, 1.0, (2, cfg.num_audio_frames, cfg.d_model))
+            .astype(np.float32))
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.from_numpy(rng.normal(
+            0.0, 1.0, (2, 16, cfg.d_model)).astype(np.float32))
+        batch["positions"] = torch.from_numpy(
+            rng.integers(0, 64, (3, 2, 64)).astype(np.int32))
+    out = {}
+    for where in ("cuda:0", "cpu"):
+        model = Model(cfg)
+        model.mesh = make_local_mesh((2, 2), devices=[where])
+        plan = ShardingPlan(model.mesh, True, ("data",))
+        params = place_tree(host, plan.param_shardings(
+            model.param_logical_axes(), model.param_structs()))
+        n0 = [k.launches for k in (flash_attention_kernel,
+                                   flash_attention_bwd_kernel,
+                                   selective_scan_kernel,
+                                   selective_scan_bwd_kernel)]
+        loss, _, grads = loss_and_grads(
+            model, params, {k: v.to(where) for k, v in batch.items()})
+        n1 = [k.launches for k in (flash_attention_kernel,
+                                   flash_attention_bwd_kernel,
+                                   selective_scan_kernel,
+                                   selective_scan_bwd_kernel)]
+        out[where] = (loss.cpu(), tree_map(
+            lambda g: (g.full() if isinstance(g, Placed) else g).cpu(),
+            grads), [b - a for a, b in zip(n0, n1)])
+    shards = 2 * 2
+    calls = (cfg.encoder_layers + 2 * cfg.num_layers if cfg.encoder_layers
+             else cfg.blocks.count(ATTN))
+    n_mamba = cfg.blocks.count(MAMBA)
+    assert out["cuda:0"][2] == [shards * calls] * 2 + [shards * n_mamba] * 2
+    assert out["cpu"][2] == [0, 0, 0, 0]
+    loss_c, grads_c, _ = out["cuda:0"]
+    loss_h, grads_h, _ = out["cpu"]
+    assert abs(loss_c.item() / loss_h.item() - 1.0) <= 1e-5
+    for path, g, w in tree_leaves(tree_map(
+            lambda p, g, w: ("/".join(p), g, w), grads_c, grads_h,
+            path=())):
+        assert torch.isfinite(g).all(), path
+        err = (g - w).abs().max() / w.abs().max().clamp_min(1e-30)
+        assert err <= 1e-4, (path, err.item())

@@ -743,24 +743,6 @@ def _unflat(flat):
     return tree
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-1.3b",
-                                  "whisper-base", "qwen2-vl-2b"])
-def test_uncovered_families_on_a_training_mesh_raise_naming_a14b(arch):
-    """Training on a mesh covers the attention, MLP and MoE families: the
-    Mamba hybrid, xLSTM, whisper and qwen2-vl raise naming ROADMAP A14b,
-    from ``forward_train`` and from ``loss_and_grads``."""
-    from repro_torch.train.loop import loss_and_grads
-    cfg = reduced(get_arch(arch))
-    tm = Model(cfg)
-    tm.mesh = _cpu_mesh((1, 2))
-    params = tm.init(0, device=CPU)
-    batch = {"tokens": torch.zeros((2, 16), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="A14b"):
-        tm.forward_train(params, batch)
-    with pytest.raises(NotImplementedError, match="A14b"):
-        loss_and_grads(tm, params, batch)
-
-
 def _requests(vocab):
     r = np.random.default_rng(5)
     return [Request(rid=i, prompt=r.integers(1, vocab, n).astype(np.int32),

@@ -1,9 +1,9 @@
 """PyTorch port, training on a mesh: the sharded step (data parallel,
 tensor parallel over ``"model"``, FSDP), its optimizers, elastic restore
 across mesh shapes, the ``REPRO_GATHER_BF16`` and ``REPRO_REMAT_POLICY``
-knobs, and decode caches placed by ``cache_shardings`` (the families
-training on a mesh does not cover, ROADMAP A14b, are refused in
-``tests/test_torch_mesh.py``).
+knobs, and decode caches placed by ``cache_shardings`` (the Mamba
+hybrid, xLSTM, whisper and qwen2-vl on a mesh:
+``tests/test_torch_mesh_train_families.py``).
 
 CPU meshes repeat the CPU (``make_local_mesh(..., devices=["cpu"])``),
 one device standing for every shard as one card does on the chip; a mesh
@@ -757,9 +757,15 @@ def test_placed_decode_cache_equals_the_whole_cache(shape, monkeypatch):
 def test_interop_places_reference_state_by_the_plan():
     """The reference's parameters and AdamW / Adafactor states as numpy,
     placed on a port mesh: each leaf equal to the unsharded install and
-    placed as the plan and ``optimizer.init`` place it."""
+    placed as the plan and ``optimizer.init`` place it; the hybrid's
+    (Adafactor) leaves, its ``mamba_inner`` ones among them, each with
+    the spec the reference's ``param_shardings`` gives it on the same
+    mesh shape (a ``jax.sharding.AbstractMesh``)."""
+    from jax.sharding import AbstractMesh
+    from repro.distributed.sharding import ShardingPlan as JaxPlan
     for arch, kind in (("llama3.2-3b", "adamw"), ("gemma2-27b",
-                                                  "adafactor")):
+                                                  "adafactor"),
+                       ("jamba-1.5-large-398b", "adafactor")):
         cfg = _cfg(get_arch, reduced, arch)
         mesh = _mesh((2, 4))
         plan = ShardingPlan(mesh, True, ("data",))
@@ -768,6 +774,25 @@ def test_interop_places_reference_state_by_the_plan():
         placed = interop.model_params_from_arrays(_params(arch), cfg,
                                                   plan=plan)
         assert _equal_trees(placed, whole)
+        jm = JaxModel(_cfg(jax_get_arch, jax_reduced, arch))
+        want = dict(jax.tree_util.tree_leaves_with_path(
+            JaxPlan(AbstractMesh((2, 4), ("data", "model")), True,
+                    ("data",)).param_shardings(jm.param_logical_axes(),
+                                               jm.param_structs())))
+        want = {"/".join(k.key for k in path): tuple(ns.spec)
+                for path, ns in want.items()}
+        got = dict(tree_leaves(tree_map(
+            lambda path, p: ("/".join(path), p.spec), placed, path=())))
+        assert set(got) == set(want)
+        for k, spec in got.items():
+            assert spec[:len(want[k])] == want[k] and not any(
+                spec[len(want[k]):]), (k, spec, want[k])
+        if arch.startswith("jamba"):
+            core = placed["layers"]["pos1"]["core"]
+            assert core["in_proj"].spec == (None, "data",
+                                            "model")
+            assert core["A_log"].grid[1] == 4 and core["out_proj"].grid[
+                1:] == (4, 2)
         opt = optimizer_for(cfg)
         arrays = tree_map(lambda t: (t + 0.5).numpy()
                           if t.is_floating_point() else t.numpy(),

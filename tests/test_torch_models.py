@@ -702,10 +702,10 @@ def test_interop_round_trips_every_family(arch):
 
 def test_unported_model_options_raise_naming_the_roadmap():
     """A mesh runs attention and decode (tests/test_torch_mesh.py) and
-    trains the attention, MLP and MoE families
-    (tests/test_torch_mesh_train.py); a value that is not a ``Mesh``
-    raises, and training a family it does not cover (here xLSTM) with a
-    mesh set raises naming ROADMAP A14b."""
+    trains every family (tests/test_torch_mesh_train.py,
+    tests/test_torch_mesh_train_families.py); a value that is not a
+    ``Mesh`` raises, and xLSTM, once refused on a training mesh, trains
+    there to the unsharded loss."""
     from repro_torch.launch.mesh import make_local_mesh
     _, tm, _, tp = _model_pair("llama3.2-3b")
     q = torch.zeros((1, 4, 4, 16))
@@ -720,8 +720,11 @@ def test_unported_model_options_raise_naming_the_roadmap():
     loss, _ = meshed.forward_train(tp, {"tokens": torch.zeros(
         (1, 4), dtype=torch.int32)})
     assert torch.isfinite(loss)
-    xl = Model(reduced(get_arch("xlstm-1.3b")))
+    xl = Model(dataclasses.replace(reduced(get_arch("xlstm-1.3b")),
+                                   compute_dtype="float32"))
+    xp = xl.init(0, device=CPU)
+    tokens = {"tokens": torch.arange(4, dtype=torch.int32)[None]}
+    want, _ = xl.forward_train(xp, tokens)
     xl.mesh = meshed.mesh
-    with pytest.raises(NotImplementedError, match="A14b"):
-        xl.forward_train(xl.init(0, device=CPU), {"tokens": torch.zeros(
-            (1, 4), dtype=torch.int32)})
+    got, _ = xl.forward_train(xp, tokens)
+    assert abs(float(got) / float(want) - 1) <= 1e-5
